@@ -1,0 +1,39 @@
+"""Normalization primitives (NHWC), written out to match the JAX forms.
+
+`instance_norm` is `torch.nn.InstanceNorm2d(affine=False)` semantics with
+the JAX package's two numerics forms (its `ops/norms.py:16-42`):
+
+- fp32 input: two-pass statistics, mean then E[(x - mean)²];
+- bf16 input: one-pass fp32 statistics E[x²] - E[x]², the variance
+  clamped at 0 (the cancellation can dip below 0 for a near-constant
+  channel with a large mean, which would NaN the rsqrt).
+
+`l2_normalize` is `F.normalize(p=2)`: x / max(||x||, eps).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-(sample, channel) spatial standardization of an NHWC tensor."""
+    xf = x.float()
+    if x.dtype == torch.bfloat16:
+        n = x.shape[1] * x.shape[2]
+        mean = xf.sum(dim=(1, 2), keepdim=True) / n
+        var = torch.clamp(
+            (xf * xf).sum(dim=(1, 2), keepdim=True) / n - mean * mean,
+            min=0.0)
+        return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    mean = xf.mean(dim=(1, 2), keepdim=True)
+    d = xf - mean
+    var = (d * d).mean(dim=(1, 2), keepdim=True)
+    return (d * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||_2, eps) along `dim` (F.normalize semantics)."""
+    norm = torch.sqrt((x * x).sum(dim=dim, keepdim=True))
+    return x / torch.clamp(norm, min=eps)

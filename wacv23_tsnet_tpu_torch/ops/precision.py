@@ -1,0 +1,28 @@
+"""TF32 switch for cuBLAS and cuDNN around one operation.
+
+PyTorch runs fp32 matmuls in full fp32 by default but fp32 convolutions
+through cuDNN in TF32 (~3 decimal digits). The port states the tier of
+every fp32 product where it is made: `with tf32(False)` for the
+bit-parity tier and the similarity logits, `with tf32(True)` for the
+`precision="high"` convolutions. The flags are read when an operation is
+dispatched, so restoring them after the call is enough.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+@contextlib.contextmanager
+def tf32(enabled: bool):
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn

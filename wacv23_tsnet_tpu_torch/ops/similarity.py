@@ -1,0 +1,118 @@
+"""The transformation branch: mask-aware similarity -> coordinate flow.
+
+Counterpart of the JAX package's `ops/similarity.py`. For every target
+pixel t and source pixel u at feature resolution:
+
+    S[t, u]  = (mt*mu + (1-mt)*(1-mu)) * <tar_fea[t], src_fea[u]>
+    A        = softmax(temp * S, axis=u)           # temp = 100
+    flow[t]  = sum_u A[t, u] * grid[u]
+
+`masked_attention_flow` is the plain form (fp32 matmuls, TF32 off: temp
+100 multiplies any logit error by 100 inside exp).
+`transformation_warp_clip` and `transformation_warp_clip_mean` are the
+clip-inference entry points; they dispatch to the CUDA kernels of
+`ops/warp_kernels.py` (K3-nf and K1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .coords import normalized_grid
+from .grid_sample import grid_sample
+from .precision import tf32
+
+
+def _mask_coeff(tar_mask: torch.Tensor,
+                src_mask: torch.Tensor) -> torch.Tensor:
+    """(B, T) x (B, S) -> (B, T, S) same-region coefficient."""
+    mt = tar_mask[:, :, None]
+    ms = src_mask[:, None, :]
+    return mt * ms + (1.0 - mt) * (1.0 - ms)
+
+
+def masked_attention_flow(tar_fea, src_fea, tar_mask, src_mask, grid,
+                          temp: float = 100.0) -> torch.Tensor:
+    """Coordinate-translator flow.
+
+    tar_fea (B, T, C) and src_fea (B, S, C) L2-normalized; tar_mask (B, T);
+    src_mask (B, S); grid (S, 2). Returns (B, T, 2).
+    """
+    with tf32(False):
+        logits = torch.matmul(tar_fea.float(), src_fea.float().transpose(1, 2))
+        logits = logits * _mask_coeff(tar_mask.float(), src_mask.float())
+        attn = torch.softmax(temp * logits, dim=-1)
+        return torch.matmul(attn, grid.float())
+
+
+def transformation_warp(src_img_fea, tar_fea_n, src_fea_n, tar_mask, src_mask,
+                        temp: float = 100.0):
+    """Transformation branch for one source per sample (plain form).
+
+    src_img_fea (B, h, w, C) un-normalized; tar_fea_n, src_fea_n
+    (B, h, w, C) L2-normalized; masks (B, h, w).
+    Returns (warped (B, h, w, C), flow (B, h, w, 2)).
+    """
+    b, h, w, c = src_img_fea.shape
+    grid = normalized_grid(h, w, device=src_img_fea.device).reshape(h * w, 2)
+    flow = masked_attention_flow(
+        tar_fea_n.reshape(b, h * w, c), src_fea_n.reshape(b, h * w, c),
+        tar_mask.reshape(b, h * w), src_mask.reshape(b, h * w), grid,
+        temp=temp).reshape(b, h, w, 2)
+    return grid_sample(src_img_fea, flow), flow
+
+
+def _flat(src_fea, src_fea_n, src_mask, tar_fea_n, tar_mask):
+    """Clip inputs as the kernels' contiguous f32 (T, C) planes.
+
+    The port keeps NHWC storage, so an (h, w, C) feature map already is T
+    rows with C contiguous, as the kernels read it: the reshapes are
+    views (no permute at the kernel boundary)."""
+    s, h, w, c = src_fea.shape
+    f = tar_fea_n.shape[0]
+    t = h * w
+    rows = (src_fea.float().reshape(s, t, c),
+            tar_fea_n.float().reshape(f, t, c),
+            src_fea_n.float().reshape(s, t, c),
+            tar_mask.float().reshape(f, t), src_mask.float().reshape(s, t))
+    grid = normalized_grid(h, w, device=src_fea.device).reshape(t, 2)
+    return tuple(x.contiguous() for x in rows) + (grid,)
+
+
+def transformation_warp_clip(src_fea, src_fea_n, src_mask, tar_fea_n,
+                             tar_mask, temp: float = 100.0,
+                             use_kernels: bool = True) -> torch.Tensor:
+    """Every (source, frame) pair of a clip: (S, F, h, w, C) f32.
+
+    src_fea (S, h, w, C) un-normalized, src_fea_n its L2 normalization,
+    src_mask (S, h, w); tar_fea_n (F, h, w, C), tar_mask (F, h, w).
+    `use_kernels=False` runs the plain version on any device (the
+    reference the kernel is held against).
+    """
+    from .warp_kernels import (transform_warp_pairs_nf,
+                               transform_warp_pairs_plain)
+    s, h, w, c = src_fea.shape
+    f = tar_fea_n.shape[0]
+    fn = transform_warp_pairs_nf if use_kernels else transform_warp_pairs_plain
+    out = fn(*_flat(src_fea, src_fea_n, src_mask, tar_fea_n, tar_mask),
+             h, w, temp)
+    return out.reshape(s, f, h, w, c)
+
+
+def transformation_warp_clip_mean(src_fea, src_fea_n, src_mask, tar_fea_n,
+                                  tar_mask, temp: float = 100.0,
+                                  out_dtype=torch.float32,
+                                  use_kernels: bool = True) -> torch.Tensor:
+    """`transformation_warp_clip(...).mean(0)` without the per-pair tensor.
+
+    Returns (F, h, w, C) in `out_dtype` (bf16 for the fast tail).
+    """
+    from .warp_kernels import (transform_warp_mean_plain,
+                               transform_warp_pairs_mean)
+    _, h, w, c = src_fea.shape
+    f = tar_fea_n.shape[0]
+    fn = (transform_warp_pairs_mean if use_kernels
+          else transform_warp_mean_plain)
+    out = fn(*_flat(src_fea, src_fea_n, src_mask, tar_fea_n, tar_mask),
+             h, w, temp, out_dtype)
+    return out.reshape(f, h, w, c)
