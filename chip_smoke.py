@@ -22,7 +22,21 @@ non-zero, printing no result, where CUDA or the package is missing.
    versions, and frames/s, stage times and a profile are printed; last,
    how far the bench tier (and the bf16 tail alone) moves the output
    from the bit-parity tier.
-5. Prints one `kernels` JSON line, the card line again, and last
+5. Holds the training kernels against their plain versions at the train
+   shape (G=15 samples, NS=3 sources, NF=1, T=32x32, C=512): K3-flow
+   (warped features and flow, temp 100) and K4 (six cotangents at temps
+   10 and 100, against the plain version in fp32 and in float64, and
+   given the plain version's own flow).
+6. Drives the GAN train step (`train.make_train_step`) at the full width
+   of `face_config()`, bit-parity tier, batch 15: the first step from one
+   seeded state through the kernels and through the plain versions
+   (metrics and per-subnet gradients compared, at temp 10 and at the
+   config's 100), then 20 steps on a fixed
+   batch with the launch counts zeroed just before and read just after
+   (one K3-flow, one K4 and one K2 a step; no inference kernel), with
+   ms/step, samples/s, the CUDA-event stage split, peak memory and a
+   profile; the metrics must stay finite and G_VGG must fall.
+7. Prints one `kernels` JSON line, the card line again, and last
    `{"ok": true, "device": {...}}`.
 """
 
@@ -40,7 +54,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from wacv23_tsnet_tpu_torch.configs import face_config
 from wacv23_tsnet_tpu_torch.infer import RetargetSession
-from wacv23_tsnet_tpu_torch.models import TSNetModules, tsnet_forward_clip
+from wacv23_tsnet_tpu_torch.models import (TSNetModules, tsnet_forward,
+                                           tsnet_forward_clip)
 from wacv23_tsnet_tpu_torch.models.tsnet import encode_sources
 from wacv23_tsnet_tpu_torch.nn import fuse_clip
 from wacv23_tsnet_tpu_torch.ops import cuda_build
@@ -51,6 +66,8 @@ from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
 from wacv23_tsnet_tpu_torch.ops.resize import resize_nearest
 from wacv23_tsnet_tpu_torch.ops.similarity import (
     transformation_warp_clip, transformation_warp_clip_mean)
+from wacv23_tsnet_tpu_torch.train import (GEN_SUBNETS, create_train_state,
+                                          make_train_step)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -67,6 +84,36 @@ IN_TOL = {"f32": (1e-4, 0.0), "bf16": (1e-4, 2.0 ** -8)}
 
 CLIP_FRAMES = 64
 CHUNK = 32
+
+# K4 against autograd through the plain forward: each cotangent within
+# BWD_RTOL * max(1, max |reference|) (sums over target rows and sources in
+# another order, and the scatter into da by fp32 atomics). At temp 10,
+# K4 on K3-flow's flow against the plain version in fp32 and in float64.
+# At temp 100 the flow of random features sits near pixel centres, where
+# the bilinear warp's gradient jumps, and an fp32 flow (K3-flow's or the
+# plain version's) crosses a cell edge that the exact flow does not on a
+# row or two; each such row moves a cotangent by a few 1e-2 of its
+# largest. So at temp 100 K4 is held given the plain version's own flow
+# and lse, and the rest is printed with the count of such rows.
+BWD_RTOL = 2e-4
+TRAIN_BATCH = 15
+TRAIN_STEPS = 20
+TRAIN_LR = 2e-4
+# kernel path vs plain path on the first train step: metrics relative;
+# every subnet's gradient (relative L2) within 1e-3, or within
+# NUDGE_MARGIN times how far the plain path's own gradient moves when the
+# input images move by INPUT_NUDGE relative. The generator is a deep
+# fp32 net with ReLU/instance-norm kinks and L1 losses (sign gradients),
+# and at temp 100 warps whose gradients jump at pixel edges: with random
+# weights a rounding-level change of its inputs moves its gradients by
+# far more than 1e-3, and the kernels' rounding is such a change.
+STEP_METRIC_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
+INPUT_NUDGE = 1e-6
+NUDGE_MARGIN = 2.0
+TRAIN_KERNELS = ("transform_warp_pairs", "transform_warp_pairs_bwd",
+                 "instance_norm_mean")
+FORWARD_KEYS = ("src_img", "src_lbl", "src_bbox", "tar_lbl", "tar_bbox")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -101,6 +148,14 @@ def compare(got, want, tol) -> dict:
     bound = atol + rtol * want.float().abs()
     return {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
             "worst_err_over_tol": (err / bound).max().item()}
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least ms the card could take, and what bounds it."""
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = flops / FP32_FLOP_PER_S
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                         else "operations")
 
 
 def kernel_checks(line: str) -> dict:
@@ -138,7 +193,7 @@ def kernel_checks(line: str) -> dict:
             flops=warp_flops, tier=None),
         "transform_warp_pairs_nf": dict(
             kernel=lambda: wk.transform_warp_pairs_nf(*args, h, w),
-            plain=lambda: wk.transform_warp_pairs_plain(*args, h, w),
+            plain=lambda: wk.transform_warp_pairs_nf_plain(*args, h, w),
             tol=TOL["f32"], bytes=in_bytes + 4 * s * f * t * c,
             flops=warp_flops, tier="bit-parity",
             replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:262",
@@ -170,10 +225,7 @@ def kernel_checks(line: str) -> dict:
               f"{name} disagrees with its plain version: {res}")
         res["ms"] = time_ms(case["kernel"])
         res["plain_ms"] = time_ms(case["plain"], iters=3)
-        by_bytes = case["bytes"] / HBM_BYTES_PER_S
-        by_ops = case["flops"] / FP32_FLOP_PER_S
-        res["bound_ms"] = 1e3 * max(by_bytes, by_ops)
-        res["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        res["bound_ms"], res["bound_by"] = bound(case["bytes"], case["flops"])
         res.update({k: case[k] for k in ("tier", "replaces", "source")
                     if k in case})
         results[name] = res
@@ -188,10 +240,9 @@ def kernel_checks(line: str) -> dict:
 
 
 def device_breakdown(forward, tier: str, top: int = 12) -> dict:
-    """Device time of one clip forward by kernel (torch.profiler/CUPTI),
-    summed over kernels (one stream, so they do not overlap), its share of
-    the same profiled forward's host-clock time, and the kernels that take
-    the most."""
+    """Device time of one call by kernel (torch.profiler/CUPTI): the time
+    some kernel ran, its share of the same profiled call's host-clock
+    time, and the kernels that take the most."""
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -199,10 +250,17 @@ def device_breakdown(forward, tier: str, top: int = 12) -> dict:
         forward()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages() if e.device_type == cuda]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_us = sum(e.self_device_time_total for e in rows)
+    # busy time: the union of the kernels' intervals, so that kernels
+    # that overlap (another stream) are not counted twice
+    busy_us, last_end = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end)
+                             for e in prof.events() if e.device_type == cuda):
+        if end > last_end:
+            busy_us += end - max(start, last_end)
+            last_end = end
     for e in rows[:top]:
         print(f"[profile] {tier}: {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:110]}")
@@ -383,6 +441,312 @@ def main_path(line: str) -> dict:
     return report
 
 
+def flow_cells(flow, h: int, w: int) -> torch.Tensor:
+    """The pixel cell (floor of grid_sample's unnormalised x, y) that each
+    flow row (..., 2) samples in an h x w map."""
+    return torch.stack([torch.floor(((flow[..., 0] + 1) * w - 1) / 2),
+                        torch.floor(((flow[..., 1] + 1) * h - 1) / 2)], -1)
+
+
+def train_kernel_checks(line: str) -> dict:
+    """K3-flow and K4 against their plain versions at the train shape."""
+    dev = torch.device("cuda")
+    g, ns, nf, h, w, c = TRAIN_BATCH, 3, 1, 32, 32, 512
+    t, pairs = h * w, TRAIN_BATCH * 3
+    gen = torch.Generator().manual_seed(1)
+    src = torch.randn(g, ns, t, c, generator=gen)
+    args = tuple(x.to(dev).contiguous() for x in (
+        src, l2_normalize(torch.randn(g, nf, t, c, generator=gen)),
+        l2_normalize(src), (torch.rand(g, nf, t, generator=gen) > 0.5).float(),
+        (torch.rand(g, ns, t, generator=gen) > 0.5).float(),
+        normalized_grid(h, w).reshape(t, 2)))
+    in_bytes = 4 * (2 * g * ns * t * c + g * nf * t * c + g * ns * t
+                    + g * nf * t + 2 * t)
+    results = {}
+
+    # K3-flow, temp 100 (the config's)
+    fwd = lambda: wk.transform_warp_pairs_fwd(*args, h, w)  # noqa: E731
+    plain = lambda: wk.transform_warp_pairs_plain(*args, h, w)  # noqa: E731
+    got, want = fwd(), plain()
+    torch.cuda.synchronize()
+    errs = [compare(a, b, TOL["f32"]) for a, b in zip(got[:2], want[:2])]
+    res = {k: max(e[k] for e in errs) for k in errs[0]}
+    check(res["worst_err_over_tol"] <= 1.0,
+          f"transform_warp_pairs disagrees with its plain version: {errs}")
+    res["ms"] = time_ms(fwd)
+    res["plain_ms"] = time_ms(plain, iters=3)
+    res["bound_ms"], res["bound_by"] = bound(
+        in_bytes + 4 * pairs * t * (c + 3),
+        pairs * t * (2 * t * c + 10 * t + 8 * c))
+    res.update(replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:262",
+               source="wacv23_tsnet_tpu_torch/csrc/transform_warp.cu")
+    results["transform_warp_pairs"] = res
+    print(f"[kernel] transform_warp_pairs (K3-flow, warped + flow, temp 100):"
+          f" max_abs_err={res['max_abs_err']:.3e} "
+          f"mean_abs_err={res['mean_abs_err']:.3e} (atol, rtol)="
+          f"{TOL['f32']} kernel_ms={res['ms']:.4f} "
+          f"plain_ms={res['plain_ms']:.4f} library_ms=none "
+          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) | {line}",
+          flush=True)
+
+    # K4: six cotangents, against autograd through the plain forward in
+    # fp32 and in float64 (the exact reference), at temp 10 and 100
+    gw = torch.randn(g, ns, nf, t, c, generator=gen).to(dev)
+    gf = torch.randn(g, ns, nf, t, 2, generator=gen).to(dev)
+    names = ("src_fea", "tar_fea_n", "src_fea_n", "tar_mask", "src_mask",
+             "grid")
+
+    def rel_err(got, want):
+        return {n: ((a.double() - b.double()).abs().max()
+                    / max(1.0, b.abs().max().item())).item()
+                for n, a, b in zip(names, got, want)}
+
+    for temp in (10.0, 100.0):
+        _, flow, lse = wk.transform_warp_pairs_fwd(*args, h, w, temp)
+        bwd = lambda: wk.transform_warp_pairs_bwd(  # noqa: E731
+            *args, flow, lse, gw, gf, h, w, temp)
+        got = bwd()
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x).all()) for x in got),
+              f"transform_warp_pairs_bwd: non-finite cotangent at temp {temp}")
+        want = wk.transform_warp_pairs_bwd_plain(*args, gw, gf, h, w, temp)
+        exact = wk.transform_warp_pairs_bwd_plain(*args, gw, gf, h, w, temp,
+                                                  dtype=torch.float64)
+        flow64 = wk.transform_warp_pairs_plain(*args, h, w, temp,
+                                               dtype=torch.float64)[1]
+        _, flow32, lse32 = wk.transform_warp_pairs_plain(*args, h, w, temp)
+        # K4 given the plain version's own flow and lse, which the plain
+        # backward differentiates at: its arithmetic alone
+        same_flow = wk.transform_warp_pairs_bwd(*args, flow32, lse32, gw, gf,
+                                                h, w, temp)
+        # rows whose flow lies in another pixel cell than the exact flow's:
+        # the bilinear warp's gradient jumps at a cell edge
+        moved = {name: int((flow_cells(f, h, w) != flow_cells(flow64, h, w)
+                            ).any(-1).sum())
+                 for name, f in (("kernel", flow), ("plain", flow32))}
+        rel = {"kernel_vs_plain": rel_err(got, want),
+               "kernel_on_plain_flow_vs_plain": rel_err(same_flow, want),
+               "kernel_vs_float64": rel_err(got, exact),
+               "plain_vs_float64": rel_err(want, exact),
+               "rows_in_another_cell_than_float64": moved, "rows": g * ns * t}
+        print(f"[kernel] transform_warp_pairs_bwd (K4) temp {temp}: error "
+              f"over max(1, max|reference|) per cotangent {json.dumps(rel)}",
+              flush=True)
+        check(max(rel["kernel_on_plain_flow_vs_plain"].values()) <= BWD_RTOL,
+              f"transform_warp_pairs_bwd disagrees with its plain version "
+              f"given the same flow at temp {temp}: {rel}")
+        if temp == 10.0:
+            check(max(rel["kernel_vs_plain"].values()) <= BWD_RTOL
+                  and max(rel["kernel_vs_float64"].values()) <= BWD_RTOL,
+                  f"transform_warp_pairs_bwd disagrees with its plain "
+                  f"version at temp 10: {rel}")
+            res = {"max_abs_err": max((a - b).abs().max().item()
+                                      for a, b in zip(got, want)),
+                   "rel_err": max(rel["kernel_vs_plain"].values())}
+        del want, exact, flow64, flow32, lse32, same_flow
+    # timed at the config's temp 100
+    res["ms"] = time_ms(bwd)
+    res["plain_ms"] = time_ms(lambda: wk.transform_warp_pairs_bwd_plain(
+        *args, gw, gf, h, w, temp), iters=3)
+    res["bound_ms"], res["bound_by"] = bound(
+        in_bytes + 4 * pairs * t * (c + 5)          # flow, lse, gw, gf
+        + 4 * (2 * g * ns * t * c + g * nf * t * c + g * ns * t + g * nf * t
+               + 2 * t),                             # the six cotangents
+        pairs * t * t * (6 * c + 20))
+    res.update(replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:824",
+               source="wacv23_tsnet_tpu_torch/csrc/transform_warp_bwd.cu")
+    results["transform_warp_pairs_bwd"] = res
+    print(f"[kernel] transform_warp_pairs_bwd (K4, six cotangents): "
+          f"max_abs_err={res['max_abs_err']:.3e} (temp 10, rtol "
+          f"{BWD_RTOL} of max(1, max|plain|)) kernel_ms={res['ms']:.4f} "
+          f"plain_ms={res['plain_ms']:.4f} library_ms=none "
+          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) | {line}",
+          flush=True)
+    return results
+
+
+def train_batch(cfg, bs: int, seed: int = 0) -> dict:
+    """A random face batch made from a numpy seed, on the card."""
+    rng = np.random.default_rng(seed)
+    s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
+    arrays = {"src_img": rng.random((bs, s, hw, hw, 3), np.float32),
+              "src_lbl": rng.integers(0, 2, (bs, s, hw, hw, nl)),
+              "src_bbox": rng.integers(0, 2, (bs, s, hw, hw)),
+              "tar_img": rng.random((bs, hw, hw, 3), np.float32),
+              "tar_lbl": rng.integers(0, 2, (bs, hw, hw, nl)),
+              "tar_bbox": rng.integers(0, 2, (bs, hw, hw))}
+    return {k: torch.as_tensor(v.astype(np.float32), device="cuda")
+            for k, v in arrays.items()}
+
+
+def grads_of(state, names=GEN_SUBNETS + ("netD",)) -> dict:
+    """Each subnet's gradients, flattened into one vector."""
+    return {name: torch.cat([p.grad.flatten() for p in
+                             getattr(state.mods, name).parameters()
+                             if p.grad is not None])
+            for name in names}
+
+
+def generator_vjp(state, batch: dict, rec_ct, use_kernels: bool) -> dict:
+    """Each generator subnet's gradient of sum(rec_img * rec_ct) +
+    loss_warp + loss_align, from one forward of the state's modules."""
+    state.gen_opt.zero_grad(set_to_none=True)
+    out = tsnet_forward(state.mods, *(batch[k] for k in FORWARD_KEYS),
+                        tar_img=batch["tar_img"], train=True,
+                        use_kernels=use_kernels)
+    ((out["rec_img"] * rec_ct).sum() + out["loss_warp"]
+     + out["loss_align"]).backward()
+    return grads_of(state, GEN_SUBNETS)
+
+
+def train_phase(line: str) -> dict:
+    """The GAN train step at the full width of face_config(), batch 15."""
+    cfg = face_config()
+    torch.cuda.empty_cache()
+    batch = train_batch(cfg, TRAIN_BATCH)
+
+    # the first step from one seeded state through the kernels, through
+    # the plain versions, and through the plain versions with the input
+    # images moved by 1e-6 relative (how far rounding-level input changes
+    # move the gradients), at temp 10 and at the config's 100; the
+    # temp-100 kernel state goes on into the main path
+    gen = torch.Generator().manual_seed(2)
+    dev = batch["tar_img"].device
+    rec_ct = torch.randn(batch["tar_img"].shape, generator=gen).to(dev)
+    nudged = dict(batch)
+    for k in ("src_img", "tar_img"):
+        nudged[k] = batch[k] * (1 + INPUT_NUDGE * torch.randn(
+            batch[k].shape, generator=gen).to(dev))
+    paths = {"plain": (False, batch), "nudged": (False, nudged),
+             "kernel": (True, batch)}
+    for temp in (10.0, cfg.softmax_temp):
+        tcfg = dataclasses.replace(cfg, softmax_temp=temp)
+        runs = {}
+        for name, (use_kernels, data) in paths.items():
+            state = create_train_state(tcfg, device="cuda", seed=0)
+            with torch.no_grad():
+                flows = tsnet_forward(state.mods, *(data[k] for k in
+                                                    FORWARD_KEYS),
+                                      use_kernels=use_kernels,
+                                      return_flow=True)["flows"]
+            vjp = generator_vjp(state, data, rec_ct, use_kernels)
+            step = make_train_step(state, use_kernels=use_kernels)
+            cuda_build.reset_launches()
+            _, metrics, _ = step(state, data, TRAIN_LR)
+            torch.cuda.synchronize()
+            launches = dict(cuda_build.LAUNCHES)
+            check(all(launches[k] == int(use_kernels) for k in TRAIN_KERNELS)
+                  and sum(launches.values()) == 3 * int(use_kernels),
+                  f"train: first step's launches on the {name} path: "
+                  f"{launches}")
+            runs[name] = {"metrics": {k: v.item() for k, v in metrics.items()},
+                          "step": grads_of(state), "vjp": vjp, "flows": flows}
+            if not (use_kernels and temp == cfg.softmax_temp):
+                del state, step
+                torch.cuda.empty_cache()
+
+        def rel_l2(name, kind):
+            return {k: ((v - runs["plain"][kind][k]).norm()
+                        / runs["plain"][kind][k].norm()).item()
+                    for k, v in runs[name][kind].items()}
+
+        mp = runs["plain"]["metrics"]
+        err = {"metrics": {k: abs(v - mp[k]) / max(1.0, abs(mp[k]))
+                           for k, v in runs["kernel"]["metrics"].items()}}
+        for name in ("kernel", "nudged"):
+            for kind in ("step", "vjp"):
+                err[f"{name}_{kind}"] = rel_l2(name, kind)
+            # flow rows in another pixel cell than on the plain path (the
+            # warps' gradients jump at a cell edge)
+            fh, fw = runs[name]["flows"].shape[2:4]
+            err[f"{name}_flow_rows_in_another_cell"] = int((
+                flow_cells(runs[name]["flows"], fh, fw)
+                != flow_cells(runs["plain"]["flows"], fh, fw)).any(-1).sum())
+        del runs
+        print(f"[train] first step at temp {temp}, kernel path and nudged "
+              f"plain path vs plain path (gradients relative L2; vjp: the "
+              f"generator's given one cotangent): {json.dumps(err)}",
+              flush=True)
+        check(max(err["metrics"].values()) <= STEP_METRIC_RTOL,
+              f"train: first-step metrics at temp {temp}, kernel vs plain "
+              f"path: {err['metrics']}")
+        check(err["kernel_step"]["netD"] <= STEP_GRAD_RTOL,
+              f"train: first-step netD gradient at temp {temp}, kernel vs "
+              f"plain path: {err['kernel_step']}")
+        for kind in ("step", "vjp"):
+            worst = {k: v for k, v in err[f"kernel_{kind}"].items()
+                     if v > max(STEP_GRAD_RTOL,
+                                NUDGE_MARGIN * err[f"nudged_{kind}"][k])}
+            check(not worst, f"train: first-step {kind} gradients at temp "
+                  f"{temp}, kernel vs plain path, beyond the nudged path's "
+                  f"spread: {worst}")
+
+    # the main path: TRAIN_STEPS steps on the fixed batch
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    history, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, metrics, rec = step(state, batch, TRAIN_LR)
+        history.append({k: v.item() for k, v in metrics.items()})
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    check(all(per_step[k] == 1 for k in TRAIN_KERNELS),
+          f"train: launches per step {per_step}")
+    check(per_step["transform_warp_pairs_mean"] == 0
+          and per_step["transform_warp_pairs_nf"] == 0,
+          f"train: launched an inference kernel: {per_step}")
+    check(all(np.isfinite(v) for h in history for v in h.values()),
+          "train: non-finite metric")
+    check(tuple(rec.shape) == (TRAIN_BATCH, cfg.image_size, cfg.image_size, 3),
+          "train: reconstruction shape")
+    vgg = [h["G_VGG"] for h in history]
+    check(np.mean(vgg[-5:]) < np.mean(vgg[:5]),
+          f"train: G_VGG did not fall: {vgg}")
+    # ms/step without the first (its host-side allocations settle)
+    ms = float(np.mean(step_ms[1:]))
+    print(f"[train] {TRAIN_STEPS} steps at batch {TRAIN_BATCH}: "
+          f"{ms:.2f} ms/step, {TRAIN_BATCH / ms * 1e3:.2f} samples/s, peak "
+          f"memory {peak_gb:.2f} GB; G_VGG first5 {np.mean(vgg[:5]):.4f} "
+          f"last5 {np.mean(vgg[-5:]):.4f}; D first5 "
+          f"{np.mean([h['D'] for h in history[:5]]):.4f} last5 "
+          f"{np.mean([h['D'] for h in history[-5:]]):.4f}; launches per step "
+          f"{json.dumps(per_step)} | {line}", flush=True)
+    print(f"[train] metrics of the last step: {json.dumps(history[-1])}",
+          flush=True)
+
+    # CUDA-event stage split of one more step, then a profile of one
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    timed = make_train_step(state, mark=mark)
+    mark("start")
+    timed(state, batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    stages = {name: marks[i - 1][1].elapsed_time(ev)
+              for i, (name, ev) in enumerate(marks) if i}
+    split = {"g_forward": stages["g_forward"], "d_phase": stages["d_phase"],
+             "g_loss_backward": stages["g_loss_backward"],
+             "optimizer_steps": stages["d_opt"] + stages["g_opt"]}
+    print(f"[train] stage split (CUDA events, ms): {json.dumps(split)} | "
+          f"{line}", flush=True)
+    prof = device_breakdown(lambda: step(state, batch, TRAIN_LR), "train",
+                            top=15)
+    print(f"[train] profile of one step: {json.dumps(prof)} | {line}",
+          flush=True)
+    return {"launches": launches, "ms_per_step": ms,
+            "samples_per_s": TRAIN_BATCH / ms * 1e3, "peak_mem_gb": peak_gb,
+            "stage_ms": split, **prof}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -405,11 +769,17 @@ def main() -> int:
                 print(f"[ptxas] {name}: {text.strip()}")
 
     kernels = kernel_checks(line)
+    train_kernels = train_kernel_checks(line)
     report = main_path(line)
+    report["train"] = train_phase(line)
 
     rows = []
+    for name, k in train_kernels.items():
+        kernels[name] = dict(k, tier="train")
     for name, k in kernels.items():
-        if k.get("tier") is None:
+        # K2 is one kernel: its row is the f32 form, on the bit-parity
+        # clip path (the bf16 form is checked and printed above)
+        if k.get("tier") is None or name == "instance_norm_mean_bf16":
             continue
         rows.append({
             "name": name, "route": "cuda", "source": k["source"],

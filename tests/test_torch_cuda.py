@@ -6,20 +6,31 @@ where only PyTorch is installed; there, skip the JAX-pinning conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Small and ragged shapes here (the tile edges: T not a multiple of 64,
-C not a multiple of 32); chip_smoke.py checks the main path's shapes.
+C not a multiple of 32, and past the backward's 512-channel slab), and
+the train shape of the backward; chip_smoke.py checks the main path's
+shapes.
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from wacv23_tsnet_tpu_torch.configs import toy_config
+from wacv23_tsnet_tpu_torch.nn.blocks import conv2d
 from wacv23_tsnet_tpu_torch.ops import cuda_build
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
 from wacv23_tsnet_tpu_torch.ops.norm_kernels import (instance_norm_mean,
                                                      instance_norm_mean_plain)
 from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
 from wacv23_tsnet_tpu_torch.ops.warp_kernels import (
-    transform_warp_mean_plain, transform_warp_pairs_mean,
-    transform_warp_pairs_nf, transform_warp_pairs_plain)
+    transform_warp_mean_plain, transform_warp_pairs,
+    transform_warp_pairs_bwd, transform_warp_pairs_bwd_plain,
+    transform_warp_pairs_fwd, transform_warp_pairs_mean,
+    transform_warp_pairs_nf, transform_warp_pairs_nf_plain,
+    transform_warp_pairs_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -64,7 +75,7 @@ def test_warp_pairs_nf_kernel(dev, shape):
     got = transform_warp_pairs_nf(*args, h, w)
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES["transform_warp_pairs_nf"] == 1
-    _assert_close(got, transform_warp_pairs_plain(*args, h, w))
+    _assert_close(got, transform_warp_pairs_nf_plain(*args, h, w))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -106,3 +117,171 @@ def test_instance_norm_mean_refuses_a_plane_past_shared_memory(dev):
         instance_norm_mean(torch.randn(1, 1, 64, 64, 32, device=dev))
     x = torch.randn(2, 2, 8, 8, 32, device=dev)
     _assert_close(instance_norm_mean(x), instance_norm_mean_plain(x))
+
+
+def _pairs_inputs(dev, g, ns, nf, h, w, c, seed=3):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    t = h * w
+    src = torch.randn(g, ns, t, c, generator=gen)
+    args = (src, l2_normalize(torch.randn(g, nf, t, c, generator=gen)),
+            l2_normalize(src), (torch.rand(g, nf, t, generator=gen) > 0.5
+                                ).float(),
+            (torch.rand(g, ns, t, generator=gen) > 0.5).float(),
+            normalized_grid(h, w).reshape(t, 2))
+    return tuple(x.to(dev).contiguous() for x in args)
+
+
+PAIRS = [(2, 2, 1, 16, 16, 64), (1, 3, 2, 10, 10, 40), (2, 1, 2, 9, 7, 600)]
+
+
+@pytest.mark.parametrize("shape", PAIRS)
+def test_warp_pairs_flow_kernel(dev, shape):
+    """K3-flow: warped, flow and the row log-sum-exp."""
+    g, ns, nf, h, w, c = shape
+    args = _pairs_inputs(dev, *shape)
+    cuda_build.reset_launches()
+    got = transform_warp_pairs_fwd(*args, h, w)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["transform_warp_pairs"] == 1
+    for a, b in zip(got, transform_warp_pairs_plain(*args, h, w)):
+        _assert_close(a, b)
+
+
+def _assert_cotangents_close(got, want, rtol=2e-4):
+    """Each cotangent within rtol * max(1, max |reference|): sums over T
+    rows and sources in another order (and da's scatter by atomics)."""
+    names = ("src_fea", "tar_fea_n", "src_fea_n", "tar_mask", "src_mask",
+             "grid")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        scale = max(1.0, b.abs().max().item())
+        err = (a - b).abs().max().item()
+        assert err <= rtol * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("temp", [10.0, 100.0])
+@pytest.mark.parametrize("shape", PAIRS + [(15, 3, 1, 32, 32, 512)],
+                         ids=["small", "ragged", "wide", "train"])
+def test_warp_pairs_bwd_kernel(dev, shape, temp):
+    """K4 against autograd through the plain forward, given the plain
+    forward's own flow and log-sum-exp; at temp 10 also on K3-flow's
+    flow. (At temp 100 the flow of random features sits near pixel
+    centres, where the bilinear warp's gradient jumps, and two fp32 flows
+    may fall in different cells; chip_smoke.py counts such rows.)"""
+    g, ns, nf, h, w, c = shape
+    args = _pairs_inputs(dev, *shape, seed=4)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    g_warped = torch.randn(g, ns, nf, h * w, c, generator=gen).to(dev)
+    g_flow = torch.randn(g, ns, nf, h * w, 2, generator=gen).to(dev)
+    want = transform_warp_pairs_bwd_plain(*args, g_warped, g_flow, h, w, temp)
+    _, plain_flow, plain_lse = transform_warp_pairs_plain(*args, h, w, temp)
+    _, flow, lse = transform_warp_pairs_fwd(*args, h, w, temp)
+    flows = [(plain_flow, plain_lse)] + ([(flow, lse)] if temp == 10.0 else [])
+    for fl, ls in flows:
+        cuda_build.reset_launches()
+        got = transform_warp_pairs_bwd(*args, fl, ls, g_warped, g_flow, h, w,
+                                       temp)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["transform_warp_pairs_bwd"] == 1
+        assert all(bool(torch.isfinite(x).all()) for x in got)
+        _assert_cotangents_close(got, want)
+
+
+def test_warp_pairs_autograd_runs_both_kernels(dev):
+    g, ns, nf, h, w, c = PAIRS[0]
+    args = [x.requires_grad_(True) if i < 3 else x
+            for i, x in enumerate(_pairs_inputs(dev, *PAIRS[0], seed=6))]
+    cuda_build.reset_launches()
+    warped, flow = transform_warp_pairs(*args, h, w, temp=10.0)
+    (warped.square().sum() + flow.sin().sum()).backward()
+    assert cuda_build.LAUNCHES["transform_warp_pairs"] == 1
+    assert cuda_build.LAUNCHES["transform_warp_pairs_bwd"] == 1
+    plain = [x.detach().clone().requires_grad_(True) for x in args[:3]]
+    pw, pf, _ = transform_warp_pairs_plain(*plain, *args[3:], h, w, 10.0)
+    (pw.square().sum() + pf.sin().sum()).backward()
+    _assert_cotangents_close([x.grad for x in args[:3]],
+                             [x.grad for x in plain])
+
+
+def test_instance_norm_mean_gradient(dev):
+    """K2's backward (the recomputed plain composition) against autograd
+    through the plain version."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    x = (torch.randn(3, 2, 8, 8, 64, generator=gen) * 2 + 1).to(dev)
+    g = torch.randn(2, 8, 8, 64, generator=gen).to(dev)
+    xk = x.clone().requires_grad_(True)
+    cuda_build.reset_launches()
+    instance_norm_mean(xk).backward(g)
+    assert cuda_build.LAUNCHES["instance_norm_mean"] == 1
+    xp = x.clone().requires_grad_(True)
+    instance_norm_mean_plain(xp).backward(g)
+    assert (xk.grad - xp.grad).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("stride,padding", [(1, 0), (2, 1)])
+def test_bit_parity_conv_gradient_is_fp32(dev, stride, padding):
+    """precision="highest": grad-input and grad-weight against a float64
+    CPU reference at 1e-5 relative; a TF32 backward (~1e-3) fails this,
+    and cuDNN's process default for fp32 convolutions is TF32."""
+    assert torch.backends.cudnn.allow_tf32
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    x = torch.randn(4, 32, 32, 256, generator=gen)
+    wt = torch.randn(256, 256, 3, 3, generator=gen) * 0.05
+    gy = torch.randn(4, (32 + 2 * padding - 3) // stride + 1,
+                     (32 + 2 * padding - 3) // stride + 1, 256,
+                     generator=gen)
+    xs, ws = (v.to(dev).requires_grad_(True) for v in (x, wt))
+    conv2d(xs, ws, None, stride, padding, precision="highest").backward(
+        gy.to(dev))
+    xd, wd = (v.double().requires_grad_(True) for v in (x, wt))
+    F.conv2d(xd.permute(0, 3, 1, 2), wd, None, stride, padding).backward(
+        gy.double().permute(0, 3, 1, 2))
+    for got, want in ((xs.grad, xd.grad), (ws.grad, wd.grad)):
+        rel = ((got.double().cpu() - want).norm() / want.norm()).item()
+        assert rel <= 1e-5, rel
+
+
+def _toy_batch(cfg, bs=2, seed=0):
+    rng = np.random.default_rng(seed)
+    s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
+    return {"src_img": rng.random((bs, s, hw, hw, 3), np.float32),
+            "src_lbl": rng.integers(0, 2, (bs, s, hw, hw, nl)).astype(
+                np.float32),
+            "src_bbox": rng.integers(0, 2, (bs, s, hw, hw)).astype(
+                np.float32),
+            "tar_img": rng.random((bs, hw, hw, 3), np.float32),
+            "tar_lbl": rng.integers(0, 2, (bs, hw, hw, nl)).astype(
+                np.float32),
+            "tar_bbox": rng.integers(0, 2, (bs, hw, hw)).astype(np.float32)}
+
+
+def test_toy_train_step_kernel_path_matches_plain_path(dev):
+    from wacv23_tsnet_tpu_torch.train import (create_train_state,
+                                              make_train_step)
+    cfg = dataclasses.replace(toy_config(), image_size=128)
+    batch = _toy_batch(cfg)
+    results = []
+    for use_kernels in (True, False):
+        state = create_train_state(cfg, device="cuda", seed=0)
+        step = make_train_step(state, use_kernels=use_kernels)
+        cuda_build.reset_launches()
+        _, metrics, _ = step(state, batch, 2e-4)
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.LAUNCHES)
+        grads = {name: torch.cat([p.grad.flatten() for p in
+                                  getattr(state.mods, name).parameters()
+                                  if p.grad is not None])
+                 for name in ("img_enc", "lbl_enc", "fuse_net", "dec", "netD")}
+        results.append(({k: v.item() for k, v in metrics.items()}, grads))
+        if use_kernels:
+            assert launches["transform_warp_pairs"] == 1
+            assert launches["transform_warp_pairs_bwd"] == 1
+            assert launches["instance_norm_mean"] == 1
+        else:
+            assert set(launches.values()) == {0}
+    (mk, gk), (mp, gp) = results
+    for k in mk:
+        assert abs(mk[k] - mp[k]) <= 1e-4 * max(1.0, abs(mp[k])), k
+    for name in gk:
+        rel = ((gk[name] - gp[name]).norm() / gp[name].norm()).item()
+        assert rel <= 1e-3, (name, rel)

@@ -25,6 +25,7 @@ from wacv23_tsnet_tpu_torch.compat import load_flax_params
 from wacv23_tsnet_tpu_torch.configs import toy_config
 from wacv23_tsnet_tpu_torch.infer import RetargetSession
 from wacv23_tsnet_tpu_torch.models import TSNetModules, tsnet_forward_clip
+from wacv23_tsnet_tpu_torch.train import create_train_state
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -166,6 +167,8 @@ def test_entry_points_default_to_cuda():
                            z[..., 0])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RetargetSession(mods, z, z[..., :2], z[..., 0])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(toy_config())
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -196,4 +199,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20
+    # the clip slice's modules and the train slice's (losses, nn.vgg,
+    # nn.discriminator, ops.warp, train)
+    assert int(proc.stdout.strip()) >= 33

@@ -7,7 +7,14 @@ names for their submodules, so a tree path `img_enc/block0/conv1/kernel`
 is the state-dict key `img_enc.block0.conv1.weight`, with the kernel
 transposed HWIO -> OIHW (as the JAX package's `compat/torch_export.py`
 does for the reference checkpoint format). Works on `TSNetModules` and
-on any one subnet (`Encoder`, `FuseNet`, `Decoder`, `ResnetBlock`).
+on any one subnet (`Encoder`, `FuseNet`, `Decoder`, `ResnetBlock`), the
+discriminator (`PatchDiscriminator`: `stage{i}`) and the perceptual
+network (`VGG19Features`: `conv{i}`).
+
+For training, `load_train_state` carries a JAX train state's three trees
+(generator `{img_enc, lbl_enc, dec, fuse_net}`, discriminator `{netD}`,
+VGG `{"params": {conv{i}}}`) into a port `TrainState`, and
+`export_train_state` gives them back.
 """
 
 from __future__ import annotations
@@ -62,3 +69,21 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> None:
 def export_flax_params(module: nn.Module) -> dict:
     """The module's parameters as a flax-layout tree of numpy arrays."""
     return state_dict_to_flax(module.state_dict())
+
+
+def load_train_state(state, gen_params: Mapping, disc_params: Mapping,
+                     vgg_params: Mapping | None = None) -> None:
+    """Copy a JAX train state's parameter trees into a port `TrainState`
+    (every parameter of the modules, exactly). The Adam moments are left
+    as they are."""
+    load_flax_params(state.mods, {**gen_params, **disc_params})
+    if vgg_params is not None:
+        load_flax_params(state.vgg, vgg_params.get("params", vgg_params))
+
+
+def export_train_state(state) -> tuple[dict, dict, dict]:
+    """(gen_params, disc_params, vgg_params) of a port `TrainState` in the
+    JAX package's layout, numpy leaves."""
+    tree = export_flax_params(state.mods)
+    disc = {"netD": tree.pop("netD")}
+    return tree, disc, {"params": export_flax_params(state.vgg)}

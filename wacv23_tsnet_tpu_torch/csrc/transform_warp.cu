@@ -6,14 +6,19 @@
 //                 and _pairs_mean_bigt_pallas/_mean_bigt_kernel): the mean
 //                 over sources of the warped features, (F, T, C) in f32 or
 //                 bf16; the per-pair tensor is never written.
-//   MEAN = false: transform_warp_pairs_nf (_pairs_pallas/_pair_kernel
-//                 without the flow output): every (source, frame) pair,
-//                 (S, F, T, C) in f32.
+//   MEAN = false: _pairs_pallas/_pair_kernel, every (group, source, frame)
+//                 pair, (G, S, F, T, C) in f32; with the flow output
+//                 (transform_warp_pairs, the training forward) it also
+//                 writes the flow (G, S, F, T, 2) and each row's softmax
+//                 log-sum-exp (G, S, F, T), which the flash backward
+//                 (transform_warp_bwd.cu) reads instead of recomputing the
+//                 row statistics; without it (transform_warp_pairs_nf) only
+//                 the warped features.
 //
-// For each target pixel t of frame f and each source s:
-//   z[t, u]  = temp * <tar_n[f, t], src_n[s, u]> * (mt*ms + (1-mt)(1-ms))
+// For each target pixel t of frame f and each source s of group g:
+//   z[t, u]  = temp * <tar_n[g, f, t], src_n[g, s, u]> * (mt*ms + (1-mt)(1-ms))
 //   flow[t]  = sum_u softmax_u(z[t, :]) * grid[u]
-//   warp[t]  = zeros-padded bilinear sample of src[s] at flow[t]
+//   warp[t]  = zeros-padded bilinear sample of src[g, s] at flow[t]
 // The mask enters as a multiplicative coefficient on the logit: a
 // cross-region pair gets logit 0, not -inf.
 //
@@ -23,21 +28,23 @@
 // fp32 FMAs on the CUDA cores, never TF32 or bf16 tensor-core products.
 // Memory traffic is small beside that (~3 MB a frame for the mean form).
 //
-// Design: one block takes one frame and a tile of TM = 64 target rows.
-// Per source it streams the normalised source rows through shared memory
-// in chunks of TN = 64 rows x KC = 32 channels (a whole source, 1024 x 512
-// f32 = 2 MB, does not fit), each of the 256 threads accumulating a 4 x 4
-// register tile of logits with rows and columns strided by 16 (so the
-// shared-memory reads are conflict-free). Each thread keeps an online
-// softmax (running max, sum and the 2-float flow numerator) over its own
-// columns; after the last chunk the 16 column owners of a row merge theirs
-// with warp shuffles. The flow becomes four corner indices and weights per
-// (source, row), kept in shared memory. A second phase gathers the four
-// neighbours of the un-normalised source rows (a 4-tap gather, not the
-// TPU's dense tent-weight matmul), channel-contiguous across threads, and
-// either averages over sources in registers (MEAN) or writes each pair.
-// Rows and columns past T and channels past C are masked, so any T and C
-// run without a fallback.
+// Design: one block takes one (group, frame) and a tile of TM = 64 target
+// rows. Per source it streams the normalised source rows through shared
+// memory in chunks of TN = 64 rows x KC = 32 channels (a whole source,
+// 1024 x 512 f32 = 2 MB, does not fit), each of the 256 threads
+// accumulating a 4 x 4 register tile of logits with rows and columns
+// strided by 16 (so the shared-memory reads are conflict-free). Each
+// thread keeps an online softmax (running max, sum and the 2-float flow
+// numerator) over its own columns; after the last chunk the 16 column
+// owners of a row merge theirs with warp shuffles. The flow becomes four
+// corner indices and weights per (source, row), kept in shared memory. A
+// second phase gathers the four neighbours of the un-normalised source
+// rows (a 4-tap gather, not the TPU's dense tent-weight matmul),
+// channel-contiguous across threads, and either averages over sources in
+// registers (MEAN) or writes each pair. Rows and columns past T and
+// channels past C are masked, so any T and C run without a fallback.
+// The backward kernels recompute the logits with the same tiles and the
+// same order of fused multiply-adds, so they see the same logits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,15 +62,17 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <bool MEAN, typename OutT>
+template <bool MEAN, bool FLOW, typename OutT>
 __global__ void __launch_bounds__(THREADS) transform_warp_kernel(
-    const float* __restrict__ src,       // (S, T, C) un-normalised
-    const float* __restrict__ src_n,     // (S, T, C) L2-normalised
-    const float* __restrict__ src_mask,  // (S, T)
-    const float* __restrict__ tar_n,     // (F, T, C) L2-normalised
-    const float* __restrict__ tar_mask,  // (F, T)
+    const float* __restrict__ src,       // (G, S, T, C) un-normalised
+    const float* __restrict__ src_n,     // (G, S, T, C) L2-normalised
+    const float* __restrict__ src_mask,  // (G, S, T)
+    const float* __restrict__ tar_n,     // (G, F, T, C) L2-normalised
+    const float* __restrict__ tar_mask,  // (G, F, T)
     const float* __restrict__ grid,      // (T, 2) (x, y) in [-1, 1]
-    OutT* __restrict__ out,              // MEAN: (F, T, C); else (S, F, T, C)
+    OutT* __restrict__ out,    // MEAN: (G, F, T, C); else (G, S, F, T, C)
+    float* __restrict__ flow_out,  // FLOW: (G, S, F, T, 2)
+    float* __restrict__ lse_out,   // FLOW: (G, S, F, T)
     int S, int F, int T, int C, int H, int W, float temp) {
   __shared__ float As[KC][TM + 1];  // target tile, channel-major
   __shared__ float Bs[KC][TN + 1];  // source chunk, channel-major
@@ -72,17 +81,22 @@ __global__ void __launch_bounds__(THREADS) transform_warp_kernel(
   float* corner_w = reinterpret_cast<float*>(corner_idx + S * TM * 4);
 
   const int f = blockIdx.y;
+  const int g = blockIdx.z;
   const int row0 = blockIdx.x * TM;
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const float* tar_f = tar_n + (size_t)f * T * C;
+  const int gf = g * F + f;  // (group, frame) plane
+  const float* tar_f = tar_n + (size_t)gf * T * C;
+  src += (size_t)g * S * T * C;
+  src_n += (size_t)g * S * T * C;
+  src_mask += (size_t)g * S * T;
 
   float mt[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty + 16 * i;
-    mt[i] = r < T ? tar_mask[(size_t)f * T + r] : 0.f;
+    mt[i] = r < T ? tar_mask[(size_t)gf * T + r] : 0.f;
   }
 
   for (int s = 0; s < S; ++s) {
@@ -190,9 +204,16 @@ __global__ void __launch_bounds__(THREADS) transform_warp_kernel(
       }
       if (tx == 0) {
         const int r = ty + 16 * i;
+        const float flx = fx[i] / l[i], fly = fy[i] / l[i];
+        if (FLOW && row0 + r < T) {
+          const size_t row = ((size_t)(g * S + s) * F + f) * T + row0 + r;
+          flow_out[2 * row] = flx;
+          flow_out[2 * row + 1] = fly;
+          lse_out[row] = m[i] + logf(l[i]);
+        }
         // grid_sample(align_corners=False) unnormalisation
-        const float ix = ((fx[i] / l[i] + 1.f) * W - 1.f) * 0.5f;
-        const float iy = ((fy[i] / l[i] + 1.f) * H - 1.f) * 0.5f;
+        const float ix = ((flx + 1.f) * W - 1.f) * 0.5f;
+        const float iy = ((fly + 1.f) * H - 1.f) * 0.5f;
         const float x0 = floorf(ix), y0 = floorf(iy);
         const float wx = ix - x0, wy = iy - y0;
         const int xi = (int)x0, yi = (int)y0;
@@ -230,20 +251,21 @@ __global__ void __launch_bounds__(THREADS) transform_warp_kernel(
         if (MEAN) {
           acc += v;
         } else {
-          store(out + (((size_t)s * F + f) * T + gr) * C + c, v);
+          store(out + (((size_t)(g * S + s) * F + f) * T + gr) * C + c, v);
         }
       }
-      if (MEAN) store(out + ((size_t)f * T + gr) * C + c, acc / S);
+      if (MEAN) store(out + ((size_t)gf * T + gr) * C + c, acc / S);
     }
   }
 }
 
-template <bool MEAN, typename OutT>
+template <bool MEAN, bool FLOW, typename OutT>
 cudaError_t launch(const void* src, const void* src_n, const void* src_mask,
                    const void* tar_n, const void* tar_mask, const void* grid,
-                   void* out, int S, int F, int T, int C, int H, int W,
-                   float temp, cudaStream_t stream) {
-  auto kernel = transform_warp_kernel<MEAN, OutT>;
+                   void* out, void* flow, void* lse, int G, int S, int F,
+                   int T, int C, int H, int W, float temp,
+                   cudaStream_t stream) {
+  auto kernel = transform_warp_kernel<MEAN, FLOW, OutT>;
   const size_t dyn = (size_t)S * TM * 4 * (sizeof(int) + sizeof(float));
   if (dyn > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -253,12 +275,13 @@ cudaError_t launch(const void* src, const void* src_n, const void* src_mask,
       return e;
     }
   }
-  const dim3 blocks((T + TM - 1) / TM, F);
+  const dim3 blocks((T + TM - 1) / TM, F, G);
   kernel<<<blocks, THREADS, dyn, stream>>>(
       static_cast<const float*>(src), static_cast<const float*>(src_n),
       static_cast<const float*>(src_mask), static_cast<const float*>(tar_n),
       static_cast<const float*>(tar_mask), static_cast<const float*>(grid),
-      static_cast<OutT*>(out), S, F, T, C, H, W, temp);
+      static_cast<OutT*>(out), static_cast<float*>(flow),
+      static_cast<float*>(lse), S, F, T, C, H, W, temp);
   return cudaGetLastError();
 }
 
@@ -266,25 +289,38 @@ cudaError_t launch(const void* src, const void* src_n, const void* src_mask,
 
 extern "C" {
 
-// mean != 0: out is (F, T, C) in bf16 (out_bf16 != 0) or f32.
-// mean == 0: out is (S, F, T, C) in f32.
+// mean != 0: out is (G, F, T, C) in bf16 (out_bf16 != 0) or f32; flow and
+// lse must be null. mean == 0: out is (G, S, F, T, C) in f32, and flow
+// (G, S, F, T, 2) and lse (G, S, F, T) are written unless null.
 int tsnet_transform_warp(const void* src, const void* src_n,
                          const void* src_mask, const void* tar_n,
                          const void* tar_mask, const void* grid, void* out,
-                         int S, int F, int T, int C, int H, int W, float temp,
-                         int mean, int out_bf16, void* stream) {
+                         void* flow, void* lse, int G, int S, int F, int T,
+                         int C, int H, int W, float temp, int mean,
+                         int out_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((flow == nullptr) != (lse == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (!mean) {
     if (out_bf16) return (int)cudaErrorInvalidValue;
-    return (int)launch<false, float>(src, src_n, src_mask, tar_n, tar_mask,
-                                     grid, out, S, F, T, C, H, W, temp, st);
+    if (flow != nullptr)
+      return (int)launch<false, true, float>(src, src_n, src_mask, tar_n,
+                                             tar_mask, grid, out, flow, lse,
+                                             G, S, F, T, C, H, W, temp, st);
+    return (int)launch<false, false, float>(src, src_n, src_mask, tar_n,
+                                            tar_mask, grid, out, nullptr,
+                                            nullptr, G, S, F, T, C, H, W,
+                                            temp, st);
   }
+  if (flow != nullptr) return (int)cudaErrorInvalidValue;
   if (out_bf16)
-    return (int)launch<true, __nv_bfloat16>(src, src_n, src_mask, tar_n,
-                                            tar_mask, grid, out, S, F, T, C,
-                                            H, W, temp, st);
-  return (int)launch<true, float>(src, src_n, src_mask, tar_n, tar_mask, grid,
-                                  out, S, F, T, C, H, W, temp, st);
+    return (int)launch<true, false, __nv_bfloat16>(
+        src, src_n, src_mask, tar_n, tar_mask, grid, out, nullptr, nullptr, G,
+        S, F, T, C, H, W, temp, st);
+  return (int)launch<true, false, float>(src, src_n, src_mask, tar_n,
+                                         tar_mask, grid, out, nullptr,
+                                         nullptr, G, S, F, T, C, H, W, temp,
+                                         st);
 }
 
 const char* tsnet_error_string(int err) {

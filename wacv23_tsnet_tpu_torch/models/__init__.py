@@ -1,5 +1,5 @@
 from .tsnet import (TSNetModules, decode_with_sources, encode_sources,
-                    tsnet_forward_clip)
+                    tsnet_forward, tsnet_forward_clip)
 
 __all__ = ["TSNetModules", "decode_with_sources", "encode_sources",
-           "tsnet_forward_clip"]
+           "tsnet_forward", "tsnet_forward_clip"]

@@ -13,6 +13,12 @@ pass under `fast_trunk`; FuseNet and the decoder run in bf16 under
 `fast_tail`, where the transformation branch writes its source mean in
 bf16 through K1; otherwise K3-nf writes every pair in f32 and the mean is
 taken here. Both tiers run K2 inside `fuse_clip`.
+
+`tsnet_forward` is the generator forward of training (counterpart of the
+JAX package's `tsnet_forward(train=True)`): per-sample sources, the
+transformation branch through `transformation_warp_sources` (K3-flow
+forward, K4 backward), the image-space warp loss, `fuse_train` (K2) and
+the align loss, all differentiable.
 """
 
 from __future__ import annotations
@@ -22,24 +28,34 @@ import torch.nn as nn
 
 from ..configs import TSNetConfig
 from ..device import resolve_device
-from ..nn import Decoder, Encoder, FuseNet, fuse_clip
+from ..losses.image import cosine_align_loss, l1_loss, renorm_to_reference
+from ..nn import (Decoder, Encoder, FuseNet, PatchDiscriminator, fuse_clip,
+                  fuse_train)
 from ..nn.blocks import Conv2d
 from ..ops.norms import l2_normalize
 from ..ops.resize import resize_nearest
 from ..ops.similarity import (transformation_warp_clip,
-                              transformation_warp_clip_mean)
+                              transformation_warp_clip_mean,
+                              transformation_warp_sources)
+from ..ops.warp import patch_warp
 
 
 class TSNetModules(nn.Module):
     """The generator subnets of one config, initialised from `seed`.
 
-    Submodule and parameter names follow the JAX package's param tree
+    Submodule and parameter names follow the JAX package's param trees
     (`img_enc`, `lbl_enc`, `dec`, `fuse_net`; `conv_in`, `down{i}`,
-    `block{j}.conv{1,2}`, `map_conv`, `up{i}`, `conv_out`, `conv`), so
-    `compat.flax_params` maps one onto the other by name.
+    `block{j}.conv{1,2}`, `map_conv`, `up{i}`, `conv_out`, `conv`; the
+    discriminator `netD.stage{i}`), so `compat.flax_params` maps one onto
+    the other by name.
+
+    `train=False` (inference) builds the generator only, with gradients
+    off. `train=True` also builds the PatchGAN discriminator `netD`
+    (initialised from `seed + 1`) and keeps gradients on.
     """
 
-    def __init__(self, cfg: TSNetConfig, device="cuda", seed: int = 0):
+    def __init__(self, cfg: TSNetConfig, device="cuda", seed: int = 0,
+                 train: bool = False):
         super().__init__()
         if cfg.ring_pad:
             raise NotImplementedError("ring_pad is a TPU training knob; the "
@@ -68,7 +84,12 @@ class TSNetModules(nn.Module):
         self.fuse_net = FuseNet(ngf=2 * cfg.feat_ch, n_blocks=1,
                                 dtype=tail_dt, precision=tail_prec)
         self.init_generator_params(seed)
-        self.requires_grad_(False)
+        if train:
+            self.netD = PatchDiscriminator(3 + cfg.label_nc, ndf=cfg.ndf,
+                                           n_layers=cfg.d_n_layers, dtype=dt,
+                                           precision=prec)
+            self.netD.reset_parameters(torch.Generator().manual_seed(seed + 1))
+        self.requires_grad_(train)
         self.to(dev)
         self.device = dev
 
@@ -79,9 +100,71 @@ class TSNetModules(nn.Module):
         numbers differ from `jax.random`'s; tests carry weights across
         with `compat.flax_params`."""
         gen = torch.Generator().manual_seed(seed)
-        for mod in self.modules():
-            if isinstance(mod, Conv2d):
-                mod.reset_parameters(gen)
+        for sub in (self.img_enc, self.lbl_enc, self.dec, self.fuse_net):
+            for mod in sub.modules():
+                if isinstance(mod, Conv2d):
+                    mod.reset_parameters(gen)
+
+
+def tsnet_forward(mods: TSNetModules, src_img, src_lbl, src_bbox, tar_lbl,
+                  tar_bbox, tar_img=None, train: bool = False,
+                  use_kernels: bool = True, return_flow: bool = False) -> dict:
+    """One generator forward over a batch, each sample with its own S
+    sources, differentiable in the generator's parameters.
+
+    src_img (B, S, H, W, 3) model space, src_lbl (B, S, H, W, L),
+    src_bbox (B, S, H, W); tar_lbl (B, H, W, L), tar_bbox (B, H, W);
+    tar_img (B, H, W, 3), needed with `train`. Tensors on the modules'
+    device. Returns a dict with `rec_img` (B, H, W, 3) f32, `prop_fea`
+    and `syn_fea`; with `train`, also `warp_imgs` (B, S, H, W, 3),
+    `loss_warp` (10 x the sum over sources of the L1 of each renormalised
+    patch-warped source image against tar_img) and, with the config's
+    `use_align_loss`, `loss_align`; with `return_flow`, `flows`
+    (B, S, h, w, 2). `use_kernels=False` runs every kernel's plain version.
+    """
+    cfg = mods.cfg
+    dt = mods.dtype
+    b, s, hh, ww, _ = src_img.shape
+    enc_in = torch.cat([src_img, src_lbl], dim=-1).to(dt)
+    src_img_fea = mods.img_enc(enc_in.reshape((b * s,) + enc_in.shape[2:]))
+    h, w, c = src_img_fea.shape[1:]
+    src_img_fea = src_img_fea.reshape(b, s, h, w, c)
+    tar_lbl_fea = mods.lbl_enc(tar_lbl.to(dt))                # (B, h, w, C)
+
+    tar_fea_n = l2_normalize(tar_lbl_fea.float())
+    tar_mask = resize_nearest(tar_bbox[..., None].float(), (h, w))[..., 0]
+    src_fea_n = l2_normalize(src_img_fea.float())
+    src_mask = resize_nearest(src_bbox.reshape(b * s, hh, ww, 1).float(),
+                              (h, w)).reshape(b, s, h, w)
+    warped_fea, flows = transformation_warp_sources(
+        src_img_fea.float(), tar_fea_n, src_fea_n, tar_mask, src_mask,
+        temp=cfg.softmax_temp, use_kernels=use_kernels,
+        fast_warp=cfg.fast_tail, bwd_fast3=cfg.precision != "highest")
+
+    out = {}
+    if return_flow:
+        out["flows"] = flows
+    if train:
+        if tar_img is None:
+            raise ValueError("tsnet_forward(train=True) needs tar_img")
+        ref = tar_img.float()
+        warp_imgs = torch.stack([
+            renorm_to_reference(patch_warp(src_img[:, i].float(),
+                                           flows[:, i].float()), ref)
+            for i in range(s)], dim=1)                        # (B, S, H, W, 3)
+        out["warp_imgs"] = warp_imgs
+        out["loss_warp"] = 10.0 * sum(l1_loss(warp_imgs[:, i], ref)
+                                      for i in range(s))
+
+    prop_fea = warped_fea.mean(dim=1).to(dt)                 # (B, h, w, C)
+    syn_fea = fuse_train(mods.fuse_net, src_img_fea.to(dt), tar_lbl_fea,
+                         use_kernels=use_kernels)
+    if train and cfg.use_align_loss:
+        out["loss_align"] = cosine_align_loss(prop_fea, syn_fea)
+    out["rec_img"] = mods.dec(prop_fea, syn_fea).float()
+    out["prop_fea"] = prop_fea
+    out["syn_fea"] = syn_fea
+    return out
 
 
 def encode_sources(mods: TSNetModules, src_img: torch.Tensor,

@@ -13,6 +13,11 @@ activation dtype and precision (see `configs/base.py`):
 - dtype f32, precision "high": TF32;
 - dtype f32, precision "highest": full fp32, TF32 off.
 
+The f32 tiers hold in both directions: autograd would dispatch a
+convolution's backward later, under the process's own TF32 setting
+(cuDNN's default is TF32 on), so `_Conv2dTF32` computes grad-input and
+grad-weight under the same `tf32(...)` setting as the forward.
+
 Tensors stay NHWC; a convolution sees them as channels_last NCHW views.
 """
 
@@ -57,8 +62,34 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias=None, stride: int = 1,
     if precision == "default":
         y = run(x.to(torch.bfloat16), weight.to(torch.bfloat16), None).float()
         return y if bias is None else y + bias.float()
-    with tf32(precision == "high"):
-        return run(x.float(), weight.float(), bias)
+    y = _Conv2dTF32.apply(x.float().permute(0, 3, 1, 2), weight.float(), bias,
+                          stride, padding, precision == "high")
+    return y.permute(0, 2, 3, 1)
+
+
+class _Conv2dTF32(torch.autograd.Function):
+    """F.conv2d (NCHW) whose forward and backward both run under one
+    TF32 setting: on for precision "high", off for "highest"."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, allow_tf32):
+        with tf32(allow_tf32):
+            y = F.conv2d(x, weight, bias, stride, padding)
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, allow_tf32, bias is not None)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, padding, allow_tf32, has_bias = ctx.conf
+        need = ctx.needs_input_grad
+        with tf32(allow_tf32):
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]] if has_bias else None,
+                [stride] * 2, [padding] * 2, [1, 1], False, [0, 0], 1,
+                [need[0], need[1], has_bias and need[2]])
+        return gx, gw, gb, None, None, None
 
 
 class Conv2d(nn.Module):

@@ -10,6 +10,10 @@ stays per pair. conv2's bias cancels in the instance norm that follows
 and is dropped. The IN + mean over sources is one fused pass
 (`ops.norm_kernels.instance_norm_mean`, K2), and the final 1x1 commutes
 with the mean, so it runs once per frame.
+
+`fuse_train` is the same split for the training shape, where each sample
+has its own S sources and one target: differentiable, with K2's backward
+through its recomputed plain composition.
 """
 
 from __future__ import annotations
@@ -73,4 +77,38 @@ def fuse_clip(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
     h2m = in_mean(h2).to(dt)                                # (F, h, w, 2C)
     a_mean = a.float().mean(dim=0).to(dt)
     x_mean = torch.cat([a_mean[None].expand(f, h, w, c), t], dim=-1)
+    return conv(x_mean + h2m, fuse_net.conv.weight, fuse_net.conv.bias)
+
+
+def fuse_train(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
+               use_kernels: bool = True) -> torch.Tensor:
+    """mean_s FuseNet(src_fea[b, s], tar_fea[b]) for the training shape.
+
+    src_fea (B, S, h, w, C); tar_fea (B, h, w, C); one-block FuseNet.
+    conv1's source half runs per (b, s), its target half per b, and the
+    final 1x1 once per b on the mean. Returns (B, h, w, C) in the
+    FuseNet's dtype. `use_kernels=False` runs K2's plain version.
+    """
+    if fuse_net.n_blocks != 1:
+        raise ValueError("fuse_train needs a one-block FuseNet")
+    dt, prec = fuse_net.dtype, fuse_net.precision
+    b, s, h, w, c = src_fea.shape
+    blk = fuse_net.block0
+    w1 = blk.conv1.weight                                   # (2C, 2C, 3, 3)
+    a = src_fea.to(dt).reshape(b * s, h, w, c)
+    t = tar_fea.to(dt)
+
+    def conv(x, weight, bias=None):
+        return conv2d(x, weight, bias, precision=prec, dtype=dt)
+
+    c1a = conv(reflect_pad(a, 1), w1[:, :c]).reshape(b, s, h, w, 2 * c)
+    c1t = conv(reflect_pad(t, 1), w1[:, c:], blk.conv1.bias)  # (B, h, w, 2C)
+    hp = (c1a + c1t[:, None]).reshape(b * s, h, w, 2 * c)
+    hp = torch.relu(instance_norm(hp))
+    h2 = conv(reflect_pad(hp, 1), blk.conv2.weight)         # bias dropped
+    h2 = h2.reshape(b, s, h, w, 2 * c).transpose(0, 1).contiguous()
+    in_mean = instance_norm_mean if use_kernels else instance_norm_mean_plain
+    h2m = in_mean(h2).to(dt)                                # (B, h, w, 2C)
+    a_mean = src_fea.float().mean(dim=1).to(dt)
+    x_mean = torch.cat([a_mean, t], dim=-1)
     return conv(x_mean + h2m, fuse_net.conv.weight, fuse_net.conv.bias)

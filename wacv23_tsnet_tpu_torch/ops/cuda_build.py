@@ -35,13 +35,15 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("transform_warp", "in_mean")
+SOURCES = ("transform_warp", "transform_warp_bwd", "in_mean")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {
     "transform_warp_pairs_mean": 0,
     "transform_warp_pairs_nf": 0,
+    "transform_warp_pairs": 0,
+    "transform_warp_pairs_bwd": 0,
     "instance_norm_mean": 0,
 }
 

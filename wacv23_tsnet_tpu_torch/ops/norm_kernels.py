@@ -7,6 +7,12 @@ averaged over S, without writing the per-pair normalised tensor. It runs
 bounds it) and the plain version on CPU tensors. A CUDA tensor launches
 the kernel or raises; nothing falls back.
 
+It is differentiable. On the GPU its backward recomputes the plain
+composition and backpropagates through it, as the JAX package's
+`_in_mean_bwd` does with `_in_mean_ref`; the TPU has no backward kernel
+here, so neither has the port. On the CPU autograd runs through the
+plain version itself.
+
 The kernel's statistics are one-pass fp32 (E[x²] - E[x]², clamped at 0),
 as the TPU kernel's; the plain version is the JAX package's composition
 `_in_mean_ref`: the fp32 two-pass `instance_norm` of each plane, then the
@@ -44,6 +50,29 @@ def instance_norm_mean(x: torch.Tensor, eps: float = 1e-5,
     """
     if x.device.type == "cpu":
         return instance_norm_mean_plain(x, eps, out_dtype)
+    return _InstanceNormMean.apply(x, eps, out_dtype)
+
+
+class _InstanceNormMean(torch.autograd.Function):
+    """K2 forward; backward through the recomputed plain composition."""
+
+    @staticmethod
+    def forward(ctx, x, eps, out_dtype):
+        ctx.save_for_backward(x)
+        ctx.eps_dtype = (eps, out_dtype)
+        return _launch(x, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            y = instance_norm_mean_plain(xx, *ctx.eps_dtype)
+            (gx,) = torch.autograd.grad(y, xx, grad)
+        return gx, None, None
+
+
+def _launch(x: torch.Tensor, eps: float, out_dtype) -> torch.Tensor:
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm_mean kernel: x on {x.device}; it "

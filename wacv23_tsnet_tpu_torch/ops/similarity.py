@@ -11,7 +11,9 @@ pixel t and source pixel u at feature resolution:
 100 multiplies any logit error by 100 inside exp).
 `transformation_warp_clip` and `transformation_warp_clip_mean` are the
 clip-inference entry points; they dispatch to the CUDA kernels of
-`ops/warp_kernels.py` (K3-nf and K1).
+`ops/warp_kernels.py` (K3-nf and K1). `transformation_warp_sources` is
+the training entry point, differentiable: K3-flow forward and K4
+backward.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import torch
 from .coords import normalized_grid
 from .grid_sample import grid_sample
 from .precision import tf32
+from .warp_kernels import (transform_warp_mean_plain, transform_warp_pairs,
+                           transform_warp_pairs_mean, transform_warp_pairs_nf,
+                           transform_warp_pairs_nf_plain)
 
 
 def _mask_coeff(tar_mask: torch.Tensor,
@@ -62,6 +67,46 @@ def transformation_warp(src_img_fea, tar_fea_n, src_fea_n, tar_mask, src_mask,
     return grid_sample(src_img_fea, flow), flow
 
 
+def transformation_warp_sources(src_img_fea, tar_fea_n, src_fea_n, tar_mask,
+                                src_mask, temp: float = 100.0,
+                                use_kernels: bool = True,
+                                fast_warp: bool = False,
+                                bwd_fast3: bool = False):
+    """Transformation branch for all sources of a training batch.
+
+    src_img_fea (B, S, h, w, C) un-normalized, src_fea_n its L2
+    normalization, src_mask (B, S, h, w); tar_fea_n (B, h, w, C),
+    tar_mask (B, h, w). Returns (warped (B, S, h, w, C), flow
+    (B, S, h, w, 2)), differentiable in the features.
+
+    `use_kernels=True` runs `warp_kernels.transform_warp_pairs` over
+    (group = sample, source, one frame): K3-flow forward and K4 backward
+    on CUDA tensors, its plain version on CPU tensors. `use_kernels=False`
+    runs the plain per-source path (`transformation_warp` for each
+    source), as the JAX package's `use_pallas=False` does. `fast_warp`
+    and `bwd_fast3` are the JAX package's knobs and change nothing here
+    (see `warp_kernels`).
+    """
+    b, s, h, w, c = src_img_fea.shape
+    if not use_kernels:
+        outs = [transformation_warp(src_img_fea[:, i], tar_fea_n,
+                                    src_fea_n[:, i], tar_mask, src_mask[:, i],
+                                    temp=temp) for i in range(s)]
+        return (torch.stack([o[0] for o in outs], 1),
+                torch.stack([o[1] for o in outs], 1))
+    t = h * w
+    grid = normalized_grid(h, w, device=src_img_fea.device).reshape(t, 2)
+    warped, flow = transform_warp_pairs(
+        src_img_fea.float().reshape(b, s, t, c).contiguous(),
+        tar_fea_n.float().reshape(b, 1, t, c).contiguous(),
+        src_fea_n.float().reshape(b, s, t, c).contiguous(),
+        tar_mask.float().reshape(b, 1, t).contiguous(),
+        src_mask.float().reshape(b, s, t).contiguous(), grid, h, w, temp,
+        fast_warp, bwd_fast3)
+    return (warped[:, :, 0].reshape(b, s, h, w, c),
+            flow[:, :, 0].reshape(b, s, h, w, 2))
+
+
 def _flat(src_fea, src_fea_n, src_mask, tar_fea_n, tar_mask):
     """Clip inputs as the kernels' contiguous f32 (T, C) planes.
 
@@ -89,11 +134,10 @@ def transformation_warp_clip(src_fea, src_fea_n, src_mask, tar_fea_n,
     `use_kernels=False` runs the plain version on any device (the
     reference the kernel is held against).
     """
-    from .warp_kernels import (transform_warp_pairs_nf,
-                               transform_warp_pairs_plain)
     s, h, w, c = src_fea.shape
     f = tar_fea_n.shape[0]
-    fn = transform_warp_pairs_nf if use_kernels else transform_warp_pairs_plain
+    fn = (transform_warp_pairs_nf if use_kernels
+          else transform_warp_pairs_nf_plain)
     out = fn(*_flat(src_fea, src_fea_n, src_mask, tar_fea_n, tar_mask),
              h, w, temp)
     return out.reshape(s, f, h, w, c)
@@ -107,8 +151,6 @@ def transformation_warp_clip_mean(src_fea, src_fea_n, src_mask, tar_fea_n,
 
     Returns (F, h, w, C) in `out_dtype` (bf16 for the fast tail).
     """
-    from .warp_kernels import (transform_warp_mean_plain,
-                               transform_warp_pairs_mean)
     _, h, w, c = src_fea.shape
     f = tar_fea_n.shape[0]
     fn = (transform_warp_pairs_mean if use_kernels
