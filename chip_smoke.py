@@ -11,7 +11,9 @@ non-zero, printing no result, where CUDA or the package is missing.
    per source, all started together) and prints ptxas's resource lines.
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (S=3 sources, T=32x32 pixels, C=512, F=32 frames;
-   K2 at (3, 32, 32, 32, 1024)), and times both with CUDA events.
+   K2 at (3, 32, 32, 32, 1024); K6 at S=3, F=32, 32x32, K=1024; K7 with
+   relu and with skip at (32, 32, 32, 512)), and times both with CUDA
+   events; for K6 and K7 also cuDNN's bf16 conv alone, as a yardstick.
 4. Drives the main path at the full width of `face_config()` with seeded
    random weights, in both tiers (bit-parity; bench = "high" + fast_tail
    + fast_trunk): `tsnet_forward_clip` over a 64-frame clip and four
@@ -21,7 +23,11 @@ non-zero, printing no result, where CUDA or the package is missing.
    kernel path is compared with the same model run through the plain
    versions, and frames/s, stage times and a profile are printed; last,
    how far the bench tier (and the bf16 tail alone) moves the output
-   from the bit-parity tier.
+   from the bit-parity tier. Then the `bench+fused` tier: the bench
+   config with TSNET_FUSE_PAIR_KERNEL=1 (K6 in FuseNet) and
+   `fused_blocks=True` (K7 in the decoder), a 64-frame clip and two
+   32-frame `decode_with_sources` requests on one source pack, held
+   against its plain path and against the unfused bench tier's clip.
 5. Holds the training kernels against their plain versions at the train
    shape (G=15 samples, NS=3 sources, NF=1, T=32x32, C=512): K3-flow
    (warped features and flow, temp 100) and K4 (six cotangents at temps
@@ -42,23 +48,29 @@ non-zero, printing no result, where CUDA or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from wacv23_tsnet_tpu_torch.configs import face_config
 from wacv23_tsnet_tpu_torch.infer import RetargetSession
 from wacv23_tsnet_tpu_torch.models import (TSNetModules, tsnet_forward,
                                            tsnet_forward_clip)
-from wacv23_tsnet_tpu_torch.models.tsnet import encode_sources
+from wacv23_tsnet_tpu_torch.models.tsnet import (decode_with_sources,
+                                                 encode_sources)
 from wacv23_tsnet_tpu_torch.nn import fuse_clip
+from wacv23_tsnet_tpu_torch.ops import conv_kernels as ck
 from wacv23_tsnet_tpu_torch.ops import cuda_build
+from wacv23_tsnet_tpu_torch.ops import fuse_kernels as fk
 from wacv23_tsnet_tpu_torch.ops import norm_kernels as nk
 from wacv23_tsnet_tpu_torch.ops import warp_kernels as wk
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
@@ -72,6 +84,7 @@ from wacv23_tsnet_tpu_torch.train import (GEN_SUBNETS, create_train_state,
 # Published peaks of one H100 SXM (NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12      # CUDA cores, outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12  # tensor cores, dense
 
 # kernel-vs-plain tolerances on the card, elementwise |err| <= atol +
 # rtol * |plain|. f32 out: both sides are fp32, but 512-term dot products
@@ -81,6 +94,17 @@ FP32_FLOP_PER_S = 67e12      # CUDA cores, outside the tensor cores
 # step (2^-8 relative) on top.
 TOL = {"f32": (1e-3, 0.0), "bf16": (1e-3, 2.0 ** -8)}
 IN_TOL = {"f32": (1e-4, 0.0), "bf16": (1e-4, 2.0 ** -8)}
+# K6/K7 (bf16 out) against their plain versions: both round an fp32 conv
+# sum to bf16 once, so they may sit one bf16 step apart (2^-7 relative);
+# K7 1e-3 absolute for fp32 sums taken in another order. K6 also rounds
+# its hp to bf16: where the two sides' statistics differ in their last
+# fp32 bit, an hp value a rounding away from a tie rounds the other way,
+# which moves an output by ulp(hp) * |w| (up to 2^-6 * 0.1 = 1.6e-3 at
+# these weights); a few such terms can meet in one of 9216: 8e-3.
+TC_TOL = (1e-3, 2.0 ** -7)
+K6_TOL = (8e-3, 2.0 ** -7)
+FUSE_ENV = "TSNET_FUSE_PAIR_KERNEL"
+FUSED_TIER = "bench+fused"
 
 CLIP_FRAMES = 64
 CHUNK = 32
@@ -150,10 +174,12 @@ def compare(got, want, tol) -> dict:
             "worst_err_over_tol": (err / bound).max().item()}
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least ms the card could take, and what bounds it."""
+def bound(nbytes: float, flops: float,
+          peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    """The least ms the card could take, and what bounds it; `peak` is
+    the rate of the operations' type."""
     by_bytes = nbytes / HBM_BYTES_PER_S
-    by_ops = flops / FP32_FLOP_PER_S
+    by_ops = flops / peak
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                          else "operations")
 
@@ -215,6 +241,7 @@ def kernel_checks(line: str) -> dict:
         flops=in_flops, tier="bench",
         replaces="wacv23_tsnet_tpu/ops/pallas_norms.py:135",
         source="wacv23_tsnet_tpu_torch/csrc/in_mean.cu")
+    cases.update(fused_tail_cases(g))
 
     results = {}
     for name, case in cases.items():
@@ -225,18 +252,76 @@ def kernel_checks(line: str) -> dict:
               f"{name} disagrees with its plain version: {res}")
         res["ms"] = time_ms(case["kernel"])
         res["plain_ms"] = time_ms(case["plain"], iters=3)
-        res["bound_ms"], res["bound_by"] = bound(case["bytes"], case["flops"])
-        res.update({k: case[k] for k in ("tier", "replaces", "source")
-                    if k in case})
+        res["bound_ms"], res["bound_by"] = bound(
+            case["bytes"], case["flops"], case.get("peak", FP32_FLOP_PER_S))
+        res.update({k: case[k] for k in ("tier", "replaces", "source",
+                                         "launch") if k in case})
+        yardstick = ""
+        if "conv_alone" in case:
+            res["conv_alone_ms"] = time_ms(case["conv_alone"])
+            yardstick = (f" conv_alone_ms={res['conv_alone_ms']:.4f} (cuDNN "
+                         "bf16 3x3 conv alone on a pre-padded input, "
+                         "yardstick only)")
         results[name] = res
         print(f"[kernel] {name}: max_abs_err={res['max_abs_err']:.3e} "
               f"mean_abs_err={res['mean_abs_err']:.3e} "
               f"(atol, rtol)={case['tol']} kernel_ms={res['ms']:.4f} "
               f"plain_ms={res['plain_ms']:.4f} library_ms=none "
-              f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) | {line}",
-              flush=True)
+              f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']})"
+              f"{yardstick} | {line}", flush=True)
     torch.cuda.synchronize()
     return results
+
+
+def conv_alone(b: int, c: int, co: int, h: int, w: int, g):
+    """cuDNN's bf16 3x3 conv of (b, c, h + 2, w + 2) channels_last to co
+    channels: the convolution of K6/K7 without their norms and pads."""
+    x = torch.randn(b, c, h + 2, w + 2, generator=g).to(
+        "cuda", torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn(co, c, 3, 3, generator=g) * 0.02).to(
+        "cuda", torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(x, wt)
+
+
+def fused_tail_cases(g) -> dict:
+    """K6 at S=3, F=32, 32x32, K=Co=1024 and K7 (relu; skip) at
+    (32, 32, 32, 512), bf16: the fused tier's shapes per 32-frame call."""
+    dev = torch.device("cuda")
+    s, f, h, w, k = 3, 32, 32, 32, 1024
+    n = h * w
+    c1a = torch.randn(s, h, w, k, generator=g).to(dev, torch.bfloat16)
+    c1t = torch.randn(f, h, w, k, generator=g).to(dev, torch.bfloat16)
+    w2 = (torch.randn(k, k, 3, 3, generator=g) * 0.02).to(dev)
+    b, c = 32, 512
+    x = torch.randn(b, h, w, c, generator=g).to(dev, torch.bfloat16)
+    skip = torch.randn(b, h, w, c, generator=g).to(dev, torch.bfloat16)
+    wc = (torch.randn(c, c, 3, 3, generator=g) * 0.02).to(dev)
+    k7_flops = 2 * b * n * 9 * c * c
+    k7 = dict(tol=TC_TOL, flops=k7_flops, peak=BF16_TC_FLOP_PER_S,
+              conv_alone=conv_alone(b, c, c, h, w, g), launch="conv3x3_in",
+              replaces="wacv23_tsnet_tpu/ops/pallas_conv.py:122",
+              source="wacv23_tsnet_tpu_torch/csrc/conv3x3_in.cu")
+    return {
+        "fuse_pair_conv2": dict(
+            kernel=lambda: fk.fuse_pair_conv2(c1a, c1t, w2),
+            plain=lambda: fk.fuse_pair_conv2_plain(c1a, c1t, w2),
+            tol=K6_TOL, peak=BF16_TC_FLOP_PER_S,
+            bytes=2 * (c1a.numel() + c1t.numel() + w2.numel()
+                       + s * f * n * k),
+            flops=2 * s * f * n * 9 * k * k,
+            conv_alone=conv_alone(s * f, k, k, h, w, g), tier=FUSED_TIER,
+            launch="fuse_pair_conv2",
+            replaces="wacv23_tsnet_tpu/ops/pallas_fuse.py:124",
+            source="wacv23_tsnet_tpu_torch/csrc/fuse_pair_conv2.cu"),
+        "conv3x3_in": dict(
+            k7, kernel=lambda: ck.conv3x3_in(x, wc, relu=True),
+            plain=lambda: ck.conv3x3_in_plain(x, wc, relu=True),
+            bytes=2 * (2 * x.numel() + wc.numel()), tier=FUSED_TIER),
+        "conv3x3_in_skip": dict(
+            k7, kernel=lambda: ck.conv3x3_in(x, wc, skip=skip, relu=False),
+            plain=lambda: ck.conv3x3_in_plain(x, wc, skip=skip, relu=False),
+            bytes=2 * (3 * x.numel() + wc.numel()), tier=None),
+    }
 
 
 def device_breakdown(forward, tier: str, top: int = 12) -> dict:
@@ -268,9 +353,10 @@ def device_breakdown(forward, tier: str, top: int = 12) -> dict:
             "device_busy_share": busy_us / 1e6 / wall_s}
 
 
-def stage_ms(mods, src, tar_lbl, tar_bbox) -> dict:
+def stage_ms(mods, src, tar_lbl, tar_bbox, fused: bool = False) -> dict:
     """CUDA-event ms of each stage of one clip forward, made stage by stage
-    with the calls `tsnet_forward_clip` makes (models/tsnet.py)."""
+    with the calls `tsnet_forward_clip` makes (models/tsnet.py); `fused`
+    as its `fused_blocks` (K6 follows the environment, as in fuse_clip)."""
     marks = []
 
     def mark(name):
@@ -297,22 +383,69 @@ def stage_ms(mods, src, tar_lbl, tar_bbox) -> dict:
         mark("transformation")
         syn = fuse_clip(mods.fuse_net, pack["fea"].float(), tar_fea.float())
         mark("fuse_clip")
-        mods.dec(prop, syn).float()
+        mods.dec(prop, syn, fused_blocks=fused).float()
         mark("decoder")
     torch.cuda.synchronize()
     return {name: marks[i - 1][1].elapsed_time(ev)
             for i, (name, ev) in enumerate(marks) if i}
 
 
+@contextlib.contextmanager
+def fuse_pair_kernel(on: bool):
+    """TSNET_FUSE_PAIR_KERNEL set to "1" (on) or unset (off) in this
+    process, as it was afterwards."""
+    old = os.environ.pop(FUSE_ENV, None)
+    if on:
+        os.environ[FUSE_ENV] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(FUSE_ENV, None)
+        if old is not None:
+            os.environ[FUSE_ENV] = old
+
+
+def tier_perf(tier: str, mods, forward, request, request_key: str, src,
+              tar_lbl, tar_bbox, line: str, fused: bool = False) -> dict:
+    """Clip ms and frames/s (3 clips), one request's ms, peak memory, the
+    stage split and a profile of one clip; prints `[perf]` and `[fps]`."""
+    res = {}
+    iters = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        forward()
+    torch.cuda.synchronize()
+    res["clip_ms"] = 1e3 * (time.perf_counter() - t0) / iters
+    res["fps"] = CLIP_FRAMES / (res["clip_ms"] / 1e3)
+    t0 = time.perf_counter()
+    request()
+    res[request_key] = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    forward()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["stage_ms"] = stage_ms(mods, src, tar_lbl, tar_bbox, fused)
+    res.update(device_breakdown(forward, tier))
+    print(f"[perf] {tier}: " + json.dumps({k: res[k] for k in (
+        "clip_ms", "fps", request_key, "peak_mem_gb", "stage_ms",
+        "device_busy_ms", "device_busy_share")}), flush=True)
+    print(f"[fps] {tier}: {res['fps']:.2f} frames/s "
+          f"({CLIP_FRAMES}-frame clip, {res['clip_ms']:.2f} ms) on {line}",
+          flush=True)
+    return res
+
+
 def main_path(line: str) -> dict:
-    """Full-width face clip inference and sessions, both tiers."""
+    """Full-width face clip inference and sessions, both tiers, then the
+    bench tier with the fused tail."""
     base = face_config()
+    bench = dataclasses.replace(base, precision="high", fast_tail=True,
+                                fast_trunk=True)
     tiers = {
         "bit-parity": (base, "transform_warp_pairs_nf",
                        "transform_warp_pairs_mean"),
-        "bench": (dataclasses.replace(base, precision="high",
-                                      fast_tail=True, fast_trunk=True),
-                  "transform_warp_pairs_mean", "transform_warp_pairs_nf"),
+        "bench": (bench, "transform_warp_pairs_mean",
+                  "transform_warp_pairs_nf"),
     }
     rng = np.random.default_rng(0)
     s, hw, nl = base.n_source, base.image_size, base.label_nc
@@ -330,106 +463,96 @@ def main_path(line: str) -> dict:
     for tier, (cfg, warp_kernel, other_kernel) in tiers.items():
         mods = TSNetModules(cfg, device="cuda", seed=0)
         forward = lambda: tsnet_forward_clip(mods, *src, tar_lbl, tar_bbox)
-        forward()                                    # warm-up (cuDNN plans)
-        torch.cuda.synchronize()
+        with fuse_pair_kernel(False):
+            forward()                                # warm-up (cuDNN plans)
+            torch.cuda.synchronize()
 
-        cuda_build.reset_launches()
-        t0 = time.perf_counter()
-        out = forward()
-        sess = RetargetSession(mods, *src, chunk=CHUNK)
-        pushed = [sess.push_labels(tar_lbl[lo:lo + CHUNK],
-                                   tar_bbox[lo:lo + CHUNK])
-                  for lo in (0, CHUNK, 0)]
-        disp = RetargetSession(mods, *src, chunk=CHUNK, output="display")
-        shown = disp.push_labels(tar_lbl[CHUNK:], tar_bbox[CHUNK:])
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        launches = dict(cuda_build.LAUNCHES)
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            out = forward()
+            sess = RetargetSession(mods, *src, chunk=CHUNK)
+            pushed = [sess.push_labels(tar_lbl[lo:lo + CHUNK],
+                                       tar_bbox[lo:lo + CHUNK])
+                      for lo in (0, CHUNK, 0)]
+            disp = RetargetSession(mods, *src, chunk=CHUNK, output="display")
+            shown = disp.push_labels(tar_lbl[CHUNK:], tar_bbox[CHUNK:])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = dict(cuda_build.LAUNCHES)
 
-        check(tuple(out.shape) == (CLIP_FRAMES, hw, hw, 3), f"{tier}: shape")
-        check(bool(torch.isfinite(out).all()), f"{tier}: non-finite output")
-        check(launches[warp_kernel] > 0 and launches["instance_norm_mean"] > 0,
-              f"{tier}: kernels not launched on the main path: {launches}")
-        check(launches[other_kernel] == 0,
-              f"{tier}: launched the other tier's kernel: {launches}")
+            check(tuple(out.shape) == (CLIP_FRAMES, hw, hw, 3),
+                  f"{tier}: shape")
+            check(bool(torch.isfinite(out).all()), f"{tier}: non-finite output")
+            check(launches[warp_kernel] > 0
+                  and launches["instance_norm_mean"] > 0,
+                  f"{tier}: kernels not launched on the main path: {launches}")
+            check(launches[other_kernel] == 0
+                  and launches["fuse_pair_conv2"] == 0
+                  and launches["conv3x3_in"] == 0,
+                  f"{tier}: launched another tier's kernel: {launches}")
 
-        plain = tsnet_forward_clip(mods, *src, tar_lbl, tar_bbox,
-                                   use_kernels=False)
-        diff = (out - plain).abs()
-        # the session chunks frames by 32: compare with the clip forward
-        # over the same 32-frame chunks (cuDNN picks its algorithms, and
-        # so its rounding, by batch size); the 64-frame batch is compared
-        # too, as the batch-size drift of the tier
-        chunked = torch.cat([tsnet_forward_clip(mods, *src,
-                                                tar_lbl[lo:lo + CHUNK],
-                                                tar_bbox[lo:lo + CHUNK])
-                             for lo in (0, CHUNK)]).cpu().numpy()
-        sess_diff = np.abs(np.concatenate(pushed[:2]) - chunked)
-        batch_diff = np.abs(chunked - out.cpu().numpy())
-        # the display session answered the same frames, at the same chunk
-        # size, as the second model-output request
-        want_u8 = np.clip(np.round(pushed[1] * 255.0 + base.img_mean_array()),
-                          0, 255)
-        res = {"launches": launches, "main_path_s": run_s,
-               "vs_plain_max_abs": diff.max().item(),
-               "vs_plain_mean_abs": diff.mean().item(),
-               "session_vs_clip_max_abs": float(sess_diff.max()),
-               "session_vs_clip_mean_abs": float(sess_diff.mean()),
-               "batch64_vs_batch32_max_abs": float(batch_diff.max()),
-               "batch64_vs_batch32_mean_abs": float(batch_diff.mean()),
-               "display_vs_model_max_levels": float(np.abs(
-                   shown.astype(np.float64) - want_u8).max())}
-        print(f"[main] {tier}: {json.dumps(res)}", flush=True)
-        # tier tolerances: bit-parity 1e-3 max abs; bench 0.01 mean L1
-        # (QUIRKS.md budget of the JAX package's fast tiers)
-        key, tol = (("max_abs", 1e-3) if tier == "bit-parity"
-                    else ("mean_abs", 0.01))
-        check(res[f"vs_plain_{key}"] <= tol,
-              f"{tier}: kernel path vs plain path")
-        check(res[f"session_vs_clip_{key}"] <= tol,
-              f"{tier}: session frames vs the clip forward")
-        frame = (CHUNK, hw, hw, 3)
-        check(all(p.shape == frame for p in pushed) and shown.shape == frame
-              and shown.dtype == np.uint8, f"{tier}: session output shapes")
-        check(np.isfinite(np.stack(pushed)).all(),
-              f"{tier}: session non-finite")
-        check(res["display_vs_model_max_levels"] <= 1.0,
-              f"{tier}: display frames vs model-space frames")
+            plain = tsnet_forward_clip(mods, *src, tar_lbl, tar_bbox,
+                                       use_kernels=False)
+            diff = (out - plain).abs()
+            # the session chunks frames by 32: compare with the clip forward
+            # over the same 32-frame chunks (cuDNN picks its algorithms, and
+            # so its rounding, by batch size); the 64-frame batch is
+            # compared too, as the batch-size drift of the tier
+            chunked = torch.cat([tsnet_forward_clip(mods, *src,
+                                                    tar_lbl[lo:lo + CHUNK],
+                                                    tar_bbox[lo:lo + CHUNK])
+                                 for lo in (0, CHUNK)]).cpu().numpy()
+            sess_diff = np.abs(np.concatenate(pushed[:2]) - chunked)
+            batch_diff = np.abs(chunked - out.cpu().numpy())
+            # the display session answered the same frames, at the same
+            # chunk size, as the second model-output request
+            want_u8 = np.clip(np.round(pushed[1] * 255.0
+                                       + base.img_mean_array()), 0, 255)
+            res = {"launches": launches, "main_path_s": run_s,
+                   "vs_plain_max_abs": diff.max().item(),
+                   "vs_plain_mean_abs": diff.mean().item(),
+                   "session_vs_clip_max_abs": float(sess_diff.max()),
+                   "session_vs_clip_mean_abs": float(sess_diff.mean()),
+                   "batch64_vs_batch32_max_abs": float(batch_diff.max()),
+                   "batch64_vs_batch32_mean_abs": float(batch_diff.mean()),
+                   "display_vs_model_max_levels": float(np.abs(
+                       shown.astype(np.float64) - want_u8).max())}
+            print(f"[main] {tier}: {json.dumps(res)}", flush=True)
+            # tier tolerances: bit-parity 1e-3 max abs; bench 0.01 mean L1
+            # (QUIRKS.md budget of the JAX package's fast tiers)
+            key, tol = (("max_abs", 1e-3) if tier == "bit-parity"
+                        else ("mean_abs", 0.01))
+            check(res[f"vs_plain_{key}"] <= tol,
+                  f"{tier}: kernel path vs plain path")
+            check(res[f"session_vs_clip_{key}"] <= tol,
+                  f"{tier}: session frames vs the clip forward")
+            frame = (CHUNK, hw, hw, 3)
+            check(all(p.shape == frame for p in pushed)
+                  and shown.shape == frame and shown.dtype == np.uint8,
+                  f"{tier}: session output shapes")
+            check(np.isfinite(np.stack(pushed)).all(),
+                  f"{tier}: session non-finite")
+            check(res["display_vs_model_max_levels"] <= 1.0,
+                  f"{tier}: display frames vs model-space frames")
 
-        iters = 3
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            forward()
-        torch.cuda.synchronize()
-        res["clip_ms"] = 1e3 * (time.perf_counter() - t0) / iters
-        res["fps"] = CLIP_FRAMES / (res["clip_ms"] / 1e3)
-        t0 = time.perf_counter()
-        sess.push_labels(tar_lbl[:CHUNK], tar_bbox[:CHUNK])
-        res["session_request_ms"] = 1e3 * (time.perf_counter() - t0)
-        torch.cuda.reset_peak_memory_stats()
-        forward()
-        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        res["stage_ms"] = stage_ms(mods, src, tar_lbl, tar_bbox)
-        res.update(device_breakdown(forward, tier))
+            res.update(tier_perf(
+                tier, mods, forward,
+                lambda: sess.push_labels(tar_lbl[:CHUNK], tar_bbox[:CHUNK]),
+                "session_request_ms", src, tar_lbl, tar_bbox, line))
         report[tier] = res
-        print(f"[perf] {tier}: " + json.dumps({k: res[k] for k in (
-            "clip_ms", "fps", "session_request_ms", "peak_mem_gb",
-            "stage_ms", "device_busy_ms", "device_busy_share")}),
-              flush=True)
-        print(f"[fps] {tier}: {res['fps']:.2f} frames/s "
-              f"({CLIP_FRAMES}-frame clip, {res['clip_ms']:.2f} ms) on {line}",
-              flush=True)
         outputs[tier] = out.cpu()
         features[tier] = encode_sources(mods, *src)["fea"].float().cpu()
         del mods, out, plain
         torch.cuda.empty_cache()
+    report[FUSED_TIER] = fused_tier(line, bench, src, tar_lbl, tar_bbox,
+                                    outputs["bench"], report["bench"])
     # how far the bench tier's shortcuts move the output (random weights),
     # and how much of that is the bf16 tail alone (no fast_trunk)
     tail = TSNetModules(dataclasses.replace(base, precision="high",
                                             fast_tail=True), seed=0)
-    outputs["high+fast_tail"] = tsnet_forward_clip(tail, *src, tar_lbl,
-                                                   tar_bbox).cpu()
+    with fuse_pair_kernel(False):
+        outputs["high+fast_tail"] = tsnet_forward_clip(tail, *src, tar_lbl,
+                                                       tar_bbox).cpu()
     features["high+fast_tail"] = encode_sources(tail, *src)["fea"].float().cpu()
     ref_fea = features["bit-parity"]
     for name in ("bench", "high+fast_tail"):
@@ -439,6 +562,86 @@ def main_path(line: str) -> dict:
               f"{drift.mean().item():.4e} max_abs={drift.max().item():.4e}; "
               f"source features rel_err={fea_rel:.4e}", flush=True)
     return report
+
+
+def fused_tier(line: str, cfg, src, tar_lbl, tar_bbox, unfused_out,
+               unfused: dict) -> dict:
+    """The bench tier with the fused tail: K6 in FuseNet
+    (TSNET_FUSE_PAIR_KERNEL=1, set for this tier only) and K7 in the
+    decoder (`fused_blocks=True`). A 64-frame clip and two 32-frame
+    requests on one source pack, launches counted over the three decode
+    calls; held against its plain path and the unfused bench tier."""
+    tier = FUSED_TIER
+    hw = cfg.image_size
+    mods = TSNetModules(cfg, device="cuda", seed=0)
+
+    def forward(use_kernels=True):
+        return tsnet_forward_clip(mods, *src, tar_lbl, tar_bbox,
+                                  use_kernels=use_kernels, fused_blocks=True)
+
+    def request(pack, lo):
+        return decode_with_sources(mods, pack, tar_lbl[lo:lo + CHUNK],
+                                   tar_bbox[lo:lo + CHUNK], fused_blocks=True)
+
+    with fuse_pair_kernel(True):
+        forward()                                    # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        out = forward()
+        pack = encode_sources(mods, *src)
+        answered = [request(pack, lo) for lo in (0, CHUNK)]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+
+        calls = 1 + len(answered)                    # decode calls
+        want = {"transform_warp_pairs_mean": calls, "instance_norm_mean": calls,
+                "fuse_pair_conv2": calls,
+                "conv3x3_in": 2 * cfg.dec_n_blocks * calls}
+        check(all(launches[k] == v for k, v in want.items())
+              and sum(launches.values()) == sum(want.values()),
+              f"{tier}: launches {launches}, expected {want} and no other")
+        check(tuple(out.shape) == (CLIP_FRAMES, hw, hw, 3), f"{tier}: shape")
+        check(all(tuple(a.shape) == (CHUNK, hw, hw, 3) for a in answered),
+              f"{tier}: request shapes")
+        check(bool(torch.isfinite(out).all())
+              and all(bool(torch.isfinite(a).all()) for a in answered),
+              f"{tier}: non-finite output")
+
+        plain = forward(use_kernels=False)
+        diff = (out - plain).abs()
+        vs_unfused = (out.cpu() - unfused_out).abs()
+        batch_diff = (torch.cat(answered) - out).abs()
+        res = {"launches": launches, "main_path_s": run_s,
+               "vs_plain_max_abs": diff.max().item(),
+               "vs_plain_mean_abs": diff.mean().item(),
+               "vs_unfused_bench_max_abs": vs_unfused.max().item(),
+               "vs_unfused_bench_mean_abs": vs_unfused.mean().item(),
+               "batch64_vs_batch32_max_abs": batch_diff.max().item(),
+               "batch64_vs_batch32_mean_abs": batch_diff.mean().item()}
+        print(f"[main] {tier}: {json.dumps(res)}", flush=True)
+        # the fast tiers' 0.01 mean-L1 budget (QUIRKS.md); against the
+        # unfused tier only rounding differs: the attention lies upstream
+        check(res["vs_plain_mean_abs"] <= 0.01,
+              f"{tier}: kernel path vs plain path")
+        check(res["vs_unfused_bench_mean_abs"] <= 0.01,
+              f"{tier}: fused tail vs the unfused bench tier")
+
+        res.update(tier_perf(
+            tier, mods, forward, lambda: request(pack, 0).cpu(),
+            "request_ms", src, tar_lbl, tar_bbox, line, fused=True))
+    side = {k: {"bench": unfused["stage_ms"][k], tier: res["stage_ms"][k]}
+            for k in ("fuse_clip", "decoder")}
+    print(f"[fused-vs-bench] stage_ms {json.dumps(side)}; frames/s bench "
+          f"{unfused['fps']:.2f}, {tier} {res['fps']:.2f}; request ms bench "
+          f"session {unfused['session_request_ms']:.2f}, {tier} "
+          f"{res['request_ms']:.2f}; peak GB bench "
+          f"{unfused['peak_mem_gb']:.2f}, {tier} {res['peak_mem_gb']:.2f} | "
+          f"{line}", flush=True)
+    del mods, out, plain, answered
+    torch.cuda.empty_cache()
+    return res
 
 
 def flow_cells(flow, h: int, w: int) -> torch.Tensor:
@@ -697,8 +900,9 @@ def train_phase(line: str) -> dict:
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     check(all(per_step[k] == 1 for k in TRAIN_KERNELS),
           f"train: launches per step {per_step}")
-    check(per_step["transform_warp_pairs_mean"] == 0
-          and per_step["transform_warp_pairs_nf"] == 0,
+    check(all(per_step[k] == 0 for k in (
+        "transform_warp_pairs_mean", "transform_warp_pairs_nf",
+        "fuse_pair_conv2", "conv3x3_in")),
           f"train: launched an inference kernel: {per_step}")
     check(all(np.isfinite(v) for h in history for v in h.values()),
           "train: non-finite metric")
@@ -778,7 +982,8 @@ def main() -> int:
         kernels[name] = dict(k, tier="train")
     for name, k in kernels.items():
         # K2 is one kernel: its row is the f32 form, on the bit-parity
-        # clip path (the bf16 form is checked and printed above)
+        # clip path (the bf16 form is checked and printed above); K7's row
+        # is its relu form (the skip form is checked and printed above)
         if k.get("tier") is None or name == "instance_norm_mean_bf16":
             continue
         rows.append({
@@ -786,7 +991,7 @@ def main() -> int:
             "replaces": k["replaces"],
             "launches": report[k["tier"]]["launches"][
                 "instance_norm_mean" if name.startswith("instance_norm")
-                else name],
+                else k.get("launch", name)],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None})

@@ -6,9 +6,10 @@ where only PyTorch is installed; there, skip the JAX-pinning conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Small and ragged shapes here (the tile edges: T not a multiple of 64,
-C not a multiple of 32, and past the backward's 512-channel slab), and
-the train shape of the backward; chip_smoke.py checks the main path's
-shapes.
+C not a multiple of 32, and past the backward's 512-channel slab; for the
+tensor-core convs K6 and K7, pixels past the 128-row tiles and channel
+counts that are not powers of two), and the train shape of the backward;
+chip_smoke.py checks the main path's shapes.
 """
 
 import dataclasses
@@ -21,7 +22,12 @@ import torch.nn.functional as F
 from wacv23_tsnet_tpu_torch.configs import toy_config
 from wacv23_tsnet_tpu_torch.nn.blocks import conv2d
 from wacv23_tsnet_tpu_torch.ops import cuda_build
+from wacv23_tsnet_tpu_torch.ops.conv_kernels import (conv3x3_in,
+                                                     conv3x3_in_plain,
+                                                     resblock_fused)
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
+from wacv23_tsnet_tpu_torch.ops.fuse_kernels import (fuse_pair_conv2,
+                                                     fuse_pair_conv2_plain)
 from wacv23_tsnet_tpu_torch.ops.norm_kernels import (instance_norm_mean,
                                                      instance_norm_mean_plain)
 from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
@@ -285,3 +291,126 @@ def test_toy_train_step_kernel_path_matches_plain_path(dev):
     for name in gk:
         rel = ((gk[name] - gp[name]).norm() / gp[name].norm()).item()
         assert rel <= 1e-3, (name, rel)
+
+
+def _assert_bf16_close(got, want, atol=1e-3):
+    """Both sides round an fp32 conv sum to bf16 once: one bf16 step
+    (2^-7 relative) apart at most, plus `atol` for the fp32 sums taken in
+    another order (K6: also hp values a rounding away from a tie, which
+    round the other way where the statistics differ in their last bit;
+    each moves an output by ulp(hp) * |w|, see chip_smoke.py K6_TOL)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= atol + 2.0 ** -7 * want.float().abs()).all()), \
+        err.max().item()
+
+
+# (S, F, H, W, K, Co): one tile; ragged (144 pixels = a tile and 16 rows,
+# 48 -> 40 channels); several channel tiles
+FUSE_SHAPES = [(2, 3, 8, 8, 64, 64), (1, 2, 12, 12, 48, 40),
+               (3, 2, 16, 16, 256, 264)]
+
+
+@pytest.mark.parametrize("shape", FUSE_SHAPES, ids=["small", "ragged", "wide"])
+def test_fuse_pair_conv2_kernel(dev, shape):
+    s, f, h, w, k, co = shape
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    c1a = torch.randn(s, h, w, k, generator=gen).to(dev, torch.bfloat16)
+    c1t = torch.randn(f, h, w, k, generator=gen).to(dev, torch.bfloat16)
+    w2 = (torch.randn(co, k, 3, 3, generator=gen) * 0.05).to(dev)
+    cuda_build.reset_launches()
+    got = fuse_pair_conv2(c1a, c1t, w2)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["fuse_pair_conv2"] == 1
+    assert tuple(got.shape) == (s, f, h, w, co)
+    _assert_bf16_close(got, fuse_pair_conv2_plain(c1a, c1t, w2), atol=8e-3)
+
+
+# (B, H, W, C, Co): one tile; ragged (6 x 10, 16 -> 48, as the JAX
+# package's rectangular test); 400 pixels over four tiles, 136 channels
+CONV_SHAPES = [(2, 8, 8, 32, 32), (1, 6, 10, 16, 48), (2, 20, 20, 136, 136)]
+
+
+@pytest.mark.parametrize("variant", ["relu", "skip", "plain_norm"])
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=["small", "ragged", "wide"])
+def test_conv3x3_in_kernel(dev, shape, variant):
+    b, h, w, c, co = shape
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    x = torch.randn(b, h, w, c, generator=gen).to(dev, torch.bfloat16)
+    wt = (torch.randn(co, c, 3, 3, generator=gen) * 0.1).to(dev)
+    skip = (torch.randn(b, h, w, co, generator=gen).to(dev, torch.bfloat16)
+            if variant == "skip" else None)
+    relu = variant == "relu"
+    cuda_build.reset_launches()
+    got = conv3x3_in(x, wt, skip=skip, relu=relu)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["conv3x3_in"] == 1
+    _assert_bf16_close(got, conv3x3_in_plain(x, wt, skip=skip, relu=relu))
+
+
+def test_resblock_fused_counts_two_launches(dev):
+    """One block is two K7 calls; against the plain versions' block, which
+    the two roundings to bf16 (the mid-block tensor and the output) may
+    move by a step each."""
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(2, 8, 8, 64, generator=gen).to(dev, torch.bfloat16)
+    w1, w2 = ((torch.randn(64, 64, 3, 3, generator=gen) * 0.05).to(dev)
+              for _ in range(2))
+    cuda_build.reset_launches()
+    got = resblock_fused(x, w1, w2)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["conv3x3_in"] == 2
+    want = resblock_fused(x, w1, w2, use_kernels=False)
+    assert (got.float() - want.float()).abs().max().item() <= 5e-2
+
+
+def test_fused_kernels_refuse_what_they_do_not_take(dev):
+    """f32 tensors, channel counts off the 8-channel chunks, views that do
+    not start on a 16-byte boundary and strided views raise; nothing is
+    launched."""
+    x = torch.randn(2, 8, 8, 32, device=dev)
+    wt = torch.randn(32, 32, 3, 3, device=dev)
+    xb = x.to(torch.bfloat16)
+    cuda_build.reset_launches()
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv3x3_in(x, wt)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fuse_pair_conv2(x, x, wt)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3x3_in(xb[..., :12].contiguous(), wt[:12, :12])
+    with pytest.raises(ValueError, match="16-byte"):
+        conv3x3_in(xb.reshape(-1)[4:4 + 8 * 8 * 32].reshape(1, 8, 8, 32), wt)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_in(xb.transpose(1, 2), wt)
+    assert set(cuda_build.LAUNCHES.values()) == {0}
+
+
+def test_fused_tail_toy_clip_kernel_path_matches_plain_path(dev,
+                                                             monkeypatch):
+    """The bench tier with both opt-ins at the toy config: one K6, K2 and
+    K1 and two K7 per block in a decode call; the kernel path within the
+    fast tiers' 0.01 mean-L1 budget of the plain path."""
+    from wacv23_tsnet_tpu_torch.models import TSNetModules, tsnet_forward_clip
+    monkeypatch.setenv("TSNET_FUSE_PAIR_KERNEL", "1")
+    cfg = dataclasses.replace(toy_config(), precision="high", fast_tail=True,
+                              fast_trunk=True)
+    mods = TSNetModules(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(12)
+    s, hw, nl, f = cfg.n_source, cfg.image_size, cfg.label_nc, 5
+    inputs = (rng.random((s, hw, hw, 3), np.float32),
+              rng.integers(0, 2, (s, hw, hw, nl)).astype(np.float32),
+              rng.integers(0, 2, (s, hw, hw)).astype(np.float32),
+              rng.integers(0, 2, (f, hw, hw, nl)).astype(np.float32),
+              rng.integers(0, 2, (f, hw, hw)).astype(np.float32))
+    cuda_build.reset_launches()
+    got = tsnet_forward_clip(mods, *inputs, fused_blocks=True)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    assert launches["fuse_pair_conv2"] == 1
+    assert launches["instance_norm_mean"] == 1
+    assert launches["transform_warp_pairs_mean"] == 1
+    assert launches["conv3x3_in"] == 2 * cfg.dec_n_blocks
+    want = tsnet_forward_clip(mods, *inputs, fused_blocks=True,
+                              use_kernels=False)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().mean().item() <= 0.01

@@ -12,7 +12,11 @@ Tiers (configs/base.py): the encoders run at `precision`, or one bf16
 pass under `fast_trunk`; FuseNet and the decoder run in bf16 under
 `fast_tail`, where the transformation branch writes its source mean in
 bf16 through K1; otherwise K3-nf writes every pair in f32 and the mean is
-taken here. Both tiers run K2 inside `fuse_clip`.
+taken here. Both tiers run K2 inside `fuse_clip`. Two opt-ins of the bf16
+tail, both off by default as in the JAX package: `TSNET_FUSE_PAIR_KERNEL=1`
+runs FuseNet's per-pair block through K6 (`nn.fusenet.fuse_clip`), and
+`fused_blocks=True` runs the decoder's ResNet blocks through K7 (the JAX
+package's `decoder_apply_fast(use_pallas_blocks=True)`).
 
 `tsnet_forward` is the generator forward of training (counterpart of the
 JAX package's `tsnet_forward(train=True)`): per-sample sources, the
@@ -185,12 +189,15 @@ def encode_sources(mods: TSNetModules, src_img: torch.Tensor,
 
 def decode_with_sources(mods: TSNetModules, src_pack: dict,
                         tar_lbl: torch.Tensor, tar_bbox: torch.Tensor,
-                        use_kernels: bool = True) -> torch.Tensor:
+                        use_kernels: bool = True,
+                        fused_blocks: bool = False) -> torch.Tensor:
     """Run F driving frames against a source pack -> (F, H, W, 3) f32.
 
     `use_kernels=False` runs every kernel's plain PyTorch version instead
     (the reference the kernels are held against, as `use_pallas=False`
     is in the JAX package); on CPU tensors the two are the same path.
+    `fused_blocks=True` runs a bf16 decoder's ResNet blocks through K7
+    (the JAX package hard-codes False here).
     """
     cfg = mods.cfg
     with torch.inference_mode():
@@ -212,18 +219,21 @@ def decode_with_sources(mods: TSNetModules, src_pack: dict,
             prop_fea = warped.mean(dim=0).to(mods.dtype)
         syn_fea = fuse_clip(mods.fuse_net, src_fea, tar_fea.float(),
                             use_kernels=use_kernels)
-        return mods.dec(prop_fea, syn_fea).float()
+        return mods.dec(prop_fea, syn_fea, fused_blocks=fused_blocks,
+                        use_kernels=use_kernels).float()
 
 
 def tsnet_forward_clip(mods: TSNetModules, src_img, src_lbl, src_bbox,
                        tar_lbl, tar_bbox, use_kernels: bool = True,
-                       device="cuda") -> torch.Tensor:
+                       device="cuda", fused_blocks: bool = False
+                       ) -> torch.Tensor:
     """Whole-clip inference: encode the S references once, batch frames.
 
     src_img (S, H, W, 3) model space, src_lbl (S, H, W, L), src_bbox
     (S, H, W); tar_lbl (F, H, W, L), tar_bbox (F, H, W); numpy arrays or
     tensors, moved to `device`, where `mods` must live. Returns
-    (F, H, W, 3) f32 reconstructions on `device`.
+    (F, H, W, 3) f32 reconstructions on `device`. `fused_blocks` as in
+    `decode_with_sources`.
     """
     dev = resolve_device(device)
     if mods.device != dev:
@@ -232,4 +242,5 @@ def tsnet_forward_clip(mods: TSNetModules, src_img, src_lbl, src_bbox,
             for x in (src_img, src_lbl, src_bbox, tar_lbl, tar_bbox)]
     src_pack = encode_sources(mods, *args[:3])
     return decode_with_sources(mods, src_pack, *args[3:],
-                               use_kernels=use_kernels)
+                               use_kernels=use_kernels,
+                               fused_blocks=fused_blocks)

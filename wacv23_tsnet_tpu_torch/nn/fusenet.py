@@ -11,6 +11,13 @@ and is dropped. The IN + mean over sources is one fused pass
 (`ops.norm_kernels.instance_norm_mean`, K2), and the final 1x1 commutes
 with the mean, so it runs once per frame.
 
+With a bf16 FuseNet and `TSNET_FUSE_PAIR_KERNEL=1` in the environment
+(the JAX package's own opt-in, read at each call as the JAX package reads
+it at trace time), the per-pair block runs as K6
+(`ops.fuse_kernels.fuse_pair_conv2`): pair-sum + IN + relu + conv2 in one
+kernel, so the per-pair normalised tensor never reaches device memory.
+Off by default, as in the JAX package.
+
 `fuse_train` is the same split for the training shape, where each sample
 has its own S sources and one target: differentiable, with K2's backward
 through its recomputed plain composition.
@@ -18,9 +25,12 @@ through its recomputed plain composition.
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn as nn
 
+from ..ops.fuse_kernels import fuse_pair_conv2, fuse_pair_conv2_plain
 from ..ops.norm_kernels import instance_norm_mean, instance_norm_mean_plain
 from ..ops.norms import instance_norm
 from .blocks import Conv2d, ResnetBlock, conv2d, reflect_pad
@@ -52,7 +62,10 @@ def fuse_clip(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
 
     src_fea (S, h, w, C); tar_fea (F, h, w, C); `fuse_net.n_blocks == 1`.
     Returns (F, h, w, C) in the FuseNet's dtype. `use_kernels=False` runs
-    K2's plain version on any device.
+    the plain version of each kernel (K2, and K6 where it is on) on any
+    device. Unlike the JAX package's `use_pallas=False`, which leaves the
+    K6 branch for the unfused composition, it keeps the branch the
+    environment picks and swaps only the kernels for their plain versions.
     """
     if fuse_net.n_blocks != 1:
         raise ValueError("fuse_clip needs a one-block FuseNet")
@@ -69,10 +82,16 @@ def fuse_clip(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
 
     c1a = conv(reflect_pad(a, 1), w1[:, :c])                # (S, h, w, 2C)
     c1t = conv(reflect_pad(t, 1), w1[:, c:], blk.conv1.bias)  # (F, h, w, 2C)
-    hp = (c1a[:, None] + c1t[None]).reshape(s * f, h, w, 2 * c)
-    hp = torch.relu(instance_norm(hp))
-    h2 = conv(reflect_pad(hp, 1), blk.conv2.weight)         # bias dropped
-    h2 = h2.reshape(s, f, h, w, 2 * c).contiguous()
+    if (dt == torch.bfloat16
+            and os.environ.get("TSNET_FUSE_PAIR_KERNEL", "0") == "1"):
+        pair_conv = fuse_pair_conv2 if use_kernels else fuse_pair_conv2_plain
+        h2 = pair_conv(c1a.contiguous(), c1t.contiguous(),
+                       blk.conv2.weight)                    # bias dropped
+    else:
+        hp = (c1a[:, None] + c1t[None]).reshape(s * f, h, w, 2 * c)
+        hp = torch.relu(instance_norm(hp))
+        h2 = conv(reflect_pad(hp, 1), blk.conv2.weight)     # bias dropped
+        h2 = h2.reshape(s, f, h, w, 2 * c).contiguous()
     in_mean = instance_norm_mean if use_kernels else instance_norm_mean_plain
     h2m = in_mean(h2).to(dt)                                # (F, h, w, 2C)
     a_mean = a.float().mean(dim=0).to(dt)

@@ -1,6 +1,8 @@
 """Tensor ops of the port (NHWC), and the CUDA kernels' wrappers."""
 
+from .conv_kernels import conv3x3_in, conv3x3_in_plain, resblock_fused
 from .coords import coord_channels, normalized_grid
+from .fuse_kernels import fuse_pair_conv2, fuse_pair_conv2_plain
 from .grid_sample import grid_sample
 from .norm_kernels import instance_norm_mean, instance_norm_mean_plain
 from .norms import instance_norm, l2_normalize
@@ -14,5 +16,7 @@ __all__ = [
     "l2_normalize", "instance_norm_mean", "instance_norm_mean_plain",
     "resize_nearest", "upsample_bilinear_2x", "masked_attention_flow",
     "transformation_warp", "transformation_warp_clip",
-    "transformation_warp_clip_mean",
+    "transformation_warp_clip_mean", "fuse_pair_conv2",
+    "fuse_pair_conv2_plain", "conv3x3_in", "conv3x3_in_plain",
+    "resblock_fused",
 ]

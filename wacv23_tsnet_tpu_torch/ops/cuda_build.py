@@ -7,15 +7,17 @@ own shared library with a plain C interface, loaded with `ctypes`:
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The build happens at first use, into `wacv23_tsnet_tpu_torch/_build/`
-(git-ignored), named by a hash of the source and the flags, so a changed
-source is rebuilt and an unchanged one is loaded as it is. nvcc's output
+(git-ignored), named by a hash of the source, the shared headers of
+`csrc/` (`*.cuh`) and the flags, so a changed source or header is rebuilt
+and an unchanged one is loaded as it is. nvcc's output
 (`-Xptxas -v`: registers, shared memory, spills) is kept beside the
 library as `<name>-<hash>.log`. Nothing is built when a module is
 imported, and a failed build raises: no caller falls back to a plain
 version on the GPU.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; a wrapper
-adds one where it launches and nowhere else.
+adds one where it launches and nowhere else, one per call even where the
+call runs two CUDA kernels (a statistics pass and the main kernel).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 from pathlib import Path
 
 import torch
@@ -35,7 +38,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("transform_warp", "transform_warp_bwd", "in_mean")
+SOURCES = ("transform_warp", "transform_warp_bwd", "in_mean",
+           "fuse_pair_conv2", "conv3x3_in")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +49,8 @@ LAUNCHES: dict[str, int] = {
     "transform_warp_pairs": 0,
     "transform_warp_pairs_bwd": 0,
     "instance_norm_mean": 0,
+    "fuse_pair_conv2": 0,
+    "conv3x3_in": 0,
 }
 
 
@@ -66,11 +72,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to: keyed on its source and flags."""
-    digest = hashlib.sha256(
-        (CSRC_DIR / f"{name}.cu").read_bytes()
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where `csrc/<name>.cu` builds to: keyed on its source, the headers
+    of `csrc/` it may include, and the flags."""
+    digest = hashlib.sha256()
+    for path in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -120,6 +128,39 @@ def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
         msg = lib.tsnet_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error "
                            f"{err} ({msg})")
+
+
+def check_aligned(what: str, *tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels
+    move 16-byte chunks)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} kernel: tensors must start on a 16-byte "
+                             "boundary (take a .clone() of a sliced view)")
+
+
+def gemm_weight(w: torch.Tensor) -> torch.Tensor:
+    """A 3x3 conv weight (Co, C, 3, 3) repacked as the implicit GEMMs read
+    it: bf16 (Co, 3, 3, C), contiguous.
+
+    The repack is kept while `w` lives and is not changed in place (its
+    version counter), so a module's weight is repacked once, not at every
+    call.
+    """
+    packed = w.detach().to(torch.bfloat16).permute(0, 2, 3, 1)
+    if w.is_inference():   # no version counter to key on
+        return packed.contiguous()
+    key = id(w)
+    hit = _GEMM_WEIGHTS.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    packed = packed.contiguous()
+    ref = weakref.ref(w, lambda _, key=key: _GEMM_WEIGHTS.pop(key, None))
+    _GEMM_WEIGHTS[key] = (ref, w._version, packed)
+    return packed
+
+
+_GEMM_WEIGHTS: dict = {}
 
 
 def ptr(t) -> ctypes.c_void_p:
