@@ -42,7 +42,17 @@ non-zero, printing no result, where CUDA or the package is missing.
    (one K3-flow, one K4 and one K2 a step; no inference kernel), with
    ms/step, samples/s, the CUDA-event stage split, peak memory and a
    profile; the metrics must stay finite and G_VGG must fall.
-7. Prints one `kernels` JSON line, the card line again, and last
+7. Drives the two kernels that no model path reaches through their own
+   entry points at full width, launch counts zeroed just before each call
+   and read just after (exactly one launch a call): K5 through
+   `transformation_warp(use_kernels=True)` at B=15, 32x32, C=512 (temps
+   100 and 10; flow and warped output against the plain path; the five
+   input gradients under a fixed flow cotangent; SDPA on the mask-folded
+   inputs as a yardstick), and K8 `instance_norm_fused` at
+   (32, 256, 256, 64) and, with `phase_groups=4`, (32, 128, 128, 256), in
+   bf16 and f32, relu on and off (against its plain version; the phase
+   identity with `space_to_depth`; `F.instance_norm` as a yardstick).
+8. Prints one `kernels` JSON line, the card line again, and last
    `{"ok": true, "device": {...}}`.
 """
 
@@ -59,6 +69,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend
 from torch.profiler import ProfilerActivity, profile
 
 from wacv23_tsnet_tpu_torch.configs import face_config
@@ -70,14 +81,18 @@ from wacv23_tsnet_tpu_torch.models.tsnet import (decode_with_sources,
 from wacv23_tsnet_tpu_torch.nn import fuse_clip
 from wacv23_tsnet_tpu_torch.ops import conv_kernels as ck
 from wacv23_tsnet_tpu_torch.ops import cuda_build
+from wacv23_tsnet_tpu_torch.ops import flow_kernels as fl
 from wacv23_tsnet_tpu_torch.ops import fuse_kernels as fk
 from wacv23_tsnet_tpu_torch.ops import norm_kernels as nk
 from wacv23_tsnet_tpu_torch.ops import warp_kernels as wk
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
 from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
+from wacv23_tsnet_tpu_torch.ops.precision import tf32
 from wacv23_tsnet_tpu_torch.ops.resize import resize_nearest
 from wacv23_tsnet_tpu_torch.ops.similarity import (
-    transformation_warp_clip, transformation_warp_clip_mean)
+    transformation_warp, transformation_warp_clip,
+    transformation_warp_clip_mean)
+from wacv23_tsnet_tpu_torch.ops.warp import space_to_depth
 from wacv23_tsnet_tpu_torch.train import (GEN_SUBNETS, create_train_state,
                                           make_train_step)
 
@@ -137,6 +152,16 @@ INPUT_NUDGE = 1e-6
 NUDGE_MARGIN = 2.0
 TRAIN_KERNELS = ("transform_warp_pairs", "transform_warp_pairs_bwd",
                  "instance_norm_mean")
+# K5 and K8: no model path reaches them, in either package; each is driven
+# through its own entry point (flow_phase, norm_phase)
+STANDALONE_KERNELS = ("masked_attention_flow_fused", "instance_norm_fused")
+STANDALONE = "standalone"
+# K5's five input gradients, kernel path against plain path: the backward
+# recomputes the plain composition, so they differ by rounding at most
+FLOW_GRAD_RTOL = 1e-6
+# K8 at the decoder's last up stage for one 32-frame request, and its 2x2
+# phase layout (phase_groups=4)
+K8_SHAPES = {1: (32, 256, 256, 64), 4: (32, 128, 128, 256)}
 FORWARD_KEYS = ("src_img", "src_lbl", "src_bbox", "tar_lbl", "tar_bbox")
 
 
@@ -488,7 +513,8 @@ def main_path(line: str) -> dict:
                   f"{tier}: kernels not launched on the main path: {launches}")
             check(launches[other_kernel] == 0
                   and launches["fuse_pair_conv2"] == 0
-                  and launches["conv3x3_in"] == 0,
+                  and launches["conv3x3_in"] == 0
+                  and all(launches[k] == 0 for k in STANDALONE_KERNELS),
                   f"{tier}: launched another tier's kernel: {launches}")
 
             plain = tsnet_forward_clip(mods, *src, tar_lbl, tar_bbox,
@@ -902,7 +928,7 @@ def train_phase(line: str) -> dict:
           f"train: launches per step {per_step}")
     check(all(per_step[k] == 0 for k in (
         "transform_warp_pairs_mean", "transform_warp_pairs_nf",
-        "fuse_pair_conv2", "conv3x3_in")),
+        "fuse_pair_conv2", "conv3x3_in") + STANDALONE_KERNELS),
           f"train: launched an inference kernel: {per_step}")
     check(all(np.isfinite(v) for h in history for v in h.values()),
           "train: non-finite metric")
@@ -951,6 +977,179 @@ def train_phase(line: str) -> dict:
             "stage_ms": split, **prof}
 
 
+def one_launch(name: str, call):
+    """Run `call` with the launch counts zeroed just before and read just
+    after; it must launch kernel `name` once and nothing else."""
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    out = call()
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    check(launches[name] == 1 and sum(launches.values()) == 1,
+          f"{STANDALONE}: {name} call launched {launches}")
+    return out
+
+
+def sdpa_backend(q, k, v, scale: float) -> str:
+    """The backend SDPA's dispatch picks for these inputs (the choice
+    `F.scaled_dot_product_attention` makes on them)."""
+    names = {int(b): n for n, b in SDPBackend.__members__.items()}
+    return names[torch._fused_sdp_choice(q, k, v, scale=scale)]
+
+
+def flow_phase(line: str) -> dict:
+    """K5 through `transformation_warp(use_kernels=True)`, one source of
+    the train batch (B=15, 32x32, C=512): flow and warped output at temps
+    100 and 10 against the plain path, the five input gradients under a
+    fixed cotangent of the flow, and times beside SDPA."""
+    dev = torch.device("cuda")
+    b, h, w, c = TRAIN_BATCH, 32, 32, 512
+    t = h * w
+    gen = torch.Generator().manual_seed(3)
+    src = torch.randn(b, h, w, c, generator=gen)
+    args = tuple(x.to(dev).contiguous() for x in (
+        src, l2_normalize(torch.randn(b, h, w, c, generator=gen)),
+        l2_normalize(src), (torch.rand(b, h, w, generator=gen) > 0.5).float(),
+        (torch.rand(b, h, w, generator=gen) > 0.5).float()))
+    name = "masked_attention_flow_fused"
+    launches = 0
+    for temp in (100.0, 10.0):
+        warped, flow = one_launch(name, lambda: transformation_warp(
+            *args, temp=temp, use_kernels=True))
+        launches += 1
+        plain_w, plain_f = transformation_warp(*args, temp=temp)
+        errs = {"flow": compare(flow, plain_f, TOL["f32"]),
+                "warped": compare(warped, plain_w, TOL["f32"])}
+        print(f"[kernel] {name} (K5) via transformation_warp, temp {temp}: "
+              f"(atol, rtol)={TOL['f32']} {json.dumps(errs)}", flush=True)
+        check(all(e["worst_err_over_tol"] <= 1.0 for e in errs.values()),
+              f"{name} disagrees with the plain path at temp {temp}: {errs}")
+        if temp == 100.0:
+            res = {"max_abs_err": max(e["max_abs_err"] for e in errs.values())}
+
+    # the five input gradients under one fixed cotangent of the flow
+    flat = (args[1].reshape(b, t, c), args[2].reshape(b, t, c),
+            args[3].reshape(b, t), args[4].reshape(b, t),
+            normalized_grid(h, w, device=dev).reshape(t, 2))
+    ct = torch.randn(b, t, 2, generator=gen).to(dev)
+    names = ("tar_fea", "src_fea", "tar_mask", "src_mask", "grid")
+    grads = {}
+    for path, fn in (("kernel", fl.masked_attention_flow_fused),
+                     ("plain", fl.masked_attention_flow)):
+        inputs = [x.clone().requires_grad_(True) for x in flat]
+        grads[path] = torch.autograd.grad(fn(*inputs, temp=100.0), inputs, ct)
+    rel = {n: ((a - p).abs().max() / max(1.0, p.abs().max().item())).item()
+           for n, a, p in zip(names, grads["kernel"], grads["plain"])}
+    print(f"[kernel] {name} (K5) gradients at temp 100, kernel path vs plain "
+          f"path, max |diff| over max(1, max|plain|): {json.dumps(rel)}",
+          flush=True)
+    check(max(rel.values()) <= FLOW_GRAD_RTOL,
+          f"{name}: input gradients differ from the plain path's: {rel}")
+    del grads
+
+    # times at temp 100; the yardstick is SDPA on the mask-folded inputs:
+    # <[mt t, (1-mt) t], [ms s, (1-ms) s]> = coeff * <t, s>, v = the grid
+    # zero-padded to 8 columns (the port never calls SDPA)
+    tar, srcn, mt, ms, grid = flat
+    res["ms"] = time_ms(lambda: fl.masked_attention_flow_fused(*flat))
+    res["plain_ms"] = time_ms(lambda: fl.masked_attention_flow(*flat),
+                              iters=3)
+    q = torch.cat([mt[..., None] * tar, (1 - mt[..., None]) * tar], -1)
+    k = torch.cat([ms[..., None] * srcn, (1 - ms[..., None]) * srcn], -1)
+    q, k = q[:, None], k[:, None]                          # (B, 1, T, 2C)
+    v = F.pad(grid, (0, 6)).expand(b, 1, t, 8).contiguous()
+
+    def sdpa():
+        with tf32(False):
+            return F.scaled_dot_product_attention(q, k, v, scale=100.0)
+
+    backend = sdpa_backend(q, k, v, 100.0)
+    res["library_ms"] = time_ms(sdpa)
+    sdpa_err = (sdpa()[:, 0, :, :2] - fl.masked_attention_flow(*flat)).abs()
+    res["bound_ms"], res["bound_by"] = bound(
+        4 * (2 * b * t * c + 2 * b * t + 2 * t + 2 * b * t),
+        b * t * t * (2 * c + 10))
+    res.update(launches=launches, tier=STANDALONE,
+               replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:74",
+               source="wacv23_tsnet_tpu_torch/csrc/attention_flow.cu")
+    print(f"[kernel] {name} (K5, B={b}, T=S={t}, C={c}, temp 100): "
+          f"max_abs_err={res['max_abs_err']:.3e} kernel_ms={res['ms']:.4f} "
+          f"plain_ms={res['plain_ms']:.4f} library_ms={res['library_ms']:.4f} "
+          f"(SDPA, backend {backend}, fp32, TF32 off, q/k {2 * c} wide; its "
+          f"flow vs plain max_abs_err {sdpa_err.max().item():.3e}) "
+          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) | {line}",
+          flush=True)
+    return res
+
+
+def norm_phase(line: str) -> dict:
+    """K8 `instance_norm_fused` at the decoder's last up stage of one
+    32-frame request, (32, 256, 256, 64), and its phase layout
+    (32, 128, 128, 256) with phase_groups=4; bf16 and f32, relu on and
+    off; against the plain version in fp32 (before its one rounding), the
+    phase identity, and times beside `F.instance_norm`."""
+    name = "instance_norm_fused"
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases, launches = {}, 0
+    for groups, shape in K8_SHAPES.items():
+        x32 = torch.randn(shape, generator=gen, device="cuda") * 2 + 1
+        for dtype, x in (("bf16", x32.to(torch.bfloat16)), ("f32", x32)):
+            for relu in (False, True):
+                out = one_launch(name, lambda: nk.instance_norm_fused(
+                    x, relu=relu, phase_groups=groups))
+                launches += 1
+                check(out.dtype == x.dtype and out.shape == x.shape,
+                      f"{name}: output {out.dtype} {tuple(out.shape)}")
+                res = compare(out, nk.instance_norm_fused_plain(
+                    x, relu=relu, phase_groups=groups,
+                    out_dtype=torch.float32), IN_TOL[dtype])
+                del out
+                check(res["worst_err_over_tol"] <= 1.0,
+                      f"{name} {shape} groups {groups} {dtype} relu {relu} "
+                      f"disagrees with its plain version: {res}")
+                res["ms"] = time_ms(lambda: nk.instance_norm_fused(
+                    x, relu=relu, phase_groups=groups))
+                res["plain_ms"] = time_ms(lambda: nk.instance_norm_fused_plain(
+                    x, relu=relu, phase_groups=groups), iters=3)
+                res["library_ms"] = None
+                if groups == 1 and not relu:
+                    nchw = x.permute(0, 3, 1, 2)
+                    res["library_ms"] = time_ms(
+                        lambda: F.instance_norm(nchw, eps=1e-5))
+                res["bound_ms"], res["bound_by"] = bound(
+                    2 * x.numel() * x.element_size(), 7 * x.numel())
+                key = f"{name}_g{groups}_{dtype}" + ("_relu" if relu else "")
+                cases[key] = res
+                library = ("none" if res["library_ms"] is None else
+                           f"{res['library_ms']:.4f} (F.instance_norm, NCHW "
+                           f"view)")
+                print(f"[kernel] {key} (K8, {shape}): max_abs_err="
+                      f"{res['max_abs_err']:.3e} mean_abs_err="
+                      f"{res['mean_abs_err']:.3e} (atol, rtol)="
+                      f"{IN_TOL[dtype]} kernel_ms={res['ms']:.4f} plain_ms="
+                      f"{res['plain_ms']:.4f} library_ms={library} bound_ms="
+                      f"{res['bound_ms']:.4f} ({res['bound_by']}) | {line}",
+                      flush=True)
+        if groups == 1:
+            # the phase layout of x normalises as x does
+            phase = nk.instance_norm_fused(space_to_depth(x32, 2),
+                                           phase_groups=4)
+            ident = compare(phase, space_to_depth(
+                nk.instance_norm_fused(x32), 2), IN_TOL["f32"])
+            print(f"[kernel] {name} phase identity (f32, {shape}): "
+                  f"{json.dumps(ident)}", flush=True)
+            check(ident["worst_err_over_tol"] <= 1.0,
+                  f"{name}: phase layout vs interleaved: {ident}")
+            del phase
+        del x32, x
+        torch.cuda.empty_cache()
+    # the kernels line's row: the case with a library yardstick
+    row = dict(cases[f"{name}_g1_bf16"], launches=launches, tier=STANDALONE,
+               replaces="wacv23_tsnet_tpu/ops/pallas_norms.py:206",
+               source="wacv23_tsnet_tpu_torch/csrc/in_fused.cu")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -976,10 +1175,18 @@ def main() -> int:
     train_kernels = train_kernel_checks(line)
     report = main_path(line)
     report["train"] = train_phase(line)
+    t0 = time.perf_counter()
+    standalone = {"masked_attention_flow_fused": flow_phase(line),
+                  "instance_norm_fused": norm_phase(line)}
+    print(f"[{STANDALONE}] K5 and K8 phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    report[STANDALONE] = {"launches": {n: k.pop("launches")
+                                       for n, k in standalone.items()}}
 
     rows = []
     for name, k in train_kernels.items():
         kernels[name] = dict(k, tier="train")
+    kernels.update(standalone)
     for name, k in kernels.items():
         # K2 is one kernel: its row is the f32 form, on the bit-parity
         # clip path (the bf16 form is checked and printed above); K7's row
@@ -990,11 +1197,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
             "launches": report[k["tier"]]["launches"][
-                "instance_norm_mean" if name.startswith("instance_norm")
+                "instance_norm_mean" if name.startswith("instance_norm_mean")
                 else k.get("launch", name)],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None})
+            "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
     print(json.dumps({"kernels": rows}))
     print(line)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,11 @@ where only PyTorch is installed; there, skip the JAX-pinning conftest:
 Small and ragged shapes here (the tile edges: T not a multiple of 64,
 C not a multiple of 32, and past the backward's 512-channel slab; for the
 tensor-core convs K6 and K7, pixels past the 128-row tiles and channel
-counts that are not powers of two), and the train shape of the backward;
-chip_smoke.py checks the main path's shapes.
+counts that are not powers of two; for K5, T and S apart and off the
+64-row tiles, real-valued masks; for K8, channel counts off the 16-byte
+chunks, views off a 16-byte boundary, more than one 256-chunk slab),
+and the train shape of the backward; chip_smoke.py checks the main
+path's shapes.
 """
 
 import dataclasses
@@ -26,11 +29,16 @@ from wacv23_tsnet_tpu_torch.ops.conv_kernels import (conv3x3_in,
                                                      conv3x3_in_plain,
                                                      resblock_fused)
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
+from wacv23_tsnet_tpu_torch.ops.flow_kernels import (
+    masked_attention_flow, masked_attention_flow_fused)
 from wacv23_tsnet_tpu_torch.ops.fuse_kernels import (fuse_pair_conv2,
                                                      fuse_pair_conv2_plain)
-from wacv23_tsnet_tpu_torch.ops.norm_kernels import (instance_norm_mean,
-                                                     instance_norm_mean_plain)
+from wacv23_tsnet_tpu_torch.ops.norm_kernels import (
+    instance_norm_fused, instance_norm_fused_plain, instance_norm_mean,
+    instance_norm_mean_plain)
 from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
+from wacv23_tsnet_tpu_torch.ops.similarity import transformation_warp
+from wacv23_tsnet_tpu_torch.ops.warp import space_to_depth
 from wacv23_tsnet_tpu_torch.ops.warp_kernels import (
     transform_warp_mean_plain, transform_warp_pairs,
     transform_warp_pairs_bwd, transform_warp_pairs_bwd_plain,
@@ -414,3 +422,129 @@ def test_fused_tail_toy_clip_kernel_path_matches_plain_path(dev,
                               use_kernels=False)
     assert bool(torch.isfinite(got).all())
     assert (got - want).abs().mean().item() <= 0.01
+
+
+def _flow_inputs(dev, b, t, s, c, real_masks, seed=13):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    masks = [torch.rand(b, n, generator=gen) for n in (t, s)]
+    if not real_masks:
+        masks = [(m > 0.5).float() for m in masks]
+    args = (l2_normalize(torch.randn(b, t, c, generator=gen)),
+            l2_normalize(torch.randn(b, s, c, generator=gen)), *masks,
+            torch.rand(s, 2, generator=gen) * 2 - 1)
+    return tuple(x.to(dev).contiguous() for x in args)
+
+
+# (B, T, S, C, real masks): one tile; T and S apart and off the tiles,
+# C off the 32-channel steps; a one-channel, one-row corner
+FLOW_SHAPES = [(2, 64, 64, 32, False), (3, 100, 72, 40, True),
+               (1, 1, 130, 1, True)]
+
+
+@pytest.mark.parametrize("temp", [10.0, 100.0])
+@pytest.mark.parametrize("shape", FLOW_SHAPES,
+                         ids=["small", "ragged", "corner"])
+def test_masked_attention_flow_kernel(dev, shape, temp):
+    """K5 against its plain version, one launch a call."""
+    b, t, s, c, real = shape
+    args = _flow_inputs(dev, *shape)
+    cuda_build.reset_launches()
+    got = masked_attention_flow_fused(*args, temp=temp)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["masked_attention_flow_fused"] == 1
+    assert sum(cuda_build.LAUNCHES.values()) == 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, t, 2)
+    _assert_close(got, masked_attention_flow(*args, temp=temp))
+
+
+def test_masked_attention_flow_gradients(dev):
+    """K5's backward (the recomputed plain composition) gives all five
+    input gradients as autograd through the plain version does."""
+    args = _flow_inputs(dev, *FLOW_SHAPES[1])
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    ct = torch.randn(3, 100, 2, generator=gen).to(dev)
+    grads = []
+    for fn in (masked_attention_flow_fused, masked_attention_flow):
+        inputs = [x.clone().requires_grad_(True) for x in args]
+        cuda_build.reset_launches()
+        fn(*inputs, temp=10.0).backward(ct)
+        grads.append([x.grad for x in inputs])
+        assert cuda_build.LAUNCHES["masked_attention_flow_fused"] == int(
+            fn is masked_attention_flow_fused)
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-6 * max(
+            1.0, b.abs().max().item())
+
+
+def test_transformation_warp_kernel_path(dev):
+    """`transformation_warp(use_kernels=True)`: one K5 launch, then the
+    warp; against the plain path."""
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    b, h, w, c = 2, 9, 7, 24
+    src = torch.randn(b, h, w, c, generator=gen)
+    args = tuple(x.to(dev) for x in (
+        src, l2_normalize(torch.randn(b, h, w, c, generator=gen)),
+        l2_normalize(src), (torch.rand(b, h, w, generator=gen) > 0.5).float(),
+        (torch.rand(b, h, w, generator=gen) > 0.5).float()))
+    cuda_build.reset_launches()
+    warped, flow = transformation_warp(*args, use_kernels=True)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["masked_attention_flow_fused"] == 1
+    assert sum(cuda_build.LAUNCHES.values()) == 1
+    plain_w, plain_f = transformation_warp(*args)
+    _assert_close(flow, plain_f)
+    _assert_close(warped, plain_w)
+
+
+# (B, H, W, C, phase groups): one 16-byte chunk per 8 (bf16) or 4 (f32)
+# channels; H*W off 8 with 24 channels; 12 channels (bf16 one at a time);
+# 2056 channels (bf16: 257 chunks, two slabs)
+NORM_SHAPES = [(2, 8, 8, 64, 1), (2, 8, 8, 64, 4), (1, 5, 7, 24, 4),
+               (2, 6, 10, 12, 1), (1, 9, 9, 2056, 4)]
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["norm", "relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", NORM_SHAPES,
+                         ids=["g1", "g4", "ragged", "narrow", "two_slabs"])
+def test_instance_norm_fused_kernel(dev, shape, dtype, relu):
+    """K8 against its plain version in fp32 (before its one rounding),
+    one launch a call."""
+    *dims, groups = shape
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    x = (torch.randn(*dims, generator=gen) * 2 + 1).to(dev, dtype)
+    cuda_build.reset_launches()
+    got = instance_norm_fused(x, relu=relu, phase_groups=groups)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["instance_norm_fused"] == 1
+    assert sum(cuda_build.LAUNCHES.values()) == 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _assert_close(got, instance_norm_fused_plain(
+        x, relu=relu, phase_groups=groups, out_dtype=torch.float32))
+
+
+def test_instance_norm_fused_off_16_byte_boundary(dev):
+    """A view that does not start on a 16-byte boundary takes one channel
+    at a time, with the same result."""
+    x = torch.randn(1 + 2 * 6 * 6 * 32, device=dev).to(torch.bfloat16)
+    view = x[1:].view(2, 6, 6, 32)
+    assert view.data_ptr() % 16
+    _assert_close(instance_norm_fused(view, relu=True),
+                  instance_norm_fused_plain(view, relu=True,
+                                            out_dtype=torch.float32))
+
+
+def test_instance_norm_fused_phase_identity(dev):
+    x = torch.randn(2, 16, 12, 32, device=dev) * 3 - 1
+    _assert_close(instance_norm_fused(space_to_depth(x, 2), phase_groups=4),
+                  space_to_depth(instance_norm_fused(x), 2))
+
+
+def test_instance_norm_fused_refuses_a_tensor_that_requires_grad(dev):
+    x = torch.randn(2, 4, 4, 16, device=dev, requires_grad=True)
+    cuda_build.reset_launches()
+    with pytest.raises(ValueError, match="inference only"):
+        instance_norm_fused(x)
+    assert cuda_build.LAUNCHES["instance_norm_fused"] == 0
+    with torch.no_grad():
+        _assert_close(instance_norm_fused(x), instance_norm_fused_plain(x))

@@ -17,7 +17,7 @@ version on the GPU.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; a wrapper
 adds one where it launches and nowhere else, one per call even where the
-call runs two CUDA kernels (a statistics pass and the main kernel).
+call runs several CUDA kernels (a statistics pass and the main kernel).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("transform_warp", "transform_warp_bwd", "in_mean",
-           "fuse_pair_conv2", "conv3x3_in")
+           "fuse_pair_conv2", "conv3x3_in", "attention_flow", "in_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +51,8 @@ LAUNCHES: dict[str, int] = {
     "instance_norm_mean": 0,
     "fuse_pair_conv2": 0,
     "conv3x3_in": 0,
+    "masked_attention_flow_fused": 0,
+    "instance_norm_fused": 0,
 }
 
 

@@ -1,22 +1,33 @@
-"""The fused instance-norm mean kernel (CUDA) and its plain version.
+"""The fused instance-norm kernels (CUDA) and their plain versions.
 
-Counterpart of the JAX package's `ops/pallas_norms.py:instance_norm_mean`
-(K2): for x (S, F, H, W, C), the instance norm of each (s, f) plane
-averaged over S, without writing the per-pair normalised tensor. It runs
-`csrc/in_mean.cu` on CUDA tensors (see its header for the design and what
-bounds it) and the plain version on CPU tensors. A CUDA tensor launches
-the kernel or raises; nothing falls back.
+Counterparts of the JAX package's `ops/pallas_norms.py`:
 
-It is differentiable. On the GPU its backward recomputes the plain
+- `instance_norm_mean` (K2): for x (S, F, H, W, C), the instance norm of
+  each (s, f) plane averaged over S, without writing the per-pair
+  normalised tensor; `csrc/in_mean.cu`.
+- `instance_norm_fused` (K8, the TPU's `_stats_kernel` and `_norm_kernel`
+  behind one entry point): the instance norm (+ relu) of an NHWC tensor
+  in two passes over it, statistics then normalise; with
+  `phase_groups=g` the statistics pool the g channel groups (the 2x2
+  phase layout of `ops/warp.py:space_to_depth` for g=4);
+  `csrc/in_fused.cu`. Inference only, as in the JAX package.
+
+Each runs its CUDA source on CUDA tensors (see its header for the design
+and what bounds it) and its plain version on CPU tensors. A CUDA tensor
+launches the kernel or raises; nothing falls back.
+
+K2 is differentiable. On the GPU its backward recomputes the plain
 composition and backpropagates through it, as the JAX package's
 `_in_mean_bwd` does with `_in_mean_ref`; the TPU has no backward kernel
 here, so neither has the port. On the CPU autograd runs through the
 plain version itself.
 
-The kernel's statistics are one-pass fp32 (E[x²] - E[x]², clamped at 0),
-as the TPU kernel's; the plain version is the JAX package's composition
+K2's statistics are one-pass fp32 (E[x²] - E[x]², clamped at 0), as the
+TPU kernel's; its plain version is the JAX package's composition
 `_in_mean_ref`: the fp32 two-pass `instance_norm` of each plane, then the
-mean. The two agree to float rounding.
+mean. The two agree to float rounding. K8's plain version follows the TPU
+kernels' numerics instead (one-pass fp32 sums for both dtypes), since the
+JAX entry has no composition of its own beside them.
 """
 
 from __future__ import annotations
@@ -106,6 +117,104 @@ def _library() -> ctypes.CDLL:
     fn = lib.tsnet_in_mean
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def instance_norm_fused_plain(x: torch.Tensor, eps: float = 1e-5,
+                              relu: bool = False, phase_groups: int = 1,
+                              out_dtype=None) -> torch.Tensor:
+    """The TPU kernels' instance norm (+ relu) of an NHWC tensor.
+
+    x (B, H, W, C). One-pass fp32 sums per (b, c) for both dtypes; with
+    `phase_groups=g` the sums of the g groups of C // g channels pool,
+    over n * g values; var = max(E[x²] - E[x]², 0); (x - mean) *
+    rsqrt(var + eps), relu in fp32, one cast to `out_dtype` (x's dtype by
+    default).
+    """
+    b, h, w, c = x.shape
+    g = phase_groups
+    count = h * w * g
+    xf = x.float().reshape(b, h * w, c)
+    sums = xf.sum(dim=1).reshape(b, g, c // g).sum(dim=1)
+    sqs = (xf * xf).sum(dim=1).reshape(b, g, c // g).sum(dim=1)
+    mean = sums / count
+    var = torch.clamp(sqs / count - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    y = (xf - mean.repeat(1, g)[:, None]) * inv.repeat(1, g)[:, None]
+    if relu:
+        y = torch.relu(y)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    return y.reshape(b, h, w, c).to(out_dtype)
+
+
+def instance_norm_fused(x: torch.Tensor, eps: float = 1e-5,
+                        relu: bool = False,
+                        phase_groups: int = 1) -> torch.Tensor:
+    """K8: instance_norm (+ relu) of an NHWC tensor, f32 or bf16.
+
+    x (B, H, W, C) -> the same shape and dtype. With `phase_groups=g > 1`
+    the channel axis is (g, C // g) and the statistics reduce over the g
+    groups as well. Any H, W and C (C a multiple of g). Inference only: a
+    CUDA-bound tensor that requires grad while grad mode is on is refused.
+    """
+    if x.device.type == "cpu":
+        return instance_norm_fused_plain(x, eps, relu, phase_groups)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("instance_norm_fused kernel: inference only (no "
+                         "gradient, as in the JAX package); x requires grad")
+    if x.dim() != 4:
+        raise ValueError("instance_norm_fused kernel: x must be (B, H, W, C), "
+                         f"got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    if phase_groups < 1 or c % phase_groups:
+        raise ValueError(f"instance_norm_fused kernel: C={c} is not a "
+                         f"multiple of phase_groups={phase_groups}")
+    if x.dtype not in _DTYPES:
+        raise ValueError("instance_norm_fused kernel: x must be float32 or "
+                         f"bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("instance_norm_fused kernel: x must be contiguous")
+    if x.device.type != "cuda":
+        raise ValueError(f"instance_norm_fused kernel: x on {x.device}; it "
+                         "runs on CUDA tensors (CPU tensors take the plain "
+                         "version)")
+    if x.numel() == 0:
+        raise ValueError("instance_norm_fused kernel: empty x "
+                         f"{tuple(x.shape)}")
+    n = h * w
+    out = torch.empty_like(x)
+    # 16-byte loads where C and the pointer allow them, else one channel
+    vec = 16 // x.element_size()
+    if c % vec or x.data_ptr() % 16:
+        vec = 1
+    # pixel ranges per sample: about 8 blocks of 256 threads (a full SM)
+    # for each SM in all, each range at least 64 pixels
+    blocks = 8 * torch.cuda.get_device_properties(
+        x.device).multi_processor_count
+    slabs = -(-(c // vec) // 256)
+    splits = max(1, min(-(-blocks // (b * slabs)), -(-n // 64)))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty((b, splits, 2, c), **f32)
+    stats = torch.empty((b, 2, c), **f32)
+    lib = _fused_library()
+    p = cuda_build.ptr
+    with torch.cuda.device(x.device):
+        err = lib.tsnet_in_fused(
+            p(x), p(out), p(partial), p(stats), b, n, c, phase_groups, splits,
+            vec, int(x.dtype == torch.bfloat16), int(relu), float(eps),
+            cuda_build.stream_of(x))
+    cuda_build.check_launch(lib, err, "instance_norm_fused")
+    cuda_build.LAUNCHES["instance_norm_fused"] += 1
+    return out
+
+
+def _fused_library() -> ctypes.CDLL:
+    lib = cuda_build.load_library("in_fused")
+    fn = lib.tsnet_in_fused
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib

@@ -8,6 +8,9 @@ the JAX package's two numerics forms (its `ops/norms.py:16-42`):
   clamped at 0 (the cancellation can dip below 0 for a near-constant
   channel with a large mean, which would NaN the rsqrt).
 
+`instance_norm_phase` is the same norm for a tensor in the 2x2 phase
+layout of `ops/warp.py:space_to_depth`.
+
 `l2_normalize` is `F.normalize(p=2)`: x / max(||x||, eps).
 """
 
@@ -30,6 +33,32 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     d = xf - mean
     var = (d * d).mean(dim=(1, 2), keepdim=True)
     return (d * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def instance_norm_phase(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """`instance_norm` of the interleaved tensor, computed in phase layout.
+
+    Copy of the JAX package's `ops/upconv.py:instance_norm_phase`. x is
+    (B, H, W, 4C) with channel ((py*2+px)*C + c), the layout of
+    `ops/warp.py:space_to_depth(y, 2)` for an interleaved y (B, 2H, 2W, C);
+    statistics reduce over space and the 4 phase copies of each channel,
+    in `instance_norm`'s two numerics forms (two-pass for f32, one-pass
+    clamped for bf16).
+    """
+    b, h, w, c4 = x.shape
+    xf = x.float().reshape(b, h, w, 4, c4 // 4)
+    dims = (1, 2, 3)
+    if x.dtype == torch.bfloat16:
+        n = h * w * 4
+        mean = xf.sum(dim=dims, keepdim=True) / n
+        var = torch.clamp((xf * xf).sum(dim=dims, keepdim=True) / n
+                          - mean * mean, min=0.0)
+    else:
+        mean = xf.mean(dim=dims, keepdim=True)
+        d = xf - mean
+        var = (d * d).mean(dim=dims, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return y.reshape(b, h, w, c4).to(x.dtype)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

@@ -8,7 +8,9 @@ pixel t and source pixel u at feature resolution:
     flow[t]  = sum_u A[t, u] * grid[u]
 
 `masked_attention_flow` is the plain form (fp32 matmuls, TF32 off: temp
-100 multiplies any logit error by 100 inside exp).
+100 multiplies any logit error by 100 inside exp) and
+`masked_attention_flow_fused` its kernel (K5), both in `ops/flow_kernels.py`;
+`transformation_warp(use_kernels=True)` runs the kernel.
 `transformation_warp_clip` and `transformation_warp_clip_mean` are the
 clip-inference entry points; they dispatch to the CUDA kernels of
 `ops/warp_kernels.py` (K3-nf and K1). `transformation_warp_sources` is
@@ -21,46 +23,30 @@ from __future__ import annotations
 import torch
 
 from .coords import normalized_grid
+from .flow_kernels import masked_attention_flow, masked_attention_flow_fused
 from .grid_sample import grid_sample
-from .precision import tf32
 from .warp_kernels import (transform_warp_mean_plain, transform_warp_pairs,
                            transform_warp_pairs_mean, transform_warp_pairs_nf,
                            transform_warp_pairs_nf_plain)
 
 
-def _mask_coeff(tar_mask: torch.Tensor,
-                src_mask: torch.Tensor) -> torch.Tensor:
-    """(B, T) x (B, S) -> (B, T, S) same-region coefficient."""
-    mt = tar_mask[:, :, None]
-    ms = src_mask[:, None, :]
-    return mt * ms + (1.0 - mt) * (1.0 - ms)
-
-
-def masked_attention_flow(tar_fea, src_fea, tar_mask, src_mask, grid,
-                          temp: float = 100.0) -> torch.Tensor:
-    """Coordinate-translator flow.
-
-    tar_fea (B, T, C) and src_fea (B, S, C) L2-normalized; tar_mask (B, T);
-    src_mask (B, S); grid (S, 2). Returns (B, T, 2).
-    """
-    with tf32(False):
-        logits = torch.matmul(tar_fea.float(), src_fea.float().transpose(1, 2))
-        logits = logits * _mask_coeff(tar_mask.float(), src_mask.float())
-        attn = torch.softmax(temp * logits, dim=-1)
-        return torch.matmul(attn, grid.float())
-
-
 def transformation_warp(src_img_fea, tar_fea_n, src_fea_n, tar_mask, src_mask,
-                        temp: float = 100.0):
-    """Transformation branch for one source per sample (plain form).
+                        temp: float = 100.0, use_kernels: bool = False):
+    """Transformation branch for one source per sample.
 
     src_img_fea (B, h, w, C) un-normalized; tar_fea_n, src_fea_n
     (B, h, w, C) L2-normalized; masks (B, h, w).
     Returns (warped (B, h, w, C), flow (B, h, w, 2)).
+
+    `use_kernels=True` takes the flow from `masked_attention_flow_fused`
+    (K5 on CUDA tensors), as the JAX package's `use_pallas=True` does;
+    the default is the plain form, as there.
     """
     b, h, w, c = src_img_fea.shape
     grid = normalized_grid(h, w, device=src_img_fea.device).reshape(h * w, 2)
-    flow = masked_attention_flow(
+    flow_fn = (masked_attention_flow_fused if use_kernels
+               else masked_attention_flow)
+    flow = flow_fn(
         tar_fea_n.reshape(b, h * w, c), src_fea_n.reshape(b, h * w, c),
         tar_mask.reshape(b, h * w), src_mask.reshape(b, h * w), grid,
         temp=temp).reshape(b, h, w, 2)
