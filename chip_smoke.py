@@ -62,6 +62,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -209,6 +210,31 @@ def bound(nbytes: float, flops: float,
                                          else "operations")
 
 
+def ptxas_resources(name: str) -> list[dict]:
+    """Registers a thread, static shared memory and spill bytes of each
+    kernel of `csrc/<name>.cu`, from ptxas's log beside its library."""
+    log = cuda_build.library_path(name).with_suffix(".log").read_text()
+    rows = []
+    for text in log.splitlines():
+        if "Compiling entry function" in text:
+            rows.append({"kernel": text.split("'")[1]})
+        elif rows and "spill stores" in text:
+            rows[-1].update({f"spill_{kind}_bytes": int(n) for n, kind in
+                             re.findall(r"(\d+) bytes spill (\w+)", text)})
+        elif rows and "Used" in text:
+            regs = re.search(r"Used (\d+) registers", text)
+            smem = re.search(r"(\d+) bytes smem", text)
+            rows[-1].update(registers=int(regs.group(1)) if regs else None,
+                            smem_bytes=int(smem.group(1)) if smem else 0)
+    names = subprocess.run(["c++filt"], input="\n".join(
+        r["kernel"] for r in rows), capture_output=True, text=True)
+    if names.returncode == 0:
+        for r, full in zip(rows, names.stdout.splitlines()):
+            r["kernel"] = full.replace("(anonymous namespace)::", "").split(
+                "(", 1)[0].removeprefix("void ")
+    return rows
+
+
 def kernel_checks(line: str) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     dev = torch.device("cuda")
@@ -292,7 +318,8 @@ def kernel_checks(line: str) -> dict:
               f"mean_abs_err={res['mean_abs_err']:.3e} "
               f"(atol, rtol)={case['tol']} kernel_ms={res['ms']:.4f} "
               f"plain_ms={res['plain_ms']:.4f} library_ms=none "
-              f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']})"
+              f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+              f"bound_share={res['bound_ms'] / res['ms']:.4f}"
               f"{yardstick} | {line}", flush=True)
     torch.cuda.synchronize()
     return results
@@ -715,7 +742,8 @@ def train_kernel_checks(line: str) -> dict:
           f"mean_abs_err={res['mean_abs_err']:.3e} (atol, rtol)="
           f"{TOL['f32']} kernel_ms={res['ms']:.4f} "
           f"plain_ms={res['plain_ms']:.4f} library_ms=none "
-          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) | {line}",
+          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+          f"bound_share={res['bound_ms'] / res['ms']:.4f} | {line}",
           flush=True)
 
     # K4: six cotangents, against autograd through the plain forward in
@@ -1077,7 +1105,8 @@ def flow_phase(line: str) -> dict:
           f"plain_ms={res['plain_ms']:.4f} library_ms={res['library_ms']:.4f} "
           f"(SDPA, backend {backend}, fp32, TF32 off, q/k {2 * c} wide; its "
           f"flow vs plain max_abs_err {sdpa_err.max().item():.3e}) "
-          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) | {line}",
+          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+          f"bound_share={res['bound_ms'] / res['ms']:.4f} | {line}",
           flush=True)
     return res
 
@@ -1170,6 +1199,10 @@ def main() -> int:
         for text in log.splitlines():
             if "Used" in text or "spill" in text:
                 print(f"[ptxas] {name}: {text.strip()}")
+    # the shared logit tile (csrc/attention_tile_sm90.cuh) in its kernels
+    print("[tile] registers, shared memory and spills: " + json.dumps(
+        {name: ptxas_resources(name)
+         for name in ("transform_warp", "attention_flow")}), flush=True)
 
     kernels = kernel_checks(line)
     train_kernels = train_kernel_checks(line)

@@ -28,42 +28,48 @@
 // fp32 FMAs on the CUDA cores, never TF32 or bf16 tensor-core products.
 // Memory traffic is small beside that (~3 MB a frame for the mean form).
 //
-// Design: one block takes one (group, frame) and a tile of TM = 64 target
-// rows. Per source it streams the normalised source rows through shared
-// memory in chunks of TN = 64 rows x KC = 32 channels (a whole source,
-// 1024 x 512 f32 = 2 MB, does not fit), each of the 256 threads
-// accumulating a 4 x 4 register tile of logits with rows and columns
-// strided by 16 (so the shared-memory reads are conflict-free). Each
-// thread keeps an online softmax (running max, sum and the 2-float flow
-// numerator) over its own columns; after the last chunk the 16 column
-// owners of a row merge theirs with warp shuffles. The flow becomes four
-// corner indices and weights per (source, row), kept in shared memory. A
-// second phase gathers the four neighbours of the un-normalised source
-// rows (a 4-tap gather, not the TPU's dense tent-weight matmul),
+// Design: one block of 128 threads takes one (group, frame) and a tile of
+// 64 target rows; grid (T/64, F, G). At two blocks an SM (264 at once on
+// 132 SMs) that is 512 blocks at F = 32 (two rounds, 97% of the slots),
+// 1024 for the 64-frame clip (four rounds) and 240 for the train step's
+// G = 15, F = 1 (one round, 108 SMs with two blocks and 24 with one).
+// Per source, the shared logit tile of csrc/attention_tile_sm90.cuh
+// streams the normalised source rows past the target tile (8 x 8 fp32
+// register blocks fed by 16-byte shared loads, chunks double-buffered by
+// cp.async; the header says what bounds it and what the tile does about
+// it) and leaves each row's online softmax merged across its column
+// owners. Lane tx of a row group turns row tx's flow
+// into four corner indices and weights per (source, row), kept in shared
+// memory. A second phase gathers the four neighbours of the un-normalised
+// source rows (a 4-tap gather, not the TPU's dense tent-weight matmul),
 // channel-contiguous across threads, and either averages over sources in
 // registers (MEAN) or writes each pair. Rows and columns past T and
 // channels past C are masked, so any T and C run without a fallback.
-// The backward kernels recompute the logits with the same tiles and the
-// same order of fused multiply-adds, so they see the same logits.
+// The backward kernels (transform_warp_bwd.cu) recompute the logits with
+// their own 4 x 4 tiles, not this kernel's; each logit is the same
+// in-order chain of fp32 FMAs over the channels in both, so they see
+// bitwise the same logits, and form P = exp(z - lse) with the log-sum-exp
+// written here. That log-sum-exp comes from sums taken in the tile's
+// order (see the header), so it may differ from another order's in the
+// last bits: a change in P of order temp * 1e-7, within K4's tolerance.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_tile_sm90.cuh"
+
 namespace {
 
-constexpr int TM = 64;        // target rows per block
-constexpr int TN = 64;        // source rows per chunk
-constexpr int KC = 32;        // channels per k step
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 logits each
+using namespace tsnet_attn;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <bool MEAN, bool FLOW, typename OutT>
-__global__ void __launch_bounds__(THREADS) transform_warp_kernel(
+template <bool MEAN, bool FLOW, typename OutT, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2) transform_warp_kernel(
     const float* __restrict__ src,       // (G, S, T, C) un-normalised
     const float* __restrict__ src_n,     // (G, S, T, C) L2-normalised
     const float* __restrict__ src_mask,  // (G, S, T)
@@ -74,8 +80,7 @@ __global__ void __launch_bounds__(THREADS) transform_warp_kernel(
     float* __restrict__ flow_out,  // FLOW: (G, S, F, T, 2)
     float* __restrict__ lse_out,   // FLOW: (G, S, F, T)
     int S, int F, int T, int C, int H, int W, float temp) {
-  __shared__ float As[KC][TM + 1];  // target tile, channel-major
-  __shared__ float Bs[KC][TN + 1];  // source chunk, channel-major
+  __shared__ __align__(16) Smem sm;
   extern __shared__ unsigned char dyn[];
   int* corner_idx = reinterpret_cast<int*>(dyn);                 // S*TM*4
   float* corner_w = reinterpret_cast<float*>(corner_idx + S * TM * 4);
@@ -92,143 +97,45 @@ __global__ void __launch_bounds__(THREADS) transform_warp_kernel(
   src_n += (size_t)g * S * T * C;
   src_mask += (size_t)g * S * T;
 
-  float mt[4];
+  float mt[RM];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
+  for (int i = 0; i < RM; ++i) {
+    const int r = row0 + tile_row(ty, i);
     mt[i] = r < T ? tar_mask[(size_t)gf * T + r] : 0.f;
   }
 
   for (int s = 0; s < S; ++s) {
-    const float* sn = src_n + (size_t)s * T * C;
-    const float* ms = src_mask + (size_t)s * T;
-    float m[4], l[4], fx[4], fy[4];
+    RowStats st;
+    attend<VEC>(tar_f, src_n + (size_t)s * T * C, src_mask + (size_t)s * T,
+                grid, mt, row0, T, T, C, temp, sm, st);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      m[i] = -INFINITY;
-      l[i] = 0.f;
-      fx[i] = 0.f;
-      fy[i] = 0.f;
-    }
-
-    for (int col0 = 0; col0 < T; col0 += TN) {
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-      for (int k0 = 0; k0 < C; k0 += KC) {
-        // lane <-> channel: each warp reads 32 consecutive floats of a row
-        for (int e = tid; e < TM * KC; e += THREADS) {
-          const int k = e % KC, r = e / KC;
-          const int gr = row0 + r, gk = k0 + k;
-          As[k][r] = (gr < T && gk < C) ? tar_f[(size_t)gr * C + gk] : 0.f;
-        }
-        for (int e = tid; e < TN * KC; e += THREADS) {
-          const int k = e % KC, u = e / KC;
-          const int gu = col0 + u, gk = k0 + k;
-          Bs[k][u] = (gu < T && gk < C) ? sn[(size_t)gu * C + gk] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int k = 0; k < KC; ++k) {
-          float a[4], b[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
+    for (int i = 0; i < RM; ++i) {
+      if (tx != i) continue;
+      const int r = tile_row(ty, i);
+      const float flx = st.fx[i] / st.l[i], fly = st.fy[i] / st.l[i];
+      if (FLOW && row0 + r < T) {
+        const size_t row = ((size_t)(g * S + s) * F + f) * T + row0 + r;
+        flow_out[2 * row] = flx;
+        flow_out[2 * row + 1] = fly;
+        lse_out[row] = st.m[i] + logf(st.l[i]);
       }
-
-      // online softmax over this thread's columns of the chunk
-      float msk[4], gx[4], gy[4];
-      bool ok[4];
+      // grid_sample(align_corners=False) unnormalisation
+      const float ix = ((flx + 1.f) * W - 1.f) * 0.5f;
+      const float iy = ((fly + 1.f) * H - 1.f) * 0.5f;
+      const float x0 = floorf(ix), y0 = floorf(iy);
+      const float wx = ix - x0, wy = iy - y0;
+      const int xi = (int)x0, yi = (int)y0;
+      const int cy[4] = {yi, yi, yi + 1, yi + 1};
+      const int cx[4] = {xi, xi + 1, xi, xi + 1};
+      const float cw[4] = {(1.f - wy) * (1.f - wx), (1.f - wy) * wx,
+                           wy * (1.f - wx), wy * wx};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int u = col0 + tx + 16 * j;
-        ok[j] = u < T;
-        msk[j] = ok[j] ? ms[u] : 0.f;
-        gx[j] = ok[j] ? grid[2 * u] : 0.f;
-        gy[j] = ok[j] ? grid[2 * u + 1] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float z[4];
-        float zmax = m[i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float coeff =
-              mt[i] * msk[j] + (1.f - mt[i]) * (1.f - msk[j]);
-          z[j] = temp * (acc[i][j] * coeff);
-          if (ok[j]) zmax = fmaxf(zmax, z[j]);
-        }
-        if (zmax == -INFINITY) continue;  // no valid column yet
-        const float scale = expf(m[i] - zmax);
-        l[i] *= scale;
-        fx[i] *= scale;
-        fy[i] *= scale;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (!ok[j]) continue;
-          const float p = expf(z[j] - zmax);
-          l[i] += p;
-          fx[i] = fmaf(p, gx[j], fx[i]);
-          fy[i] = fmaf(p, gy[j], fy[i]);
-        }
-        m[i] = zmax;
-      }
-    }
-
-    // merge the 16 column owners of each row: lanes that differ in tx
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
-        const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
-        const float xo = __shfl_xor_sync(0xffffffffu, fx[i], off);
-        const float yo = __shfl_xor_sync(0xffffffffu, fy[i], off);
-        const float mn = fmaxf(m[i], mo);
-        if (mn == -INFINITY) continue;
-        const float a = expf(m[i] - mn), b = expf(mo - mn);
-        l[i] = l[i] * a + lo * b;
-        fx[i] = fx[i] * a + xo * b;
-        fy[i] = fy[i] * a + yo * b;
-        m[i] = mn;
-      }
-      if (tx == 0) {
-        const int r = ty + 16 * i;
-        const float flx = fx[i] / l[i], fly = fy[i] / l[i];
-        if (FLOW && row0 + r < T) {
-          const size_t row = ((size_t)(g * S + s) * F + f) * T + row0 + r;
-          flow_out[2 * row] = flx;
-          flow_out[2 * row + 1] = fly;
-          lse_out[row] = m[i] + logf(l[i]);
-        }
-        // grid_sample(align_corners=False) unnormalisation
-        const float ix = ((flx + 1.f) * W - 1.f) * 0.5f;
-        const float iy = ((fly + 1.f) * H - 1.f) * 0.5f;
-        const float x0 = floorf(ix), y0 = floorf(iy);
-        const float wx = ix - x0, wy = iy - y0;
-        const int xi = (int)x0, yi = (int)y0;
-        const int cy[4] = {yi, yi, yi + 1, yi + 1};
-        const int cx[4] = {xi, xi + 1, xi, xi + 1};
-        const float cw[4] = {(1.f - wy) * (1.f - wx), (1.f - wy) * wx,
-                             wy * (1.f - wx), wy * wx};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const bool in = cx[q] >= 0 && cx[q] <= W - 1 && cy[q] >= 0 &&
-                          cy[q] <= H - 1;
-          const int slot = (s * TM + r) * 4 + q;
-          corner_idx[slot] = in ? cy[q] * W + cx[q] : 0;
-          corner_w[slot] = in ? cw[q] : 0.f;
-        }
+      for (int q = 0; q < 4; ++q) {
+        const bool in = cx[q] >= 0 && cx[q] <= W - 1 && cy[q] >= 0 &&
+                        cy[q] <= H - 1;
+        const int slot = (s * TM + r) * 4 + q;
+        corner_idx[slot] = in ? cy[q] * W + cx[q] : 0;
+        corner_w[slot] = in ? cw[q] : 0.f;
       }
     }
   }
@@ -265,9 +172,11 @@ cudaError_t launch(const void* src, const void* src_n, const void* src_mask,
                    void* out, void* flow, void* lse, int G, int S, int F,
                    int T, int C, int H, int W, float temp,
                    cudaStream_t stream) {
-  auto kernel = transform_warp_kernel<MEAN, FLOW, OutT>;
+  auto kernel = vector_loads(C, src_n, tar_n)
+                    ? transform_warp_kernel<MEAN, FLOW, OutT, true>
+                    : transform_warp_kernel<MEAN, FLOW, OutT, false>;
   const size_t dyn = (size_t)S * TM * 4 * (sizeof(int) + sizeof(float));
-  if (dyn > 48 * 1024) {
+  if (dyn + sizeof(Smem) > 48 * 1024) {  // past the default 48 KB a block
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) {

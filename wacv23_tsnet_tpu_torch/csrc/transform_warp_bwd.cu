@@ -65,9 +65,10 @@ constexpr int CSLAB = 512;    // channels of the shared accumulator
 constexpr int ACC_LD = CSLAB + 16;  // row stride: rows ty, ty+1 on other banks
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 elements each
 
-// Logits of one (TM target rows) x (TN source rows) tile into acc, in the
-// forward's tile shape and order of FMAs. tar/src point at row 0 of their
-// (T, C) planes.
+// Logits of one (TM target rows) x (TN source rows) tile into acc: each
+// logit one in-order chain of FMAs over the channels from 0, as the
+// forward's tile (attention_tile_sm90.cuh) computes it, so both see the
+// same logits bit for bit. tar/src point at row 0 of their (T, C) planes.
 __device__ __forceinline__ void logit_tile(
     const float* __restrict__ tar, const float* __restrict__ src, int row0,
     int col0, int T, int C, float (*As)[TM + 1], float (*Bs)[TN + 1],
