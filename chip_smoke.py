@@ -13,7 +13,8 @@ non-zero, printing no result, where CUDA or the package is missing.
    main path's shapes (S=3 sources, T=32x32 pixels, C=512, F=32 frames;
    K2 at (3, 32, 32, 32, 1024); K6 at S=3, F=32, 32x32, K=1024; K7 with
    relu and with skip at (32, 32, 32, 512)), and times both with CUDA
-   events; for K6 and K7 also cuDNN's bf16 conv alone, as a yardstick.
+   events; for K6 and K7 also cuDNN's bf16 conv alone, as a yardstick,
+   and for K6 its two launches (statistics, conv) each alone.
 4. Drives the main path at the full width of `face_config()` with seeded
    random weights, in both tiers (bit-parity; bench = "high" + fast_tail
    + fast_trunk): `tsnet_forward_clip` over a 64-frame clip and four
@@ -32,7 +33,9 @@ non-zero, printing no result, where CUDA or the package is missing.
    shape (G=15 samples, NS=3 sources, NF=1, T=32x32, C=512): K3-flow
    (warped features and flow, temp 100) and K4 (six cotangents at temps
    10 and 100, against the plain version in fp32 and in float64, and
-   given the plain version's own flow).
+   given the plain version's own flow; two calls the same bits outside
+   da; its five launches, warp_bwd, logits, gtn, gsn and reduce, each
+   timed alone).
 6. Drives the GAN train step (`train.make_train_step`) at the full width
    of `face_config()`, bit-parity tier, batch 15: the first step from one
    seeded state through the kernels and through the plain versions
@@ -192,6 +195,13 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def parts_ms(launch, phases) -> dict:
+    """CUDA-event ms of each launch of one kernel call, run alone:
+    launch(1 << i) runs the launch named phases[i]."""
+    return {name: time_ms(lambda i=i: launch(1 << i))
+            for i, name in enumerate(phases)}
+
+
 def compare(got, want, tol) -> dict:
     atol, rtol = tol
     err = (got.float() - want.float()).abs()
@@ -308,15 +318,20 @@ def kernel_checks(line: str) -> dict:
         res.update({k: case[k] for k in ("tier", "replaces", "source",
                                          "launch") if k in case})
         yardstick = ""
+        if "parts" in case:  # the launches of one call, each timed alone
+            res["parts_ms"] = case["parts"]()
+            yardstick += f" parts_ms={json.dumps(res['parts_ms'])}"
         if "conv_alone" in case:
             res["conv_alone_ms"] = time_ms(case["conv_alone"])
-            yardstick = (f" conv_alone_ms={res['conv_alone_ms']:.4f} (cuDNN "
+            yardstick += (f" conv_alone_ms={res['conv_alone_ms']:.4f} (cuDNN "
                          "bf16 3x3 conv alone on a pre-padded input, "
                          "yardstick only)")
         results[name] = res
         print(f"[kernel] {name}: max_abs_err={res['max_abs_err']:.3e} "
               f"mean_abs_err={res['mean_abs_err']:.3e} "
-              f"(atol, rtol)={case['tol']} kernel_ms={res['ms']:.4f} "
+              f"(atol, rtol)={case['tol']} "
+              f"worst_err_over_tol={res['worst_err_over_tol']:.3f} "
+              f"kernel_ms={res['ms']:.4f} "
               f"plain_ms={res['plain_ms']:.4f} library_ms=none "
               f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
               f"bound_share={res['bound_ms'] / res['ms']:.4f}"
@@ -356,6 +371,7 @@ def fused_tail_cases(g) -> dict:
     return {
         "fuse_pair_conv2": dict(
             kernel=lambda: fk.fuse_pair_conv2(c1a, c1t, w2),
+            parts=lambda: parts_ms(fk.launcher(c1a, c1t, w2)[0], fk.PHASES),
             plain=lambda: fk.fuse_pair_conv2_plain(c1a, c1t, w2),
             tol=K6_TOL, peak=BF16_TC_FLOP_PER_S,
             bytes=2 * (c1a.numel() + c1t.numel() + w2.numel()
@@ -801,8 +817,16 @@ def train_kernel_checks(line: str) -> dict:
                                       for a, b in zip(got, want)),
                    "rel_err": max(rel["kernel_vs_plain"].values())}
         del want, exact, flow64, flow32, lse32, same_flow
-    # timed at the config's temp 100
+    # two calls give the same bits but in da (a scatter by atomics)
+    again = bwd()
+    check(all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])),
+          "transform_warp_pairs_bwd: two calls differ outside da")
+    del again
+    # timed at the config's temp 100, the whole call and each launch alone
     res["ms"] = time_ms(bwd)
+    launch, _ = wk.bwd_launcher(*args, flow, lse, gw, gf, h, w, temp)
+    res["parts_ms"] = parts_ms(launch, wk.BWD_PHASES)
+    del launch
     res["plain_ms"] = time_ms(lambda: wk.transform_warp_pairs_bwd_plain(
         *args, gw, gf, h, w, temp), iters=3)
     res["bound_ms"], res["bound_by"] = bound(
@@ -817,8 +841,9 @@ def train_kernel_checks(line: str) -> dict:
           f"max_abs_err={res['max_abs_err']:.3e} (temp 10, rtol "
           f"{BWD_RTOL} of max(1, max|plain|)) kernel_ms={res['ms']:.4f} "
           f"plain_ms={res['plain_ms']:.4f} library_ms=none "
-          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) | {line}",
-          flush=True)
+          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+          f"bound_share={res['bound_ms'] / res['ms']:.4f} "
+          f"parts_ms={json.dumps(res['parts_ms'])} | {line}", flush=True)
     return results
 
 
@@ -1203,6 +1228,10 @@ def main() -> int:
     print("[tile] registers, shared memory and spills: " + json.dumps(
         {name: ptxas_resources(name)
          for name in ("transform_warp", "attention_flow")}), flush=True)
+    # K4's five kernels (the logit tile, the fp32 GEMM tile) and K6's two
+    print("[ptxas] K4 and K6 kernels: registers, shared memory and spills: "
+          + json.dumps({name: ptxas_resources(name) for name in (
+              "transform_warp_bwd", "fuse_pair_conv2")}), flush=True)
 
     kernels = kernel_checks(line)
     train_kernels = train_kernel_checks(line)

@@ -11,10 +11,12 @@ chunks or of 4 (the forward's 4-byte copies; also planes off a 16-byte
 boundary), past the backward's 512-channel slab, and one full-width
 T = 1024, C = 512 case of each forward form; for the
 tensor-core convs K6 and K7, pixels past the 128-row tiles and channel
-counts that are not powers of two; for K5, T and S apart and off the
+counts that are not powers of two, and for K6 rows wider than its
+128-pixel tile, widths that do not divide it and the shortest reflect; for K5, T and S apart and off the
 64-row tiles, real-valued masks; for K8, channel counts off the 16-byte
 chunks, views off a 16-byte boundary, more than one 256-chunk slab),
-and the train shape of the backward; chip_smoke.py checks the main
+and the train shape of the backward, with its own ragged edges and a
+check that two calls give the same bits; chip_smoke.py checks the main
 path's shapes.
 """
 
@@ -203,15 +205,32 @@ def _assert_cotangents_close(got, want, rtol=2e-4):
         assert err <= rtol * scale, (name, err, scale)
 
 
-@pytest.mark.parametrize("temp", [10.0, 100.0])
-@pytest.mark.parametrize("shape", PAIRS + [(15, 3, 1, 32, 32, 512)],
-                         ids=["small", "ragged", "wide", "train"])
+# K4 at both temps: PAIRS and the train shape. K4's own edges at temp 10:
+# T = 135 and 130, off the 64-row and 128-column logit tiles and the
+# 128-row GEMM tiles, with C = 37 and 5 (C % 4 != 0: the 4-byte copies),
+# F > 1 (gsn sums over frames) with S > 1 (gtn's depth S * T concatenates
+# the sources). At temp 100 the softmax over these few channels is near
+# one-hot, and the tar_mask cotangent of any fp32 computation (the plain
+# version's too) moves by 1e-4 to 5e-4 of its largest under a last-bit
+# change of the logits (measured with the logits summed in another
+# order): no 2e-4 check there says anything about the kernel.
+BWD_SHAPES = dict(zip(("small", "ragged", "wide", "train"),
+                      PAIRS + [(15, 3, 1, 32, 32, 512)]))
+BWD_EDGES = {"t135_c37": (1, 2, 3, 9, 15, 37), "t130_c5": (2, 3, 2, 10, 13, 5)}
+BWD_CASES = ([pytest.param(shape, temp, id=f"{name}-{temp}")
+              for temp in (10.0, 100.0) for name, shape in BWD_SHAPES.items()]
+             + [pytest.param(shape, 10.0, id=f"{name}-10.0")
+                for name, shape in BWD_EDGES.items()])
+
+
+@pytest.mark.parametrize("shape,temp", BWD_CASES)
 def test_warp_pairs_bwd_kernel(dev, shape, temp):
     """K4 against autograd through the plain forward, given the plain
     forward's own flow and log-sum-exp; at temp 10 also on K3-flow's
-    flow. (At temp 100 the flow of random features sits near pixel
-    centres, where the bilinear warp's gradient jumps, and two fp32 flows
-    may fall in different cells; chip_smoke.py counts such rows.)"""
+    flow, and against the plain version in float64. (At temp 100 the flow
+    of random features sits near pixel centres, where the bilinear warp's
+    gradient jumps, and two fp32 flows may fall in different cells;
+    chip_smoke.py counts such rows.)"""
     g, ns, nf, h, w, c = shape
     args = _pairs_inputs(dev, *shape, seed=4)
     gen = torch.Generator(device="cpu").manual_seed(5)
@@ -229,6 +248,29 @@ def test_warp_pairs_bwd_kernel(dev, shape, temp):
         assert cuda_build.LAUNCHES["transform_warp_pairs_bwd"] == 1
         assert all(bool(torch.isfinite(x).all()) for x in got)
         _assert_cotangents_close(got, want)
+    if temp == 10.0:
+        _assert_cotangents_close(got, transform_warp_pairs_bwd_plain(
+            *args, g_warped, g_flow, h, w, temp, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 3, 9, 15, 40),
+                                   (15, 3, 1, 32, 32, 512)],
+                         ids=["ragged", "train"])
+def test_warp_pairs_bwd_kernel_is_deterministic(dev, shape):
+    """Every cotangent but da (a scatter by atomics) is summed in a fixed
+    order: two calls give the same bits."""
+    g, ns, nf, h, w, c = shape
+    args = _pairs_inputs(dev, *shape, seed=12)
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    g_warped = torch.randn(g, ns, nf, h * w, c, generator=gen).to(dev)
+    g_flow = torch.randn(g, ns, nf, h * w, 2, generator=gen).to(dev)
+    _, flow, lse = transform_warp_pairs_fwd(*args, h, w)
+    first, second = (transform_warp_pairs_bwd(*args, flow, lse, g_warped,
+                                              g_flow, h, w)
+                     for _ in range(2))
+    for a, b in zip(first[1:], second[1:]):
+        assert torch.equal(a, b)
+    _assert_cotangents_close(first, second)
 
 
 def test_warp_pairs_autograd_runs_both_kernels(dev):
@@ -344,12 +386,19 @@ def _assert_bf16_close(got, want, atol=1e-3):
 
 
 # (S, F, H, W, K, Co): one tile; ragged (144 pixels = a tile and 16 rows,
-# 48 -> 40 channels); several channel tiles
+# 48 -> 40 channels); several channel tiles; W = 160 past the 128-pixel
+# tile (a block covers part of a row); W = 24, which does not divide 128,
+# with a ragged last tile of rows and 72 channels; H = 2, the shortest
+# reflect; S = 5, two passes of the statistics over each frame
 FUSE_SHAPES = [(2, 3, 8, 8, 64, 64), (1, 2, 12, 12, 48, 40),
-               (3, 2, 16, 16, 256, 264)]
+               (3, 2, 16, 16, 256, 264), (1, 2, 3, 160, 32, 64),
+               (2, 2, 20, 24, 64, 72), (2, 1, 2, 12, 32, 48),
+               (5, 2, 4, 6, 16, 8)]
 
 
-@pytest.mark.parametrize("shape", FUSE_SHAPES, ids=["small", "ragged", "wide"])
+@pytest.mark.parametrize("shape", FUSE_SHAPES,
+                         ids=["small", "ragged", "wide", "w160", "w24", "h2",
+                              "s5"])
 def test_fuse_pair_conv2_kernel(dev, shape):
     s, f, h, w, k, co = shape
     gen = torch.Generator(device="cpu").manual_seed(9)

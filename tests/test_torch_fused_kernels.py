@@ -24,7 +24,8 @@ from wacv23_tsnet_tpu_torch.ops.conv_kernels import (conv3x3_in,
                                                      conv3x3_in_plain,
                                                      resblock_fused)
 from wacv23_tsnet_tpu_torch.ops.fuse_kernels import (fuse_pair_conv2,
-                                                     fuse_pair_conv2_plain)
+                                                     fuse_pair_conv2_plain,
+                                                     launcher)
 
 torch.set_num_threads(2)
 
@@ -170,6 +171,15 @@ REFUSALS = {
     "k6_weight_shape": (lambda: fuse_pair_conv2(
         _meta(2, 4, 4, 16), _meta(3, 4, 4, 16), _meta(16, 8, 3, 3)),
         r"\(Co, K, 3, 3\)"),
+    # K6's launcher (the wrapper's launches, timed apart by chip_smoke.py)
+    # checks as the wrapper does, and takes no CPU tensor at all
+    "k6_launcher_cpu": (lambda: launcher(
+        torch.zeros(2, 4, 4, 16, dtype=torch.bfloat16),
+        torch.zeros(3, 4, 4, 16, dtype=torch.bfloat16),
+        torch.zeros(16, 16, 3, 3)), "CUDA tensors"),
+    "k6_launcher_one_row": (lambda: launcher(
+        _meta(2, 1, 4, 16), _meta(3, 1, 4, 16), _meta(16, 16, 3, 3)),
+        "at least 2"),
     "k7_not_cuda": (lambda: conv3x3_in(_meta(2, 4, 4, 16),
                                        _meta(16, 16, 3, 3)), "CUDA tensors"),
     "k7_f32": (lambda: conv3x3_in(_meta(2, 4, 4, 16, dtype=torch.float32),

@@ -24,7 +24,8 @@ from wacv23_tsnet_tpu.ops.pallas_similarity import (
     transform_warp_pairs as j_warp_pairs)
 from wacv23_tsnet_tpu_torch.ops.norm_kernels import instance_norm_mean
 from wacv23_tsnet_tpu_torch.ops.warp_kernels import (
-    transform_warp_pairs, transform_warp_pairs_bwd, transform_warp_pairs_fwd)
+    bwd_launcher, transform_warp_pairs, transform_warp_pairs_bwd,
+    transform_warp_pairs_fwd)
 
 torch.set_num_threads(2)
 NAMES = ("src_fea", "tar_fea_n", "src_fea_n", "tar_mask", "src_mask", "grid")
@@ -132,3 +133,19 @@ def test_instance_norm_mean_gradient_matches_jax_vjp():
             "grad": np.abs(xt.grad.numpy() - np.asarray(want_g)).max()}
     _report(**errs)
     assert max(errs.values()) <= 1e-5, errs
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_warp_pairs_bwd_launcher_takes_only_cuda_tensors(device):
+    """K4's launcher (the wrapper's five launches, which chip_smoke.py
+    times apart) runs no plain version: CPU and meta tensors are refused
+    before anything is allocated or built."""
+    (src, tn, sn, tm, sm, grid), (h, w) = _inputs(0, g=1, ns=1, nf=1, h=4,
+                                                 w=4, c=8)
+    args = [torch.from_numpy(x).to(device) for x in (src, tn, sn, tm, sm,
+                                                     grid)]
+    flow = torch.zeros(1, 1, 1, h * w, 2, device=device)
+    lse = torch.zeros(1, 1, 1, h * w, device=device)
+    gw = torch.zeros(1, 1, 1, h * w, 8, device=device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bwd_launcher(*args, flow, lse, gw, flow, h, w)

@@ -37,8 +37,9 @@
 //   Where C % 4 != 0 or a plane is not 16-byte aligned, the same kernel
 //   copies 4 bytes at a time (VEC = false).
 // - Each logit is one chain of fp32 FMAs over channels 0..C-1 in order,
-//   from 0: the same value, bit for bit, that the backward kernels
-//   (transform_warp_bwd.cu, 4 x 4 tiles) recompute. The softmax sums run
+//   from 0: the same value, bit for bit, in every kernel that streams
+//   chunks through this tile, the flash backward (transform_warp_bwd.cu,
+//   through for_each_logit_chunk) among them. The softmax sums run
 //   in another order (each thread over its 8 columns of every 128-column
 //   chunk, then a butterfly across the 16 column owners), so l, and the
 //   log-sum-exp and flow made from it, differ from a sequential sum's in
@@ -228,25 +229,19 @@ __device__ __forceinline__ void merge_rows(RowStats& st) {
   }
 }
 
-// The softmax statistics of the block's rows row0.. of tar (n_rows, C)
-// over every row of src (n_cols, C), with mt the thread's rows' target
-// mask, ms (n_cols) the source mask and grid (n_cols, 2). Every thread of
-// the block calls it; on return each lane holds its 8 rows' merged
-// statistics, and the shared buffers are free again.
-template <bool VEC>
-__device__ __forceinline__ void attend(
-    const float* __restrict__ tar, const float* __restrict__ src,
-    const float* __restrict__ ms, const float* __restrict__ grid,
-    const float (&mt)[RM], int row0, int n_rows, int n_cols, int C,
-    float temp, Smem& sm, RowStats& st) {
+// Stream every source row (column) of src (n_cols, C) past the block's
+// rows row0.. of tar (n_rows, C), TN columns at a time: once a chunk's
+// logits are complete, every thread calls epilogue(acc, col0) with its
+// 8 x 8 block of them (rows tile_row(ty, i), columns col0 + tile_col(tx, j);
+// zero past n_rows, n_cols). Every thread of the block calls it; each step
+// of the loop starts with a __syncthreads(), so shared memory that an
+// epilogue writes is safe to rewrite in the next one. On return the shared
+// buffers are free again.
+template <bool VEC, class Epilogue>
+__device__ __forceinline__ void for_each_logit_chunk(
+    const float* __restrict__ tar, const float* __restrict__ src, int row0,
+    int n_rows, int n_cols, int C, Smem& sm, Epilogue epilogue) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    st.m[i] = -INFINITY;
-    st.l[i] = 0.f;
-    st.fx[i] = 0.f;
-    st.fy[i] = 0.f;
-  }
   float acc[RM][RN];
 #pragma unroll
   for (int i = 0; i < RM; ++i)
@@ -268,7 +263,7 @@ __device__ __forceinline__ void attend(
     }
     fma_chunk(sm.a[step & 1], sm.b[step & 1], ty, tx, acc);
     if (++ks == ksteps) {
-      softmax_update(acc, mt, ms, grid, col0, n_cols, tx, temp, st);
+      epilogue(acc, col0);
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -278,6 +273,32 @@ __device__ __forceinline__ void attend(
     }
   }
   __syncthreads();  // the buffers are free for the next call
+}
+
+// The softmax statistics of the block's rows row0.. of tar (n_rows, C)
+// over every row of src (n_cols, C), with mt the thread's rows' target
+// mask, ms (n_cols) the source mask and grid (n_cols, 2). Every thread of
+// the block calls it; on return each lane holds its 8 rows' merged
+// statistics, and the shared buffers are free again.
+template <bool VEC>
+__device__ __forceinline__ void attend(
+    const float* __restrict__ tar, const float* __restrict__ src,
+    const float* __restrict__ ms, const float* __restrict__ grid,
+    const float (&mt)[RM], int row0, int n_rows, int n_cols, int C,
+    float temp, Smem& sm, RowStats& st) {
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    st.m[i] = -INFINITY;
+    st.l[i] = 0.f;
+    st.fx[i] = 0.f;
+    st.fy[i] = 0.f;
+  }
+  for_each_logit_chunk<VEC>(
+      tar, src, row0, n_rows, n_cols, C, sm,
+      [&](const float (&acc)[RM][RN], int col0) {
+        softmax_update(acc, mt, ms, grid, col0, n_cols, tx, temp, st);
+      });
   merge_rows(st);
 }
 

@@ -1,17 +1,20 @@
 // Tile machinery shared by the port's bf16 tensor-core implicit GEMMs for
-// Hopper (sm_90a): fuse_pair_conv2.cu (K6) and conv3x3_in.cu (K7).
+// Hopper (sm_90a): conv3x3_in.cu (K7) and fuse_pair_conv2.cu (K6).
 //
 // Both run a reflect-padded 3x3 conv over NHWC planes as a GEMM: M = the
 // output pixels, N = the output channels, depth 9*C ordered (dy, dx, c).
 // A block owns BM = 128 pixels of one plane and BN output channels; its 8
 // warps sit 2 along M x 4 along N, each with a 64 x BN/4 warp tile of
-// mma.sync m16n8k16 fragments (bf16 operands, fp32 accumulators). Depth
-// slices of BK = 32 move through STAGES = 3 shared-memory stages; each
-// tile row is 64 bytes, four 16-byte chunks XOR-swizzled so that ldmatrix
-// and the 16-byte stores are free of bank conflicts. The reflect pad lives
-// in the index arithmetic (row -1 -> 1, row H -> H-2, the same for
-// columns). The including file supplies the A loader (what an A element
-// is) and the epilogue (what happens to the accumulators).
+// mma.sync m16n8k16 fragments (bf16 operands, fp32 accumulators). Each
+// tile row is BK = 32 channels, 64 bytes, four 16-byte chunks
+// XOR-swizzled so that ldmatrix and the 16-byte stores are free of bank
+// conflicts. K7 runs main_loop: depth slices of BK through STAGES = 3
+// shared-memory stages, the reflect pad in the index arithmetic (row
+// -1 -> 1, row H -> H-2, the same for columns), the A loader and the
+// epilogue supplied by the including file. K6 (fuse_pair_conv2.cu) takes
+// the tile sizes, the swizzle (its B stages in this layout are wgmma's
+// K-major 64-byte-swizzled operand), the copies and ldmatrix, and runs its
+// own depth loop over a reflect-padded halo on wgmma.
 
 #pragma once
 

@@ -45,13 +45,13 @@
 // channel-contiguous across threads, and either averages over sources in
 // registers (MEAN) or writes each pair. Rows and columns past T and
 // channels past C are masked, so any T and C run without a fallback.
-// The backward kernels (transform_warp_bwd.cu) recompute the logits with
-// their own 4 x 4 tiles, not this kernel's; each logit is the same
-// in-order chain of fp32 FMAs over the channels in both, so they see
-// bitwise the same logits, and form P = exp(z - lse) with the log-sum-exp
-// written here. That log-sum-exp comes from sums taken in the tile's
-// order (see the header), so it may differ from another order's in the
-// last bits: a change in P of order temp * 1e-7, within K4's tolerance.
+// The backward (transform_warp_bwd.cu) recomputes the logits on the same
+// tile, each the same in-order chain of fp32 FMAs over the channels, so
+// it sees bitwise the same logits, and forms P = exp(z - lse) with the
+// log-sum-exp written here. That log-sum-exp comes from sums taken in
+// the tile's order (see the header), so it may differ from another
+// order's in the last bits: a change in P of order temp * 1e-7, within
+// K4's tolerance.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

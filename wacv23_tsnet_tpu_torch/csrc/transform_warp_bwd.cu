@@ -1,7 +1,6 @@
 // Flash backward of the transformation branch for Hopper (sm_90a): the six
 // input cotangents of transform_warp_pairs (transform_warp.cu, pairs form
-// with the flow output), without the (T, T) attention ever reaching
-// device memory.
+// with the flow output).
 //
 // Replaces the TPU kernel wacv23_tsnet_tpu/ops/pallas_similarity.py
 // _pairs_bwd_pallas/_pairs_bwd_kernel (called from _pairs_bwd). Per pair
@@ -23,134 +22,82 @@
 // P is exp(z - lse[t]) with the row log-sum-exp the forward saved, so no
 // pass recomputes a row's max and sum.
 //
-// What bounds it: fp32 arithmetic. Three T x T x C products per pair (the
-// logits, gtn and gsn; 3.2 GFLOP a pair at T = 1024, C = 512) must stay
-// fp32 (temp 100 multiplies any logit error by 100), so they are FMAs on
-// the CUDA cores, as in the forward. Bytes are a few MB a pair.
+// What bounds it: arithmetic. Three T x T x C products per pair (the
+// logits, gtn and gsn; 3.2 GFLOP a pair at T = 1024, C = 512). The logits
+// must stay fp32 (temp 100 multiplies any logit error by 100), so they are
+// FMAs on the CUDA cores, as in the forward; gtn and gsn take 3xTF32
+// tensor-core products, about fp32 accuracy (sgemm_tile_sm90.cuh). Bytes
+// are small beside that.
 //
-// Design (three kernels, no atomics on the big sums):
-//   warp_bwd  one warp per (pair, target row): the 4-tap dot products
-//             give gflow (written for the other two kernels), and da is a
-//             4-tap scatter-add (fp32 atomics into a zeroed da; a source
-//             pixel is hit by a handful of rows, so contention is low).
-//   rows_bwd  one block per (group, frame, 64-row target tile), looping
-//             over sources and 64-column source chunks: recompute the
-//             logit tile, form gL and gK, and accumulate gtn for the tile
-//             in shared memory (64 rows x 512 channels) and gmt in
-//             registers. The sum over sources happens inside the block.
-//   cols_bwd  one block per (group, source, 64-column source chunk),
-//             looping over frames and target tiles: the same recompute,
-//             accumulating gsn, gms and a per-(group, source) partial of
-//             ggrid. The sum over frames and rows happens inside the block.
-// This is the flash-attention-2 split: each big sum is owned by one block,
-// at the price of computing the logits twice (4 T x T x C products
-// instead of 3). One kernel with atomics for gtn would have needed some
-// 8 M atomic adds a pair. The sums are in a fixed order except da's, so
-// the kernel is held against its plain version at a tolerance.
+// Design: five launches, exactly three products, atomics only for da.
+//   warp_bwd   one warp per (pair, target row): the 4-tap dot products
+//              give gflow (written for the next launch), and da is a 4-tap
+//              scatter-add into a zeroed da (16-byte fp32 atomics where
+//              C % 4 == 0: a lane owns 4 channels of each corner).
+//   logits     one block per (pair, 64-row target tile), on the logit tile
+//              of attention_tile_sm90.cuh (the forward's: 8 x 8 register
+//              blocks, cp.async double buffer; each logit the same in-order
+//              FMA chain as K3-flow's, bit for bit), streaming 128-column
+//              source chunks. Each finished chunk goes to an epilogue that
+//              forms P, gL and gK and writes gL to device memory twice,
+//              as (pair, T, TP) rows of u and, through a transposing
+//              shared-memory stage, as (g, f, s, T, TP) rows of t (TP = T
+//              rounded up to 4 floats). Row sums for gmt are merged over the
+//              half-warp of column owners; column sums for gms and ggrid go
+//              per (pair, row tile) into a small buffer.
+//   gtn, gsn   one batched GEMM each over k-major operands, 3xTF32 on
+//              the tensor cores (sgemm_tile_sm90.cuh): gtn = sum_s gL_s^T
+//              sn_s per (g, f), depth S * T, from the (g, f, s, T, TP)
+//              copy; gsn = sum_f gL_f^T tn_f per (g, s), depth F * T, from
+//              the (pair, T, TP) copy. Both read their operands as stored,
+//              16 bytes a copy.
+//   reduce     the per-pair partials into gmt (over s), gms and the
+//              per-(g, s) ggrid partial (over f and row tiles), in a fixed
+//              order.
+// The gL scratch is 2 * G*S*F*T*TP floats (0.38 GB at the train shape). All
+// sums except da's run in a fixed order, so two calls give the same bits
+// apart from da.
 //
-// Any T and C: rows, columns and channels past the edge are masked; the
-// shared-memory accumulators cover CSLAB channels at a time, and a larger
-// C loops over slabs (recomputing the logits for each).
+// Any T and C: rows, columns and channels past the edge are masked; where
+// C % 4 != 0 or a plane is not 16-byte aligned the same kernels copy 4
+// bytes at a time.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_tile_sm90.cuh"
+#include "sgemm_tile_sm90.cuh"
+
 namespace {
 
-constexpr int TM = 64;        // target rows per tile
-constexpr int TN = 64;        // source rows per chunk
-constexpr int KC = 32;        // channels per logit k step
-constexpr int CC = 64;        // channels per product step
-constexpr int CSLAB = 512;    // channels of the shared accumulator
-constexpr int ACC_LD = CSLAB + 16;  // row stride: rows ty, ty+1 on other banks
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 elements each
+using tsnet_attn::RM;
+using tsnet_attn::RN;
+using tsnet_attn::tile_col;
+using tsnet_attn::tile_row;
+using tsnet_attn::TM;
+using tsnet_attn::TN;
 
-// Logits of one (TM target rows) x (TN source rows) tile into acc: each
-// logit one in-order chain of FMAs over the channels from 0, as the
-// forward's tile (attention_tile_sm90.cuh) computes it, so both see the
-// same logits bit for bit. tar/src point at row 0 of their (T, C) planes.
-__device__ __forceinline__ void logit_tile(
-    const float* __restrict__ tar, const float* __restrict__ src, int row0,
-    int col0, int T, int C, float (*As)[TM + 1], float (*Bs)[TN + 1],
-    float acc[4][4]) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < C; k0 += KC) {
-    for (int e = tid; e < TM * KC; e += THREADS) {
-      const int k = e % KC, r = e / KC;
-      const int gr = row0 + r, gk = k0 + k;
-      As[k][r] = (gr < T && gk < C) ? tar[(size_t)gr * C + gk] : 0.f;
-    }
-    for (int e = tid; e < TN * KC; e += THREADS) {
-      const int k = e % KC, u = e / KC;
-      const int gu = col0 + u, gk = k0 + k;
-      Bs[k][u] = (gu < T && gk < C) ? src[(size_t)gu * C + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < KC; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
+constexpr int WARP_ROWS = 8;            // warp_bwd: rows (warps) per block
+constexpr int STAGE_LD = TM + 4;        // transposing stage: row stride
+constexpr int REDUCE_THREADS = 256;
 
 // Per target row of a tile: what the softmax backward needs.
 struct RowData {
   float mt, lse, flx, fly, gfx, gfy;
 };
 
-__device__ __forceinline__ RowData load_row(
-    int r, int T, const float* mt, const float* lse, const float* flow,
-    const float* gflow) {
-  RowData d = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (r < T) {
-    d.mt = mt[r];
-    d.lse = lse[r];
-    d.flx = flow[2 * r];
-    d.fly = flow[2 * r + 1];
-    d.gfx = gflow[2 * r];
-    d.gfy = gflow[2 * r + 1];
-  }
-  return d;
-}
-
-// gz = P (gflow . (grid[u] - flow[t])); returns gL, sets gK and P.
-__device__ __forceinline__ float softmax_bwd(float logit, const RowData& rd,
-                                             float ms, float gx, float gy,
-                                             bool ok, float temp, float* gk,
-                                             float* p_out) {
-  const float coeff = rd.mt * ms + (1.f - rd.mt) * (1.f - ms);
-  const float z = temp * (logit * coeff);
-  const float p = ok ? expf(z - rd.lse) : 0.f;
-  const float gz = p * (rd.gfx * (gx - rd.flx) + rd.gfy * (gy - rd.fly));
-  *gk = temp * logit * gz;
-  *p_out = p;
-  return temp * coeff * gz;
-}
-
 // ---- warp backward: gflow and the da scatter, one warp per row ----------
-__global__ void __launch_bounds__(THREADS) warp_bwd_kernel(
+template <bool VEC>
+__global__ void __launch_bounds__(WARP_ROWS * 32) warp_bwd_kernel(
     const float* __restrict__ src,    // (G, S, T, C) un-normalised
     const float* __restrict__ flow,   // (G, S, F, T, 2)
     const float* __restrict__ gw,     // (G, S, F, T, C)
     const float* __restrict__ gf,     // (G, S, F, T, 2)
     float* __restrict__ gflow,        // (G, S, F, T, 2) out
     float* __restrict__ da,           // (G, S, T, C) out, zeroed
-    int S, int F, int T, int C, int H, int W) {
+    int F, int T, int C, int H, int W) {
   const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  const int t = blockIdx.x * WARP_ROWS + (threadIdx.x >> 5);
   const int pair = blockIdx.y;               // (g * S + s) * F + f
   if (t >= T) return;
   const int gs = pair / F;                   // g * S + s
@@ -180,13 +127,32 @@ __global__ void __launch_bounds__(THREADS) warp_bwd_kernel(
   }
 
   float dot[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c = lane; c < C; c += 32) {
-    const float g = gwr[c];
+  if (VEC) {  // C % 4 == 0, 16-byte aligned planes: 4 channels a lane
+    for (int c = 4 * lane; c < C; c += 128) {
+      const float4 g = *reinterpret_cast<const float4*>(gwr + c);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (!in[q]) continue;
-      dot[q] = fmaf(g, a[(size_t)idx[q] * C + c], dot[q]);
-      atomicAdd(dag + (size_t)idx[q] * C + c, cw[q] * g);
+      for (int q = 0; q < 4; ++q) {
+        if (!in[q]) continue;
+        const float4 v =
+            *reinterpret_cast<const float4*>(a + (size_t)idx[q] * C + c);
+        dot[q] = fmaf(g.x, v.x, dot[q]);
+        dot[q] = fmaf(g.y, v.y, dot[q]);
+        dot[q] = fmaf(g.z, v.z, dot[q]);
+        dot[q] = fmaf(g.w, v.w, dot[q]);
+        atomicAdd(reinterpret_cast<float4*>(dag + (size_t)idx[q] * C + c),
+                  make_float4(cw[q] * g.x, cw[q] * g.y, cw[q] * g.z,
+                              cw[q] * g.w));
+      }
+    }
+  } else {
+    for (int c = lane; c < C; c += 32) {
+      const float g = gwr[c];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (!in[q]) continue;
+        dot[q] = fmaf(g, a[(size_t)idx[q] * C + c], dot[q]);
+        atomicAdd(dag + (size_t)idx[q] * C + c, cw[q] * g);
+      }
     }
   }
 #pragma unroll
@@ -207,8 +173,9 @@ __global__ void __launch_bounds__(THREADS) warp_bwd_kernel(
   }
 }
 
-// ---- rows: gtn and gmt, one block per (group, frame, target tile) -------
-__global__ void __launch_bounds__(THREADS) rows_bwd_kernel(
+// ---- logits: P, gL (twice) and the gK sums, one block per (pair, tile) ---
+template <bool VEC>
+__global__ void __launch_bounds__(tsnet_attn::THREADS, 2) logits_bwd_kernel(
     const float* __restrict__ src_n,     // (G, S, T, C)
     const float* __restrict__ src_mask,  // (G, S, T)
     const float* __restrict__ tar_n,     // (G, F, T, C)
@@ -217,258 +184,188 @@ __global__ void __launch_bounds__(THREADS) rows_bwd_kernel(
     const float* __restrict__ flow,      // (G, S, F, T, 2)
     const float* __restrict__ lse,       // (G, S, F, T)
     const float* __restrict__ gflow,     // (G, S, F, T, 2)
-    float* __restrict__ gtn,             // (G, F, T, C) out
-    float* __restrict__ gmt,             // (G, F, T) out
-    int S, int F, int T, int C, float temp) {
-  __shared__ float As[KC][TM + 1];
-  __shared__ float Bs[KC][TN + 1];
-  __shared__ float gLs[TN][TM + 1];     // gL tile, source-major
-  extern __shared__ float dyn[];
-  float* acc_s = dyn;                   // [TM][ACC_LD] gtn accumulator
-  float* Ss = dyn + TM * ACC_LD;        // [TN][CC] source channel slice
+    float* __restrict__ gl,              // (G, S, F, T, TP) out: [t][u]
+    float* __restrict__ glt,             // (G, F, S, T, TP) out: [u][t]
+    float* __restrict__ gmt_part,        // (G, S, F, T) out
+    float* __restrict__ col_part,        // (G, S, F, NRT, T, 3) out
+    int S, int F, int T, int C, int TP, float temp) {
+  __shared__ __align__(16) tsnet_attn::Smem sm;
+  __shared__ RowData rows[TM];
+  __shared__ float red[tsnet_attn::THREADS / 32][TN][3];
+  extern __shared__ __align__(16) float stage[];  // [TN][STAGE_LD]: gL^T
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * TM;
-  const int f = blockIdx.y, g = blockIdx.z;
+  const int pair = blockIdx.y;          // (g * S + s) * F + f
+  const int f = pair % F, gs = pair / F;
+  const int g = gs / S, s = gs % S;
   const int gf = g * F + f;
-  const float* tn = tar_n + (size_t)gf * T * C;
-  const float* mtp = tar_mask + (size_t)gf * T;
+  const size_t prow = (size_t)pair * T;  // the pair's row 0
+  const float* msp = src_mask + (size_t)gs * T;
+  float* glt_p = glt + ((size_t)gf * S + s) * T * TP;
 
-  float gmt_part[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c_lo = 0; c_lo < C; c_lo += CSLAB) {
-    const int cw = min(CSLAB, C - c_lo);
-    for (int e = tid; e < TM * ACC_LD; e += THREADS) acc_s[e] = 0.f;
-    __syncthreads();
-    for (int s = 0; s < S; ++s) {
-      const int gs = g * S + s;
-      const float* sn = src_n + (size_t)gs * T * C;
-      const float* msp = src_mask + (size_t)gs * T;
-      const size_t prow = (size_t)(gs * F + f) * T;   // pair row 0
-      RowData rd[4];
+  for (int r = tid; r < TM; r += tsnet_attn::THREADS) {
+    const int t = row0 + r;
+    RowData d = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (t < T) {
+      d.mt = tar_mask[(size_t)gf * T + t];
+      d.lse = lse[prow + t];
+      d.flx = flow[2 * (prow + t)];
+      d.fly = flow[2 * (prow + t) + 1];
+      d.gfx = gflow[2 * (prow + t)];
+      d.gfy = gflow[2 * (prow + t) + 1];
+    }
+    rows[r] = d;
+  }
+  // rows[] is read in the epilogues, after the chunk loop's first barrier
+
+  float gmt_acc[RM];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        rd[i] = load_row(row0 + ty + 16 * i, T, mtp, lse + prow,
-                         flow + 2 * prow, gflow + 2 * prow);
-      for (int col0 = 0; col0 < T; col0 += TN) {
-        float logit[4][4];
-        logit_tile(tn, sn, row0, col0, T, C, As, Bs, logit);
+  for (int i = 0; i < RM; ++i) gmt_acc[i] = 0.f;
+
+  tsnet_attn::for_each_logit_chunk<VEC>(
+      tar_n + (size_t)gf * T * C, src_n + (size_t)gs * T * C, row0, T, T, C,
+      sm, [&](const float (&acc)[RM][RN], int col0) {
+        float msk[RN], gx[RN], gy[RN], cgm[RN], cgx[RN], cgy[RN];
+        bool ok[RN];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int u = col0 + tx + 16 * j;
-          const bool ok = u < T;
-          const float ms = ok ? msp[u] : 0.f;
-          const float gx = ok ? grid[2 * u] : 0.f;
-          const float gy = ok ? grid[2 * u + 1] : 0.f;
+        for (int j = 0; j < RN; ++j) {
+          const int u = col0 + tile_col(tx, j);
+          ok[j] = u < T;
+          msk[j] = ok[j] ? msp[u] : 0.f;
+          gx[j] = ok[j] ? grid[2 * u] : 0.f;
+          gy[j] = ok[j] ? grid[2 * u + 1] : 0.f;
+          cgm[j] = cgx[j] = cgy[j] = 0.f;
+        }
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float gk, p;
-            const float gl = softmax_bwd(logit[i][j], rd[i], ms, gx, gy, ok,
-                                         temp, &gk, &p);
-            if (c_lo == 0) gmt_part[i] = fmaf(gk, 2.f * ms - 1.f, gmt_part[i]);
-            gLs[tx + 16 * j][ty + 16 * i] = gl;
+        for (int i = 0; i < RM; ++i) {
+          const int r = tile_row(ty, i);
+          const bool row_ok = row0 + r < T;
+          const RowData rd = rows[r];
+          const float sm_t = 2.f * rd.mt - 1.f;
+          float* gl_row = gl + (prow + row0 + r) * TP + col0;
+#pragma unroll
+          for (int j = 0; j < RN; ++j) {
+            const float coeff = rd.mt * msk[j] + (1.f - rd.mt) * (1.f - msk[j]);
+            const float z = temp * (acc[i][j] * coeff);
+            const float p = (ok[j] && row_ok) ? expf(z - rd.lse) : 0.f;
+            const float gz =
+                p * (rd.gfx * (gx[j] - rd.flx) + rd.gfy * (gy[j] - rd.fly));
+            const float gk = temp * acc[i][j] * gz;
+            const float glv = temp * coeff * gz;
+            gmt_acc[i] = fmaf(gk, 2.f * msk[j] - 1.f, gmt_acc[i]);
+            cgm[j] = fmaf(gk, sm_t, cgm[j]);
+            cgx[j] = fmaf(p, rd.gfx, cgx[j]);
+            cgy[j] = fmaf(p, rd.gfy, cgy[j]);
+            if (ok[j] && row_ok) gl_row[tile_col(tx, j)] = glv;
+            stage[tile_col(tx, j) * STAGE_LD + r] = glv;
+          }
+        }
+        // column sums: the two row groups of the warp, then the warps
+#pragma unroll
+        for (int j = 0; j < RN; ++j) {
+          cgm[j] += __shfl_xor_sync(0xffffffffu, cgm[j], 16);
+          cgx[j] += __shfl_xor_sync(0xffffffffu, cgx[j], 16);
+          cgy[j] += __shfl_xor_sync(0xffffffffu, cgy[j], 16);
+          if (lane < 16) {
+            red[warp][tile_col(tx, j)][0] = cgm[j];
+            red[warp][tile_col(tx, j)][1] = cgx[j];
+            red[warp][tile_col(tx, j)][2] = cgy[j];
           }
         }
         __syncthreads();
-        // acc[t][c] += sum_u gL[t][u] sn[u][c], CC channels at a time
-        for (int cc0 = 0; cc0 < cw; cc0 += CC) {
-          for (int e = tid; e < TN * CC; e += THREADS) {
-            const int c = e % CC, u = e / CC;
-            const int gu = col0 + u, gc = c_lo + cc0 + c;
-            Ss[u * CC + c] =
-                (gu < T && cc0 + c < cw) ? sn[(size_t)gu * C + gc] : 0.f;
+        // column tid of the chunk: its per-(pair, row tile) partials
+        if (col0 + tid < T) {
+          float* cp = col_part +
+                      (((size_t)pair * gridDim.x + blockIdx.x) * T + col0 +
+                       tid) * 3;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            float v = red[0][tid][k];
+#pragma unroll
+            for (int w = 1; w < tsnet_attn::THREADS / 32; ++w)
+              v += red[w][tid][k];
+            cp[k] = v;
           }
-          __syncthreads();
-          float o[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              o[i][j] = acc_s[(ty + 16 * i) * ACC_LD + cc0 + tx + 16 * j];
-#pragma unroll 8
-          for (int u = 0; u < TN; ++u) {
-            float a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = gLs[u][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = Ss[u * CC + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) o[i][j] = fmaf(a[i], b[j], o[i][j]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc_s[(ty + 16 * i) * ACC_LD + cc0 + tx + 16 * j] = o[i][j];
-          __syncthreads();
         }
-      }
-    }
-    // write the slab of gtn, channel-contiguous
-    for (int e = tid; e < TM * cw; e += THREADS) {
-      const int c = e % cw, r = e / cw;
-      if (row0 + r < T)
-        gtn[((size_t)gf * T + row0 + r) * C + c_lo + c] = acc_s[r * ACC_LD + c];
-    }
-    __syncthreads();
-  }
+        // gL^T rows u = col0.., 64 targets each, 16 bytes a store
+        for (int e = tid; e < TN * TM / 4; e += tsnet_attn::THREADS) {
+          const int u = e / (TM / 4), q = 4 * (e % (TM / 4));
+          if (col0 + u < T && row0 + q < T)
+            *reinterpret_cast<float4*>(glt_p + (size_t)(col0 + u) * TP +
+                                       row0 + q) =
+                *reinterpret_cast<const float4*>(&stage[u * STAGE_LD + q]);
+        }
+        // the next chunk's epilogue writes red and stage after the chunk
+        // loop's next barrier
+      });
+
   // gmt: merge the 16 column owners of each row (lanes that differ in tx)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RM; ++i) {
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
-      gmt_part[i] += __shfl_xor_sync(0xffffffffu, gmt_part[i], off);
-    const int r = row0 + ty + 16 * i;
-    if (tx == 0 && r < T) gmt[(size_t)gf * T + r] = gmt_part[i];
+      gmt_acc[i] += __shfl_xor_sync(0xffffffffu, gmt_acc[i], off);
+    const int t = row0 + tile_row(ty, i);
+    if (tx == 0 && t < T) gmt_part[prow + t] = gmt_acc[i];
   }
 }
 
-// ---- cols: gsn, gms, ggrid, one block per (group, source, source chunk) --
-__global__ void __launch_bounds__(THREADS) cols_bwd_kernel(
-    const float* __restrict__ src_n,     // (G, S, T, C)
-    const float* __restrict__ src_mask,  // (G, S, T)
-    const float* __restrict__ tar_n,     // (G, F, T, C)
-    const float* __restrict__ tar_mask,  // (G, F, T)
-    const float* __restrict__ grid,      // (T, 2)
-    const float* __restrict__ flow,      // (G, S, F, T, 2)
-    const float* __restrict__ lse,       // (G, S, F, T)
-    const float* __restrict__ gflow,     // (G, S, F, T, 2)
-    float* __restrict__ gsn,             // (G, S, T, C) out
+// ---- gtn and gsn: k-major fp32 GEMMs over the stored gL ------------------
+template <bool VEC>
+__global__ void __launch_bounds__(tsnet_sgemm::THREADS, 2) gemm_kernel(
+    tsnet_sgemm::Operand a, tsnet_sgemm::Operand b, float* __restrict__ out,
+    long long sc1, long long sc2, int ldc, int M, int N, int K, int nb2) {
+  __shared__ __align__(16) tsnet_sgemm::Smem sm;
+  tsnet_sgemm::gemm_tile<VEC>(a, b, out, sc1, sc2, ldc, M, N, K, nb2, sm);
+}
+
+// ---- the partial sums, in a fixed order ---------------------------------
+__global__ void __launch_bounds__(REDUCE_THREADS) reduce_bwd_kernel(
+    const float* __restrict__ gmt_part,  // (G, S, F, T)
+    const float* __restrict__ col_part,  // (G, S, F, NRT, T, 3)
+    float* __restrict__ gmt,             // (G, F, T) out
     float* __restrict__ gms,             // (G, S, T) out
     float* __restrict__ gg_part,         // (G, S, T, 2) out
-    int S, int F, int T, int C, float temp) {
-  __shared__ float As[KC][TM + 1];
-  __shared__ float Bs[KC][TN + 1];
-  __shared__ float gLs[TM][TN + 1];     // gL tile, target-major
-  __shared__ float red[16][TN][3];      // column partials across ty
-  extern __shared__ float dyn[];
-  float* acc_s = dyn;                   // [TN][ACC_LD] gsn accumulator
-  float* Ts = dyn + TN * ACC_LD;        // [TM][CC] target channel slice
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int col0 = blockIdx.x * TN;
-  const int s = blockIdx.y, g = blockIdx.z;
-  const int gs = g * S + s;
-  const float* sn = src_n + (size_t)gs * T * C;
-  const float* msp = src_mask + (size_t)gs * T;
-
-  float ms[4], gx[4], gy[4];
-  bool ok[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int u = col0 + tx + 16 * j;
-    ok[j] = u < T;
-    ms[j] = ok[j] ? msp[u] : 0.f;
-    gx[j] = ok[j] ? grid[2 * u] : 0.f;
-    gy[j] = ok[j] ? grid[2 * u + 1] : 0.f;
+    int G, int S, int F, int T, int NRT) {
+  const int i = blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  if (i < G * F * T) {  // gmt[g, f, t] = sum_s gmt_part[g, s, f, t]
+    const int t = i % T, gf = i / T, f = gf % F, g = gf / F;
+    float v = 0.f;
+    for (int s = 0; s < S; ++s)
+      v += gmt_part[((size_t)(g * S + s) * F + f) * T + t];
+    gmt[i] = v;
   }
-  float gms_part[4] = {0.f, 0.f, 0.f, 0.f};
-  float ggx_part[4] = {0.f, 0.f, 0.f, 0.f};
-  float ggy_part[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int c_lo = 0; c_lo < C; c_lo += CSLAB) {
-    const int cw = min(CSLAB, C - c_lo);
-    for (int e = tid; e < TN * ACC_LD; e += THREADS) acc_s[e] = 0.f;
-    __syncthreads();
-    for (int f = 0; f < F; ++f) {
-      const int gf = g * F + f;
-      const float* tn = tar_n + (size_t)gf * T * C;
-      const float* mtp = tar_mask + (size_t)gf * T;
-      const size_t prow = (size_t)(gs * F + f) * T;
-      for (int row0 = 0; row0 < T; row0 += TM) {
-        RowData rd[4];
+  if (i < G * S * T) {  // gms, ggrid partial of (g, s) at source pixel u
+    const int u = i % T, gs = i / T;
+    float v[3] = {0.f, 0.f, 0.f};
+    for (int f = 0; f < F; ++f)
+      for (int rt = 0; rt < NRT; ++rt) {
+        const float* cp =
+            col_part + ((((size_t)gs * F + f) * NRT + rt) * T + u) * 3;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          rd[i] = load_row(row0 + ty + 16 * i, T, mtp, lse + prow,
-                           flow + 2 * prow, gflow + 2 * prow);
-        float logit[4][4];
-        logit_tile(tn, sn, row0, col0, T, C, As, Bs, logit);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float sm = 2.f * rd[i].mt - 1.f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float gk, p;
-            const float gl = softmax_bwd(logit[i][j], rd[i], ms[j], gx[j],
-                                         gy[j], ok[j], temp, &gk, &p);
-            if (c_lo == 0) {
-              gms_part[j] = fmaf(gk, sm, gms_part[j]);
-              ggx_part[j] = fmaf(p, rd[i].gfx, ggx_part[j]);
-              ggy_part[j] = fmaf(p, rd[i].gfy, ggy_part[j]);
-            }
-            gLs[ty + 16 * i][tx + 16 * j] = gl;
-          }
-        }
-        __syncthreads();
-        // acc[u][c] += sum_t gL[t][u] tn[t][c], CC channels at a time
-        for (int cc0 = 0; cc0 < cw; cc0 += CC) {
-          for (int e = tid; e < TM * CC; e += THREADS) {
-            const int c = e % CC, r = e / CC;
-            const int gr = row0 + r, gc = c_lo + cc0 + c;
-            Ts[r * CC + c] =
-                (gr < T && cc0 + c < cw) ? tn[(size_t)gr * C + gc] : 0.f;
-          }
-          __syncthreads();
-          float o[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              o[i][j] = acc_s[(ty + 16 * i) * ACC_LD + cc0 + tx + 16 * j];
-#pragma unroll 8
-          for (int r = 0; r < TM; ++r) {
-            float a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = gLs[r][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = Ts[r * CC + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) o[i][j] = fmaf(a[i], b[j], o[i][j]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc_s[(ty + 16 * i) * ACC_LD + cc0 + tx + 16 * j] = o[i][j];
-          __syncthreads();
-        }
+        for (int k = 0; k < 3; ++k) v[k] += cp[k];
       }
-    }
-    for (int e = tid; e < TN * cw; e += THREADS) {
-      const int c = e % cw, u = e / cw;
-      if (col0 + u < T)
-        gsn[((size_t)gs * T + col0 + u) * C + c_lo + c] = acc_s[u * ACC_LD + c];
-    }
-    __syncthreads();
-  }
-  // gms and ggrid: sum the 16 row owners (ty) of each column
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[ty][tx + 16 * j][0] = gms_part[j];
-    red[ty][tx + 16 * j][1] = ggx_part[j];
-    red[ty][tx + 16 * j][2] = ggy_part[j];
-  }
-  __syncthreads();
-  if (tid < TN && col0 + tid < T) {
-    float sums[3] = {0.f, 0.f, 0.f};
-    for (int y = 0; y < 16; ++y)
-#pragma unroll
-      for (int k = 0; k < 3; ++k) sums[k] += red[y][tid][k];
-    const size_t u = (size_t)gs * T + col0 + tid;
-    gms[u] = sums[0];
-    gg_part[2 * u] = sums[1];
-    gg_part[2 * u + 1] = sums[2];
+    gms[i] = v[0];
+    gg_part[2 * (size_t)i] = v[1];
+    gg_part[2 * (size_t)i + 1] = v[2];
   }
 }
 
-cudaError_t set_smem(const void* kernel, size_t bytes) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) cudaGetLastError();  // clear it for the next launch
-  return e;
+bool aligned16(const void* p) {
+  return reinterpret_cast<size_t>(p) % 16 == 0;
+}
+
+template <bool VEC>
+cudaError_t launch_gemm(tsnet_sgemm::Operand a, tsnet_sgemm::Operand b,
+                        float* out, long long sc1, long long sc2, int M,
+                        int N, int K, int nb1, int nb2, cudaStream_t st) {
+  const dim3 blocks((N + tsnet_sgemm::BN - 1) / tsnet_sgemm::BN,
+                    (M + tsnet_sgemm::BM - 1) / tsnet_sgemm::BM, nb1 * nb2);
+  gemm_kernel<VEC><<<blocks, tsnet_sgemm::THREADS, 0, st>>>(
+      a, b, out, sc1, sc2, N, M, N, K, nb2);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -476,51 +373,92 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
 extern "C" {
 
 // Every pointer is a contiguous f32 tensor on the device; da must be
-// zeroed by the caller (the scatter adds into it). gflow is scratch of
-// the shape of flow. Shapes as in the kernels' signatures above.
+// zeroed by the caller (the scatter adds into it). Scratch: gflow of the
+// shape of flow; gl (G, S, F, T, TP) and glt (G, F, S, T, TP) with
+// TP = T rounded up to a multiple of 4; gmt_part (G, S, F, T); col_part
+// (G, S, F, NRT, T, 3) with NRT = ceil(T / 64). `phases` selects the
+// launches by bit (1 warp_bwd, 2 logits, 4 gtn, 8 gsn, 16 reduce; 31 all),
+// so that each can be timed alone.
 int tsnet_transform_warp_bwd(
     const void* src, const void* src_n, const void* src_mask,
     const void* tar_n, const void* tar_mask, const void* grid,
     const void* flow, const void* lse, const void* gw, const void* gf,
     void* gflow, void* da, void* gtn, void* gsn, void* gmt, void* gms,
-    void* gg_part, int G, int S, int F, int T, int C, int H, int W,
-    float temp, void* stream) {
+    void* gg_part, void* gl, void* glt, void* gmt_part, void* col_part,
+    int G, int S, int F, int T, int C, int H, int W, float temp, int phases,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* fsrc = static_cast<const float*>(src);
   const float* fsrc_n = static_cast<const float*>(src_n);
-  const float* fsm = static_cast<const float*>(src_mask);
   const float* ftar_n = static_cast<const float*>(tar_n);
-  const float* ftm = static_cast<const float*>(tar_mask);
-  const float* fgrid = static_cast<const float*>(grid);
-  const float* fflow = static_cast<const float*>(flow);
-  const float* flse = static_cast<const float*>(lse);
-  float* fgflow = static_cast<float*>(gflow);
+  float* fgl = static_cast<float*>(gl);
+  float* fglt = static_cast<float*>(glt);
+  const int TP = (T + 3) / 4 * 4;
+  const int NRT = (T + TM - 1) / TM;
+  cudaError_t e = cudaSuccess;
 
-  const dim3 wblocks((T + THREADS / 32 - 1) / (THREADS / 32), G * S * F);
-  warp_bwd_kernel<<<wblocks, THREADS, 0, st>>>(
-      fsrc, fflow, static_cast<const float*>(gw),
-      static_cast<const float*>(gf), fgflow, static_cast<float*>(da), S, F,
-      T, C, H, W);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  const size_t rows_dyn = (size_t)(TM * ACC_LD + TN * CC) * sizeof(float);
-  e = set_smem((const void*)rows_bwd_kernel, rows_dyn);
-  if (e != cudaSuccess) return (int)e;
-  rows_bwd_kernel<<<dim3((T + TM - 1) / TM, F, G), THREADS, rows_dyn, st>>>(
-      fsrc_n, fsm, ftar_n, ftm, fgrid, fflow, flse, fgflow,
-      static_cast<float*>(gtn), static_cast<float*>(gmt), S, F, T, C, temp);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  const size_t cols_dyn = (size_t)(TN * ACC_LD + TM * CC) * sizeof(float);
-  e = set_smem((const void*)cols_bwd_kernel, cols_dyn);
-  if (e != cudaSuccess) return (int)e;
-  cols_bwd_kernel<<<dim3((T + TN - 1) / TN, S, G), THREADS, cols_dyn, st>>>(
-      fsrc_n, fsm, ftar_n, ftm, fgrid, fflow, flse, fgflow,
-      static_cast<float*>(gsn), static_cast<float*>(gms),
-      static_cast<float*>(gg_part), S, F, T, C, temp);
-  return (int)cudaGetLastError();
+  if (phases & 1) {
+    const dim3 blocks((T + WARP_ROWS - 1) / WARP_ROWS, G * S * F);
+    const bool vec = C % 4 == 0 && aligned16(src) && aligned16(gw) &&
+                     aligned16(da);
+    auto kernel = vec ? warp_bwd_kernel<true> : warp_bwd_kernel<false>;
+    kernel<<<blocks, WARP_ROWS * 32, 0, st>>>(
+        static_cast<const float*>(src), static_cast<const float*>(flow),
+        static_cast<const float*>(gw), static_cast<const float*>(gf),
+        static_cast<float*>(gflow), static_cast<float*>(da), F, T, C, H, W);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if (phases & 2) {
+    auto kernel = tsnet_attn::vector_loads(C, src_n, tar_n)
+                      ? logits_bwd_kernel<true>
+                      : logits_bwd_kernel<false>;
+    const size_t dyn = (size_t)TN * STAGE_LD * sizeof(float);
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it, so the next launch reports its own
+      return (int)e;
+    }
+    kernel<<<dim3(NRT, G * S * F), tsnet_attn::THREADS, dyn, st>>>(
+        fsrc_n, static_cast<const float*>(src_mask), ftar_n,
+        static_cast<const float*>(tar_mask), static_cast<const float*>(grid),
+        static_cast<const float*>(flow), static_cast<const float*>(lse),
+        static_cast<const float*>(gflow), fgl, fglt,
+        static_cast<float*>(gmt_part), static_cast<float*>(col_part), S, F,
+        T, C, TP, temp);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  const long long TT = (long long)T * TP, TC = (long long)T * C;
+  if (phases & 4) {  // gtn per (g, f): A = glt rows (s, u), B = sn rows
+    const tsnet_sgemm::Operand a = {fglt, F * S * TT, S * TT, TP};
+    const tsnet_sgemm::Operand b = {fsrc_n, S * TC, 0, C};
+    e = tsnet_attn::vector_loads(C, src_n, gtn)
+            ? launch_gemm<true>(a, b, static_cast<float*>(gtn), F * TC, TC, T,
+                                C, S * T, G, F, st)
+            : launch_gemm<false>(a, b, static_cast<float*>(gtn), F * TC, TC,
+                                 T, C, S * T, G, F, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (phases & 8) {  // gsn per (g, s): A = gl rows (f, t), B = tn rows
+    const tsnet_sgemm::Operand a = {fgl, S * F * TT, F * TT, TP};
+    const tsnet_sgemm::Operand b = {ftar_n, F * TC, 0, C};
+    e = tsnet_attn::vector_loads(C, tar_n, gsn)
+            ? launch_gemm<true>(a, b, static_cast<float*>(gsn), S * TC, TC, T,
+                                C, F * T, G, S, st)
+            : launch_gemm<false>(a, b, static_cast<float*>(gsn), S * TC, TC,
+                                 T, C, F * T, G, S, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (phases & 16) {
+    const int n = G * T * (S > F ? S : F);
+    reduce_bwd_kernel<<<(n + REDUCE_THREADS - 1) / REDUCE_THREADS,
+                        REDUCE_THREADS, 0, st>>>(
+        static_cast<const float*>(gmt_part),
+        static_cast<const float*>(col_part), static_cast<float*>(gmt),
+        static_cast<float*>(gms), static_cast<float*>(gg_part), G, S, F, T,
+        NRT);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 const char* tsnet_error_string(int err) {

@@ -59,7 +59,10 @@ def fuse_pair_conv2(c1a: torch.Tensor, c1t: torch.Tensor, w2: torch.Tensor,
     """
     if c1a.device.type == "cpu":
         return fuse_pair_conv2_plain(c1a, c1t, w2, eps)
-    return _launch(c1a, c1t, w2, eps)
+    launch, out = launcher(c1a, c1t, w2, eps)
+    launch()
+    cuda_build.LAUNCHES["fuse_pair_conv2"] += 1
+    return out
 
 
 def _check(c1a, c1t, w2) -> None:
@@ -86,7 +89,16 @@ def _check(c1a, c1t, w2) -> None:
                          f"W of at least 2, got {h}x{w}")
 
 
-def _launch(c1a, c1t, w2, eps):
+# K6's launches, by the bit that selects each (csrc/fuse_pair_conv2.cu)
+PHASES = ("stats", "conv")
+
+
+def launcher(c1a, c1t, w2, eps: float = 1e-5):
+    """K6's checks, output and scratch for these CUDA inputs, without a
+    launch: returns (launch, out). launch(phases) runs the launches whose
+    bits `phases` sets (bit i: PHASES[i]; both by default) and counts
+    nothing; `fuse_pair_conv2` is one launch(). A caller may time the
+    launches apart."""
     _check(c1a, c1t, w2)
     for t in (c1a, c1t, w2):
         if t.device.type != "cuda" or t.device != c1a.device:
@@ -102,14 +114,16 @@ def _launch(c1a, c1t, w2, eps):
     out = torch.empty((s, f, h, w, co), dtype=torch.bfloat16,
                       device=c1a.device)
     lib = _library()
-    with torch.cuda.device(c1a.device):
-        err = lib.tsnet_fuse_pair_conv2(
-            cuda_build.ptr(c1a), cuda_build.ptr(c1t), cuda_build.ptr(wr),
-            cuda_build.ptr(stats), cuda_build.ptr(out), s, f, h, w, k, co,
-            float(eps), cuda_build.stream_of(c1a))
-    cuda_build.check_launch(lib, err, "fuse_pair_conv2")
-    cuda_build.LAUNCHES["fuse_pair_conv2"] += 1
-    return out
+
+    def launch(phases: int = (1 << len(PHASES)) - 1) -> None:
+        with torch.cuda.device(c1a.device):
+            err = lib.tsnet_fuse_pair_conv2(
+                cuda_build.ptr(c1a), cuda_build.ptr(c1t), cuda_build.ptr(wr),
+                cuda_build.ptr(stats), cuda_build.ptr(out), s, f, h, w, k,
+                co, float(eps), phases, cuda_build.stream_of(c1a))
+        cuda_build.check_launch(lib, err, "fuse_pair_conv2")
+
+    return launch, out
 
 
 def _library() -> ctypes.CDLL:
@@ -117,6 +131,6 @@ def _library() -> ctypes.CDLL:
     fn = lib.tsnet_fuse_pair_conv2
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib

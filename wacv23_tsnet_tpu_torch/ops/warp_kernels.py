@@ -22,10 +22,12 @@ tensors. A CUDA tensor launches the kernel or raises; nothing falls back.
 The kernels take the L2-normalised source features that the callers
 already compute (the TPU mean kernel renormalises `src_fea` itself); the
 plain versions take the same inputs and compute the same function. The
-logits and the flow run in fp32 in every tier (never TF32 or bf16), and
-the warp is an exact fp32 4-tap gather in every tier, so `fast_warp`
-(a one-pass bf16 tent matmul on the TPU) and `bwd_fast3` (bf16x3 backward
-matmuls on the TPU) are accepted and change nothing.
+logits and the flow run in fp32 in every tier (never TF32 or bf16), the
+warp is an exact fp32 4-tap gather in every tier, and the backward's two
+other products (gtn, gsn) are 3xTF32 tensor-core products, about fp32
+accuracy, in every tier; so `fast_warp` (a one-pass bf16 tent matmul on
+the TPU) and `bwd_fast3` (bf16x3 backward matmuls on the TPU) are
+accepted and change nothing.
 """
 
 from __future__ import annotations
@@ -238,6 +240,12 @@ def transform_warp_pairs_fwd(src_fea, tar_fea_n, src_fea_n, tar_mask,
     return out, flow, lse
 
 
+# K4's launches, by the bit that selects each (csrc/transform_warp_bwd.cu)
+BWD_PHASES = ("warp_bwd", "logits", "gtn", "gsn", "reduce")
+_BWD_ALL = (1 << len(BWD_PHASES)) - 1
+_BWD_TM = 64   # target rows per logit block (TM of the logit tile)
+
+
 def transform_warp_pairs_bwd(src_fea, tar_fea_n, src_fea_n, tar_mask,
                              src_mask, grid, flow, lse, g_warped, g_flow,
                              h: int, w: int, temp: float = 100.0):
@@ -251,6 +259,23 @@ def transform_warp_pairs_bwd(src_fea, tar_fea_n, src_fea_n, tar_mask,
         return transform_warp_pairs_bwd_plain(
             src_fea, tar_fea_n, src_fea_n, tar_mask, src_mask, grid,
             g_warped, g_flow, h, w, temp)
+    launch, (da, gtn, gsn, gmt, gms, gg_part) = bwd_launcher(
+        src_fea, tar_fea_n, src_fea_n, tar_mask, src_mask, grid, flow, lse,
+        g_warped, g_flow, h, w, temp)
+    launch()
+    cuda_build.LAUNCHES["transform_warp_pairs_bwd"] += 1
+    return da, gtn, gsn, gmt, gms, gg_part.sum(dim=(0, 1))
+
+
+def bwd_launcher(src_fea, tar_fea_n, src_fea_n, tar_mask, src_mask, grid,
+                 flow, lse, g_warped, g_flow, h: int, w: int,
+                 temp: float = 100.0):
+    """K4's checks, outputs and scratch for these CUDA inputs, without a
+    launch: returns (launch, (da, gtn, gsn, gmt, gms, gg_part)), the
+    outputs filled once every launch has run (gg_part: ggrid's partial per
+    (group, source)). launch(phases) runs the launches whose bits `phases`
+    sets (bit i: BWD_PHASES[i]; all by default) and counts nothing, so a
+    caller may time them apart."""
     g, ns, nf, t, c = _pairs_shapes(src_fea, tar_fea_n, h, w)
     _check_cuda("transform_warp_bwd", {
         **_pairs_specs(src_fea, tar_fea_n, src_fea_n, tar_mask, src_mask,
@@ -259,6 +284,8 @@ def transform_warp_pairs_bwd(src_fea, tar_fea_n, src_fea_n, tar_mask,
         "g_warped": (g_warped, (g, ns, nf, t, c)),
         "g_flow": (g_flow, (g, ns, nf, t, 2))})
     kw = dict(dtype=torch.float32, device=src_fea.device)
+    tp = -(-t // 4) * 4                  # gL rows padded to 16 bytes
+    nrt = -(-t // _BWD_TM)
     gflow = torch.empty((g, ns, nf, t, 2), **kw)
     da = torch.zeros((g, ns, t, c), **kw)
     gtn = torch.empty((g, nf, t, c), **kw)
@@ -266,17 +293,25 @@ def transform_warp_pairs_bwd(src_fea, tar_fea_n, src_fea_n, tar_mask,
     gmt = torch.empty((g, nf, t), **kw)
     gms = torch.empty((g, ns, t), **kw)
     gg_part = torch.empty((g, ns, t, 2), **kw)
+    gl = torch.empty((g, ns, nf, t, tp), **kw)
+    glt = torch.empty((g, nf, ns, t, tp), **kw)
+    gmt_part = torch.empty((g, ns, nf, t), **kw)
+    col_part = torch.empty((g, ns, nf, nrt, t, 3), **kw)
     lib = _bwd_library()
     p = cuda_build.ptr
-    with torch.cuda.device(src_fea.device):
-        err = lib.tsnet_transform_warp_bwd(
-            p(src_fea), p(src_fea_n), p(src_mask), p(tar_fea_n), p(tar_mask),
-            p(grid), p(flow), p(lse), p(g_warped), p(g_flow), p(gflow),
-            p(da), p(gtn), p(gsn), p(gmt), p(gms), p(gg_part), g, ns, nf, t,
-            c, h, w, float(temp), cuda_build.stream_of(src_fea))
-    cuda_build.check_launch(lib, err, "transform_warp_bwd")
-    cuda_build.LAUNCHES["transform_warp_pairs_bwd"] += 1
-    return da, gtn, gsn, gmt, gms, gg_part.sum(dim=(0, 1))
+
+    def launch(phases: int = _BWD_ALL) -> None:
+        with torch.cuda.device(src_fea.device):
+            err = lib.tsnet_transform_warp_bwd(
+                p(src_fea), p(src_fea_n), p(src_mask), p(tar_fea_n),
+                p(tar_mask), p(grid), p(flow), p(lse), p(g_warped),
+                p(g_flow), p(gflow), p(da), p(gtn), p(gsn), p(gmt), p(gms),
+                p(gg_part), p(gl), p(glt), p(gmt_part), p(col_part), g, ns,
+                nf, t, c, h, w, float(temp), phases,
+                cuda_build.stream_of(src_fea))
+        cuda_build.check_launch(lib, err, "transform_warp_bwd")
+
+    return launch, (da, gtn, gsn, gmt, gms, gg_part)
 
 
 class _TransformWarpPairs(torch.autograd.Function):
@@ -317,8 +352,8 @@ def transform_warp_pairs(src_fea, tar_fea_n, src_fea_n, tar_mask, src_mask,
     Inputs as `transform_warp_pairs_plain`. CUDA tensors run K3-flow
     forward and K4 backward; CPU tensors the plain version under
     autograd. `fast_warp` and `bwd_fast3` are accepted for the JAX
-    package's signature and ignored: the port's warp and backward are
-    fp32 in every tier (see the module docstring).
+    package's signature and ignored: the port's warp and backward run at
+    one precision in every tier (see the module docstring).
     """
     del fast_warp, bwd_fast3
     if src_fea.device.type == "cpu":
@@ -345,7 +380,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib = cuda_build.load_library("transform_warp_bwd")
     fn = lib.tsnet_transform_warp_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
