@@ -8,13 +8,17 @@ non-zero, printing no result, where CUDA or the package is missing.
 
 1. Prints the card's name and power limit and the torch/CUDA versions.
 2. Builds every CUDA kernel from `wacv23_tsnet_tpu_torch/csrc/` (one nvcc
-   per source, all started together) and prints ptxas's resource lines.
+   per source, all started together) and prints ptxas's resource lines,
+   and the sha256 of K6's output bits on seeded inputs.
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (S=3 sources, T=32x32 pixels, C=512, F=32 frames;
-   K2 at (3, 32, 32, 32, 1024); K6 at S=3, F=32, 32x32, K=1024; K7 with
-   relu and with skip at (32, 32, 32, 512)), and times both with CUDA
-   events; for K6 and K7 also cuDNN's bf16 conv alone, as a yardstick,
-   and for K6 its two launches (statistics, conv) each alone.
+   K2 at (3, 32, 32, 32, 1024) and, past its cluster, (3, 8, 64, 64,
+   1024); K6 at S=3, F=32, 32x32, K=1024; K7 with relu and with skip at
+   (32, 32, 32, 512), and at the clip's B=64), and times both with CUDA
+   events; for K6 and K7 also cuDNN's bf16 conv alone, as a yardstick;
+   for K6 its two launches (statistics, conv) each alone, for K7 and K2
+   the launches of their two-pass paths each alone, and what one call
+   launches by CUDA kernel (a torch.profiler trace) with its cluster.
 4. Drives the main path at the full width of `face_config()` with seeded
    random weights, in both tiers (bit-parity; bench = "high" + fast_tail
    + fast_trunk): `tsnet_forward_clip` over a 64-frame clip and four
@@ -57,12 +61,25 @@ non-zero, printing no result, where CUDA or the package is missing.
    identity with `space_to_depth`; `F.instance_norm` as a yardstick).
 8. Prints one `kernels` JSON line, the card line again, and last
    `{"ok": true, "device": {...}}`.
+
+    python3 chip_smoke.py --parts
+
+prints only what one call of K7 and of K2 launches at the main paths'
+shapes, by CUDA kernel, and K6's output bits, and
+
+    python3 chip_smoke.py --requests
+
+only the median of ten 32-frame session requests in the bit-parity and
+bench tiers (the main run times one request, after its kernel checks);
+both through entry points that every version of the port has, so that
+loaded beside an earlier tree's package they read that tree the same way.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -195,11 +212,34 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def parts_ms(launch, phases) -> dict:
+def parts_ms(launch, phases, prefix: str = "") -> dict:
     """CUDA-event ms of each launch of one kernel call, run alone:
     launch(1 << i) runs the launch named phases[i]."""
-    return {name: time_ms(lambda i=i: launch(1 << i))
+    return {prefix + name: time_ms(lambda i=i: launch(1 << i))
             for i, name in enumerate(phases)}
+
+
+def device_parts(call, iters: int = 5) -> dict:
+    """What one call of `call` launches on the card, by CUDA kernel: the
+    device ms of one launch and the launches per call, from a
+    torch.profiler trace of `iters` calls (a trace may miss a launch's
+    record, so the ms are taken per launch traced)."""
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    parts = {}
+    for e in prof.key_averages():
+        if e.device_type == cuda and e.self_device_time_total > 0:
+            name = re.sub(r"\(anonymous namespace\)::|^void ", "",
+                          e.key).split("(")[0][:48]
+            parts[name] = {"ms": e.self_device_time_total / 1e3 / e.count,
+                           "launches": e.count / iters}
+    return parts
 
 
 def compare(got, want, tol) -> dict:
@@ -260,8 +300,6 @@ def kernel_checks(line: str) -> dict:
     in_bytes = 4 * (2 * s * t * c + f * t * c + s * t + f * t + 2 * t)
     warp_flops = s * f * t * (2 * t * c + 10 * t + 8 * c)
     x32 = (torch.randn(s, f, h, w, 2 * c, generator=g) * 2 + 1).to(dev)
-    in_elems = x32.numel()
-    in_flops = 7 * in_elems
 
     cases = {
         "transform_warp_pairs_mean": dict(
@@ -286,22 +324,15 @@ def kernel_checks(line: str) -> dict:
             replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:262",
             source="wacv23_tsnet_tpu_torch/csrc/transform_warp.cu"),
         "instance_norm_mean_f32": dict(
-            kernel=lambda: nk.instance_norm_mean(x32),
-            plain=lambda: nk.instance_norm_mean_plain(x32),
-            tol=IN_TOL["f32"], bytes=4 * in_elems + 4 * in_elems // s,
-            flops=in_flops, tier="bit-parity",
-            replaces="wacv23_tsnet_tpu/ops/pallas_norms.py:135",
-            source="wacv23_tsnet_tpu_torch/csrc/in_mean.cu"),
+            k2_case(x32, IN_TOL["f32"]), tier="bit-parity"),
     }
     x16 = x32.to(torch.bfloat16)
-    cases["instance_norm_mean_bf16"] = dict(
-        kernel=lambda: nk.instance_norm_mean(x16),
-        plain=lambda: nk.instance_norm_mean_plain(x16,
-                                                  out_dtype=torch.float32),
-        tol=IN_TOL["bf16"], bytes=2 * in_elems + 2 * in_elems // s,
-        flops=in_flops, tier="bench",
-        replaces="wacv23_tsnet_tpu/ops/pallas_norms.py:135",
-        source="wacv23_tsnet_tpu_torch/csrc/in_mean.cu")
+    cases["instance_norm_mean_bf16"] = dict(k2_case(x16, IN_TOL["bf16"]),
+                                            tier="bench")
+    # a 64 x 64 plane: 32 tiles, past the cluster (the two-pass path)
+    cases["instance_norm_mean_64x64_f32"] = k2_case(
+        (torch.randn(s, 8, 64, 64, 2 * c, generator=g) * 2 + 1).to(dev),
+        IN_TOL["f32"])
     cases.update(fused_tail_cases(g))
 
     results = {}
@@ -321,6 +352,10 @@ def kernel_checks(line: str) -> dict:
         if "parts" in case:  # the launches of one call, each timed alone
             res["parts_ms"] = case["parts"]()
             yardstick += f" parts_ms={json.dumps(res['parts_ms'])}"
+        if "profile" in case:  # what one call launches, by CUDA kernel
+            res["device_parts"] = device_parts(case["kernel"])
+            yardstick += (f" cluster={case['cluster']} device_parts="
+                          f"{json.dumps(res['device_parts'])}")
         if "conv_alone" in case:
             res["conv_alone_ms"] = time_ms(case["conv_alone"])
             yardstick += (f" conv_alone_ms={res['conv_alone_ms']:.4f} (cuDNN "
@@ -338,6 +373,47 @@ def kernel_checks(line: str) -> dict:
               f"{yardstick} | {line}", flush=True)
     torch.cuda.synchronize()
     return results
+
+
+def k2_case(x, tol) -> dict:
+    """K2 on x (S, F, H, W, C), against its plain version in fp32; its
+    two-pass path's launches timed apart (forced at any plane)."""
+    s, f, h, w, c = x.shape
+    nbytes = x.numel() * x.element_size()
+    return dict(
+        kernel=lambda: nk.instance_norm_mean(x),
+        plain=lambda: nk.instance_norm_mean_plain(x, out_dtype=torch.float32),
+        parts=lambda: parts_ms(nk.launcher(x, two_pass=True)[0], nk.PHASES,
+                               "two_pass_"),
+        profile=True, tol=tol, bytes=nbytes + nbytes // s,
+        flops=7 * x.numel(), launch="instance_norm_mean", tier=None,
+        cluster=(f"{nk.mean_tiles(h, w)} blocks"
+                 if nk.mean_tiles(h, w) <= nk.MAX_CLUSTER else "none (two-pass)"),
+        replaces="wacv23_tsnet_tpu/ops/pallas_norms.py:135",
+        source="wacv23_tsnet_tpu_torch/csrc/in_mean.cu")
+
+
+def k7_case(x, wc, skip, relu, g) -> dict:
+    """K7 on x (B, H, W, C) with weight wc (relu, or + skip), against its
+    plain version; its two-pass path's launches timed apart (forced at
+    any plane), cuDNN's conv alone as a yardstick."""
+    b, h, w, c = x.shape
+    co = wc.shape[0]
+    ins = 2 * x.numel() * (1 if skip is None else 2)
+    return dict(
+        kernel=lambda: ck.conv3x3_in(x, wc, skip=skip, relu=relu),
+        plain=lambda: ck.conv3x3_in_plain(x, wc, skip=skip, relu=relu),
+        parts=lambda: parts_ms(
+            ck.launcher(x, wc, skip=skip, relu=relu, two_pass=True)[0],
+            ck.PHASES, "two_pass_"),
+        profile=True, tol=TC_TOL, flops=2 * b * h * w * 9 * c * co,
+        peak=BF16_TC_FLOP_PER_S, bytes=ins + 2 * (wc.numel() + b * h * w * co),
+        conv_alone=conv_alone(b, c, co, h, w, g), launch="conv3x3_in",
+        tier=None,
+        cluster=(f"{ck.tiles(h, w)} blocks, "
+                 f"{ck.max_active_clusters(h, w, co)} clusters at once"),
+        replaces="wacv23_tsnet_tpu/ops/pallas_conv.py:122",
+        source="wacv23_tsnet_tpu_torch/csrc/conv3x3_in.cu")
 
 
 def conv_alone(b: int, c: int, co: int, h: int, w: int, g):
@@ -363,11 +439,7 @@ def fused_tail_cases(g) -> dict:
     x = torch.randn(b, h, w, c, generator=g).to(dev, torch.bfloat16)
     skip = torch.randn(b, h, w, c, generator=g).to(dev, torch.bfloat16)
     wc = (torch.randn(c, c, 3, 3, generator=g) * 0.02).to(dev)
-    k7_flops = 2 * b * n * 9 * c * c
-    k7 = dict(tol=TC_TOL, flops=k7_flops, peak=BF16_TC_FLOP_PER_S,
-              conv_alone=conv_alone(b, c, c, h, w, g), launch="conv3x3_in",
-              replaces="wacv23_tsnet_tpu/ops/pallas_conv.py:122",
-              source="wacv23_tsnet_tpu_torch/csrc/conv3x3_in.cu")
+    x64 = torch.randn(2 * b, h, w, c, generator=g).to(dev, torch.bfloat16)
     return {
         "fuse_pair_conv2": dict(
             kernel=lambda: fk.fuse_pair_conv2(c1a, c1t, w2),
@@ -381,14 +453,10 @@ def fused_tail_cases(g) -> dict:
             launch="fuse_pair_conv2",
             replaces="wacv23_tsnet_tpu/ops/pallas_fuse.py:124",
             source="wacv23_tsnet_tpu_torch/csrc/fuse_pair_conv2.cu"),
-        "conv3x3_in": dict(
-            k7, kernel=lambda: ck.conv3x3_in(x, wc, relu=True),
-            plain=lambda: ck.conv3x3_in_plain(x, wc, relu=True),
-            bytes=2 * (2 * x.numel() + wc.numel()), tier=FUSED_TIER),
-        "conv3x3_in_skip": dict(
-            k7, kernel=lambda: ck.conv3x3_in(x, wc, skip=skip, relu=False),
-            plain=lambda: ck.conv3x3_in_plain(x, wc, skip=skip, relu=False),
-            bytes=2 * (3 * x.numel() + wc.numel()), tier=None),
+        "conv3x3_in": dict(k7_case(x, wc, None, True, g), tier=FUSED_TIER),
+        "conv3x3_in_skip": k7_case(x, wc, skip, False, g),
+        # a 64-frame clip's decoder blocks
+        "conv3x3_in_b64": k7_case(x64, wc, None, True, g),
     }
 
 
@@ -1204,6 +1272,85 @@ def norm_phase(line: str) -> dict:
     return row
 
 
+def k6_bits(s: int, f: int, hw: int, k: int, co: int, seed: int) -> str:
+    """sha256 of K6's output bits on inputs made from a numpy seed (the
+    weight scaled by 0.05); tests/test_torch_cuda.py pins the small case."""
+    rng = np.random.default_rng(seed)
+    c1a = torch.from_numpy(rng.standard_normal((s, hw, hw, k), np.float32))
+    c1t = torch.from_numpy(rng.standard_normal((f, hw, hw, k), np.float32))
+    w2 = torch.from_numpy(rng.standard_normal((co, k, 3, 3), np.float32))
+    out = fk.fuse_pair_conv2(c1a.to("cuda", torch.bfloat16),
+                             c1t.to("cuda", torch.bfloat16),
+                             (w2 * 0.05).to("cuda"))
+    return hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def parts_phase(line: str) -> None:
+    """`--parts`: what one call of K7 and of K2 launches at the main
+    paths' shapes, by CUDA kernel (device ms and launches per call), and
+    K6's output bits; only entry points that every version of the port
+    has, so that the same script reads an earlier tree's kernels."""
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    wc = (torch.randn(512, 512, 3, 3, generator=g) * 0.02).to(dev)
+    for b in (32, 64):
+        x = torch.randn(b, 32, 32, 512, generator=g).to(dev, torch.bfloat16)
+        for relu, skip in ((True, None), (False, x)):
+            parts = device_parts(lambda: ck.conv3x3_in(x, wc, skip=skip,
+                                                       relu=relu))
+            print(f"[parts] conv3x3_in B={b} {'relu' if relu else 'skip'}: "
+                  f"{json.dumps(parts)} | {line}", flush=True)
+    x = (torch.randn(3, 32, 32, 32, 1024, generator=g) * 2 + 1).to(dev)
+    for name, xx in (("f32", x), ("bf16", x.to(torch.bfloat16))):
+        parts = device_parts(lambda: nk.instance_norm_mean(xx))
+        print(f"[parts] instance_norm_mean_{name} (3, 32, 32, 32, 1024): "
+              f"{json.dumps(parts)} | {line}", flush=True)
+    print(f"[bits] fuse_pair_conv2 sha256: (2, 3, 12, 64 -> 72, seed 20) "
+          f"{k6_bits(2, 3, 12, 64, 72, 20)}; (3, 8, 32, 1024 -> 1024, seed "
+          f"21) {k6_bits(3, 8, 32, 1024, 1024, 21)}", flush=True)
+
+
+def requests_phase(line: str, repeats: int = 10) -> None:
+    """`--requests`: `repeats` 32-frame session requests (one
+    `RetargetSession.push_labels` each, host clock, frames copied back)
+    in the bit-parity and bench tiers, on fresh modules and before any
+    other phase; prints their median and all of them. Entry points every
+    version of the port has, as for `--parts`."""
+    base = face_config()
+    tiers = {"bit-parity": base,
+             "bench": dataclasses.replace(base, precision="high",
+                                          fast_tail=True, fast_trunk=True)}
+    rng = np.random.default_rng(0)
+    s, hw, nl = base.n_source, base.image_size, base.label_nc
+    dev = torch.device("cuda")
+    src = (torch.as_tensor(rng.random((s, hw, hw, 3), np.float32), device=dev),
+           torch.as_tensor(rng.integers(0, 2, (s, hw, hw, nl)).astype(
+               np.float32), device=dev),
+           torch.as_tensor(rng.integers(0, 2, (s, hw, hw)).astype(np.float32),
+                           device=dev))
+    lbl = torch.as_tensor(rng.integers(0, 2, (CHUNK, hw, hw, nl)).astype(
+        np.float32), device=dev)
+    box = torch.as_tensor(rng.integers(0, 2, (CHUNK, hw, hw)).astype(
+        np.float32), device=dev)
+    for tier, cfg in tiers.items():
+        mods = TSNetModules(cfg, device="cuda", seed=0)
+        sess = RetargetSession(mods, *src, chunk=CHUNK)
+        for _ in range(3):                           # warm-up (cuDNN plans)
+            sess.push_labels(lbl, box)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            sess.push_labels(lbl, box)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        print(f"[requests] {tier}: median {np.median(ms):.2f} ms of "
+              f"{repeats}: {json.dumps([round(m, 2) for m in ms])} | {line}",
+              flush=True)
+        del mods, sess
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -1214,6 +1361,12 @@ def main() -> int:
     print(f"[versions] python {sys.version.split()[0]} "
           f"torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
+    if sys.argv[1:] == ["--parts"]:
+        parts_phase(line)
+        return 0
+    if sys.argv[1:] == ["--requests"]:
+        requests_phase(line)
+        return 0
 
     t0 = time.perf_counter()
     per_source = cuda_build.build_all()
@@ -1232,6 +1385,12 @@ def main() -> int:
     print("[ptxas] K4 and K6 kernels: registers, shared memory and spills: "
           + json.dumps({name: ptxas_resources(name) for name in (
               "transform_warp_bwd", "fuse_pair_conv2")}), flush=True)
+    # K7's cluster and two-pass kernels, K2's tile and statistics kernels
+    print("[ptxas] K7 and K2 kernels: registers, shared memory and spills: "
+          + json.dumps({name: ptxas_resources(name) for name in (
+              "conv3x3_in", "in_mean")}), flush=True)
+    print(f"[bits] fuse_pair_conv2 sha256 (2, 3, 12, 64 -> 72, seed 20): "
+          f"{k6_bits(2, 3, 12, 64, 72, 20)}", flush=True)
 
     kernels = kernel_checks(line)
     train_kernels = train_kernel_checks(line)

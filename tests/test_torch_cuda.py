@@ -12,7 +12,11 @@ boundary), past the backward's 512-channel slab, and one full-width
 T = 1024, C = 512 case of each forward form; for the
 tensor-core convs K6 and K7, pixels past the 128-row tiles and channel
 counts that are not powers of two, and for K6 rows wider than its
-128-pixel tile, widths that do not divide it and the shortest reflect; for K5, T and S apart and off the
+128-pixel tile, widths that do not divide it and the shortest reflect;
+K7 at each cluster size on its path (1, 2, 4 and 8 tiles) and past it
+(the two-pass path), the two paths' bits, and K6's bits; K2 past its
+cluster, at ragged planes, on one-element loads and twice for the same
+bits; for K5, T and S apart and off the
 64-row tiles, real-valued masks; for K8, channel counts off the 16-byte
 chunks, views off a 16-byte boundary, more than one 256-chunk slab),
 and the train shape of the backward, with its own ragged edges and a
@@ -21,6 +25,7 @@ path's shapes.
 """
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import pytest
@@ -30,9 +35,10 @@ import torch.nn.functional as F
 from wacv23_tsnet_tpu_torch.configs import toy_config
 from wacv23_tsnet_tpu_torch.nn.blocks import conv2d
 from wacv23_tsnet_tpu_torch.ops import cuda_build
-from wacv23_tsnet_tpu_torch.ops.conv_kernels import (conv3x3_in,
+from wacv23_tsnet_tpu_torch.ops.conv_kernels import (MAX_CLUSTER, conv3x3_in,
                                                      conv3x3_in_plain,
-                                                     resblock_fused)
+                                                     launcher, resblock_fused,
+                                                     tiles)
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
 from wacv23_tsnet_tpu_torch.ops.flow_kernels import (
     masked_attention_flow, masked_attention_flow_fused)
@@ -40,7 +46,8 @@ from wacv23_tsnet_tpu_torch.ops.fuse_kernels import (fuse_pair_conv2,
                                                      fuse_pair_conv2_plain)
 from wacv23_tsnet_tpu_torch.ops.norm_kernels import (
     instance_norm_fused, instance_norm_fused_plain, instance_norm_mean,
-    instance_norm_mean_plain)
+    instance_norm_mean_plain, mean_tiles)
+from wacv23_tsnet_tpu_torch.ops.norm_kernels import launcher as norm_launcher
 from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
 from wacv23_tsnet_tpu_torch.ops.similarity import transformation_warp
 from wacv23_tsnet_tpu_torch.ops.warp import space_to_depth
@@ -52,6 +59,9 @@ from wacv23_tsnet_tpu_torch.ops.warp_kernels import (
     transform_warp_pairs_plain)
 
 pytestmark = pytest.mark.cuda
+
+# sha256 of K6's output bits in test_fuse_pair_conv2_bits_are_unchanged
+K6_SHA256 = "2217aaa72d6cb3bfd23154815262d7ad11def2cd23f1b913cc7520ba2473cbf6"
 
 
 def _assert_close(got, want, atol=1e-4):
@@ -152,12 +162,47 @@ def test_instance_norm_mean_degenerate_channel_is_finite(dev):
     assert torch.isfinite(instance_norm_mean(x.to(dev))).all()
 
 
-def test_instance_norm_mean_refuses_a_plane_past_shared_memory(dev):
-    """A 64x64 plane needs a 512 KB slab: the launch is refused with an
-    error, and the next launch still runs and reports its own status."""
-    with pytest.raises(RuntimeError, match="shared memory"):
-        instance_norm_mean(torch.randn(1, 1, 64, 64, 32, device=dev))
-    x = torch.randn(2, 2, 8, 8, 32, device=dev)
+def test_instance_norm_mean_takes_a_plane_past_the_cluster(dev):
+    """A 64x64 plane is 32 tiles, past the 8-block cluster: it takes the
+    two-pass path (statistics, then normalise and mean) and matches the
+    plain version, as the JAX entry point takes such a plane."""
+    assert mean_tiles(64, 64) == 32
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(3, 2, 64, 64, 40, generator=g) * 2 + 1).to(dev, dtype)
+        cuda_build.reset_launches()
+        got = instance_norm_mean(x)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["instance_norm_mean"] == 1
+        _assert_close(got, instance_norm_mean_plain(x, out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 5, 7, 40), (5, 2, 5, 7, 40),
+                                   (3, 2, 32, 32, 64), (2, 3, 4, 4, 5)],
+                         ids=["s1", "s5", "t8", "c5"])
+def test_instance_norm_mean_kernel_is_deterministic(dev, shape):
+    """Two calls give the same bits (the statistics are summed in a fixed
+    order over the cluster), on the 16-byte copies and, at C = 5, on the
+    one-element loads; the forced two-pass path, which sums in another
+    order, matches the plain version too."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x = (torch.randn(*shape, generator=g) * 2 + 1).to(dev)
+    for xx in (x, x.to(torch.bfloat16)):
+        got = instance_norm_mean(xx)
+        assert torch.equal(got, instance_norm_mean(xx))
+        launch, two = norm_launcher(xx, two_pass=True)
+        launch()
+        torch.cuda.synchronize()
+        want = instance_norm_mean_plain(xx, out_dtype=torch.float32)
+        _assert_close(got, want)
+        _assert_close(two, want)
+
+
+def test_instance_norm_mean_off_16_byte_boundary(dev):
+    """A view that does not start on a 16-byte boundary takes the
+    one-element loads."""
+    x = torch.randn(2 * 2 * 8 * 8 * 16 + 1, device=dev)[1:].reshape(
+        2, 2, 8, 8, 16)
     _assert_close(instance_norm_mean(x), instance_norm_mean_plain(x))
 
 
@@ -414,12 +459,17 @@ def test_fuse_pair_conv2_kernel(dev, shape):
 
 
 # (B, H, W, C, Co): one tile; ragged (6 x 10, 16 -> 48, as the JAX
-# package's rectangular test); 400 pixels over four tiles, 136 channels
-CONV_SHAPES = [(2, 8, 8, 32, 32), (1, 6, 10, 16, 48), (2, 20, 20, 136, 136)]
+# package's rectangular test); 400 pixels over four tiles (the last one
+# ragged), 136 channels; two tiles with C = 40 (a part slice) and Co = 48;
+# the decoder's plane, eight tiles (a full cluster), Co = 136; a 40 x 40
+# plane, 14 tiles past the cluster (the two-pass path)
+CONV_SHAPES = [(2, 8, 8, 32, 32), (1, 6, 10, 16, 48), (2, 20, 20, 136, 136),
+               (2, 16, 16, 40, 48), (2, 32, 32, 64, 136), (1, 40, 40, 40, 48)]
+CONV_IDS = ["small", "ragged", "wide", "c40", "t8", "two_pass"]
 
 
 @pytest.mark.parametrize("variant", ["relu", "skip", "plain_norm"])
-@pytest.mark.parametrize("shape", CONV_SHAPES, ids=["small", "ragged", "wide"])
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=CONV_IDS)
 def test_conv3x3_in_kernel(dev, shape, variant):
     b, h, w, c, co = shape
     gen = torch.Generator(device="cpu").manual_seed(10)
@@ -433,6 +483,40 @@ def test_conv3x3_in_kernel(dev, shape, variant):
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES["conv3x3_in"] == 1
     _assert_bf16_close(got, conv3x3_in_plain(x, wt, skip=skip, relu=relu))
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES[2:5], ids=CONV_IDS[2:5])
+def test_conv3x3_in_paths_give_the_same_bits(dev, shape):
+    """On the cluster path two calls give the same bits (no atomics), and
+    the two-pass path, which sums the tiles in the cluster's rank order,
+    gives those bits too."""
+    b, h, w, c, co = shape
+    assert tiles(h, w) <= MAX_CLUSTER
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    x = torch.randn(b, h, w, c, generator=gen).to(dev, torch.bfloat16)
+    wt = (torch.randn(co, c, 3, 3, generator=gen) * 0.1).to(dev)
+    skip = torch.randn(b, h, w, co, generator=gen).to(dev, torch.bfloat16)
+    for kw in (dict(relu=True), dict(skip=skip, relu=False)):
+        got = conv3x3_in(x, wt, **kw)
+        assert torch.equal(got, conv3x3_in(x, wt, **kw))
+        launch, two = launcher(x, wt, two_pass=True, **kw)
+        launch()
+        torch.cuda.synchronize()
+        assert torch.equal(two, got)
+
+
+def test_fuse_pair_conv2_bits_are_unchanged(dev):
+    """K6 on the shared igemm_sm90.cuh depth loop gives the bits it gave
+    before K7 came to share that loop (its sha256 on seeded inputs, as
+    `chip_smoke.py --parts` prints it)."""
+    rng = np.random.default_rng(20)
+    c1a = torch.from_numpy(rng.standard_normal((2, 12, 12, 64), np.float32))
+    c1t = torch.from_numpy(rng.standard_normal((3, 12, 12, 64), np.float32))
+    w2 = torch.from_numpy(rng.standard_normal((72, 64, 3, 3), np.float32))
+    out = fuse_pair_conv2(c1a.to(dev, torch.bfloat16),
+                          c1t.to(dev, torch.bfloat16), (w2 * 0.05).to(dev))
+    digest = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes())
+    assert digest.hexdigest() == K6_SHA256
 
 
 def test_resblock_fused_counts_two_launches(dev):

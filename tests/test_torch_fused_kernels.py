@@ -20,9 +20,10 @@ from wacv23_tsnet_tpu.ops.pallas_conv import conv3x3_in as j_conv3x3_in
 from wacv23_tsnet_tpu.ops.pallas_conv import resblock_fused as j_resblock
 from wacv23_tsnet_tpu.ops.pallas_fuse import fuse_pair_conv2 as j_fuse_pair
 from wacv23_tsnet_tpu_torch.ops import cuda_build
-from wacv23_tsnet_tpu_torch.ops.conv_kernels import (conv3x3_in,
+from wacv23_tsnet_tpu_torch.ops.conv_kernels import launcher as k7_launcher
+from wacv23_tsnet_tpu_torch.ops.conv_kernels import (cluster_size, conv3x3_in,
                                                      conv3x3_in_plain,
-                                                     resblock_fused)
+                                                     resblock_fused, tiles)
 from wacv23_tsnet_tpu_torch.ops.fuse_kernels import (fuse_pair_conv2,
                                                      fuse_pair_conv2_plain,
                                                      launcher)
@@ -195,6 +196,16 @@ REFUSALS = {
     "k7_skip_shape": (lambda: conv3x3_in(_meta(2, 4, 4, 16),
                                          _meta(16, 16, 3, 3),
                                          skip=_meta(2, 4, 4, 8)), "skip"),
+    # K7's launcher (its paths' launches, timed apart by chip_smoke.py)
+    # checks as the wrapper does, and takes no CPU tensor at all
+    "k7_launcher_cpu": (lambda: k7_launcher(
+        torch.zeros(2, 4, 4, 16, dtype=torch.bfloat16),
+        torch.zeros(16, 16, 3, 3)), "CUDA tensors"),
+    "k7_launcher_two_pass_meta": (lambda: k7_launcher(
+        _meta(2, 40, 40, 16), _meta(16, 16, 3, 3), two_pass=True),
+        "CUDA tensors"),
+    "k7_launcher_channels": (lambda: k7_launcher(
+        _meta(2, 4, 4, 12), _meta(12, 12, 3, 3)), "multiples of 8"),
 }
 
 
@@ -207,6 +218,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case):
     call, match = REFUSALS[case]
     with pytest.raises(ValueError, match=match):
         call()
+
+
+# (H, W) -> the tiles of 128 output pixels (TC = min(W, 128) columns by
+# 128 // TC rows) and K7's cluster (0: the two-pass path)
+K7_PLANES = {(32, 32): (8, 8), (8, 8): (1, 1), (16, 16): (2, 2),
+             (20, 20): (4, 4), (6, 10): (1, 1), (3, 160): (6, 6),
+             (40, 40): (14, 0), (64, 64): (32, 0)}
+
+
+@pytest.mark.parametrize("plane", list(K7_PLANES), ids=str)
+def test_conv3x3_in_path_follows_the_plane(plane):
+    """A plane of at most 8 tiles takes the one-launch cluster path with
+    a cluster of its tiles (the decoder's 32x32: 8); a larger one the
+    two-pass path."""
+    assert (tiles(*plane), cluster_size(*plane)) == K7_PLANES[plane]
 
 
 def test_gemm_weight_repacks_once_and_follows_in_place_changes():

@@ -22,7 +22,10 @@ from wacv23_tsnet_tpu.ops.similarity import (
     transformation_warp_clip as j_warp_clip,
     transformation_warp_clip_mean as j_warp_clip_mean)
 from wacv23_tsnet_tpu_torch.ops import cuda_build, warp_kernels
-from wacv23_tsnet_tpu_torch.ops.norm_kernels import instance_norm_mean
+from wacv23_tsnet_tpu_torch.ops.norm_kernels import (instance_norm_mean,
+                                                     launcher,
+                                                     mean_cluster_size,
+                                                     mean_tiles)
 from wacv23_tsnet_tpu_torch.ops.similarity import (
     transformation_warp_clip, transformation_warp_clip_mean)
 
@@ -155,3 +158,28 @@ def test_wrappers_refuse_other_devices():
             torch.empty(s, t, **meta), torch.empty(t, 2, **meta), 4, 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         instance_norm_mean(torch.empty(s, f, 4, 4, c, **meta))
+
+
+# (H, W) -> K2's tiles of 128 pixels and its cluster (0: the two-pass path)
+K2_PLANES = {(32, 32): (8, 8), (5, 7): (1, 1), (16, 16): (2, 2),
+             (8, 128): (8, 8), (33, 32): (9, 0), (64, 64): (32, 0)}
+
+
+@pytest.mark.parametrize("plane", list(K2_PLANES), ids=str)
+def test_instance_norm_mean_path_follows_the_plane(plane):
+    """A plane of at most 8 tiles of 128 pixels takes the one-launch
+    cluster path (x read once) with a cluster of its tiles (FuseNet's
+    32x32: 8); a larger one the two-pass path, so no plane is refused."""
+    assert (mean_tiles(*plane), mean_cluster_size(*plane)) == K2_PLANES[plane]
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("two_pass", [None, True], ids=["auto", "two_pass"])
+def test_instance_norm_mean_launcher_takes_only_cuda_tensors(device,
+                                                             two_pass):
+    """K2's launcher (its launches, timed apart by chip_smoke.py) refuses
+    a tensor off CUDA on either path; only the wrapper sends CPU tensors
+    to the plain version."""
+    x = torch.empty(3, 2, 4, 4, 8, device=device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        launcher(x, two_pass=two_pass)

@@ -57,7 +57,10 @@ def conv3x3_in(x: torch.Tensor, w: torch.Tensor, skip=None, relu: bool = True,
     """
     if x.device.type == "cpu":
         return conv3x3_in_plain(x, w, skip, relu, eps)
-    return _launch(x, w, skip, relu, eps)
+    launch, out = launcher(x, w, skip, relu, eps)
+    launch()
+    cuda_build.LAUNCHES["conv3x3_in"] += 1
+    return out
 
 
 def resblock_fused(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -98,7 +101,40 @@ def _check(x, w, skip) -> None:
                          f"of at least 2, got {h}x{wd}")
 
 
-def _launch(x, w, skip, relu, eps):
+# A block's tile: 128 output pixels of one plane, TC = min(W, 128) columns
+# by 128 // TC rows (csrc/igemm_sm90.cuh rect_of). A plane of at most
+# MAX_CLUSTER tiles takes the cluster path (one launch, the norm finished
+# inside a cluster of its tiles); a larger one the two-pass path.
+TILE = 128
+MAX_CLUSTER = 8
+
+# The two-pass path's launches, by the bit that selects each
+# (csrc/conv3x3_in.cu); the cluster path is one launch.
+PHASES = ("conv", "stats", "finish")
+
+
+def tiles(h: int, w: int) -> int:
+    """The tiles of an h x w plane."""
+    tc = min(w, TILE)
+    return -(-h // (TILE // tc)) * -(-w // tc)
+
+
+def cluster_size(h: int, w: int) -> int:
+    """The cluster of the cluster path for an h x w plane (its tiles), or
+    0 where the plane takes the two-pass path."""
+    n = tiles(h, w)
+    return n if n <= MAX_CLUSTER else 0
+
+
+def launcher(x, w, skip=None, relu: bool = True, eps: float = 1e-5,
+             two_pass=None):
+    """K7's checks, output and scratch for these CUDA inputs, without a
+    launch: returns (launch, out). The path follows from the plane
+    (`cluster_size`); `two_pass=True` takes the two-pass path for any
+    plane.
+    launch(phases) runs the two-pass path's launches whose bits `phases`
+    sets (bit i: PHASES[i]; all by default), and the cluster path's one
+    launch for any bits; it counts nothing. `conv3x3_in` is one launch()."""
     _check(x, w, skip)
     for t in (x, w) if skip is None else (x, w, skip):
         if t.device.type != "cuda" or t.device != x.device:
@@ -109,27 +145,51 @@ def _launch(x, w, skip, relu, eps):
                                                 else (skip,)))
     b, h, wd, c = x.shape
     co = w.shape[0]
+    n_tiles = tiles(h, wd)
+    if two_pass is None:
+        two_pass = cluster_size(h, wd) == 0
     wr = cuda_build.gemm_weight(w)
-    y = torch.empty((b, h, wd, co), dtype=torch.float32, device=x.device)
-    sums = torch.zeros((2, b, co), dtype=torch.float32, device=x.device)
     out = torch.empty((b, h, wd, co), dtype=torch.bfloat16, device=x.device)
+    scratch = (None, None, None)
+    if two_pass:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        scratch = (torch.empty((b, h, wd, co), **f32),       # pre-norm y
+                   torch.empty((b * n_tiles, 2, co), **f32),  # tile sums
+                   torch.empty((b, co, 2), **f32))            # mean, rstd
     lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.tsnet_conv3x3_in(
-            cuda_build.ptr(x), cuda_build.ptr(wr),
-            None if skip is None else cuda_build.ptr(skip),
-            cuda_build.ptr(y), cuda_build.ptr(sums), cuda_build.ptr(out),
-            b, h, wd, c, co, int(relu), float(eps), cuda_build.stream_of(x))
-    cuda_build.check_launch(lib, err, "conv3x3_in")
-    cuda_build.LAUNCHES["conv3x3_in"] += 1
-    return out
+    p = cuda_build.ptr
+
+    def launch(phases: int = (1 << len(PHASES)) - 1) -> None:
+        with torch.cuda.device(x.device):
+            err = lib.tsnet_conv3x3_in(
+                p(x), p(wr), None if skip is None else p(skip), p(out),
+                *(None if t is None else p(t) for t in scratch), b, h, wd, c,
+                co, int(relu), float(eps), int(two_pass), phases,
+                cuda_build.stream_of(x))
+        cuda_build.check_launch(lib, err, "conv3x3_in")
+
+    return launch, out
+
+
+def max_active_clusters(h: int, w: int, co: int) -> int:
+    """How many clusters of the cluster path for an h x w plane and co
+    output channels the current CUDA device runs at once."""
+    lib = _library()
+    n = ctypes.c_int(0)
+    cuda_build.check_launch(lib, lib.tsnet_conv3x3_in_max_clusters(
+        h, w, co, ctypes.byref(n)), "conv3x3_in occupancy")
+    return n.value
 
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load_library("conv3x3_in")
     fn = lib.tsnet_conv3x3_in
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        occ = lib.tsnet_conv3x3_in_max_clusters
+        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
     return lib

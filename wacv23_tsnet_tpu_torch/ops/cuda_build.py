@@ -149,14 +149,14 @@ def gemm_weight(w: torch.Tensor) -> torch.Tensor:
     version counter), so a module's weight is repacked once, not at every
     call.
     """
-    packed = w.detach().to(torch.bfloat16).permute(0, 2, 3, 1)
-    if w.is_inference():   # no version counter to key on
-        return packed.contiguous()
+    if not w.is_inference():   # else no version counter to key on
+        hit = _GEMM_WEIGHTS.get(id(w))
+        if hit is not None and hit[0]() is w and hit[1] == w._version:
+            return hit[2]
+    packed = w.detach().to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+    if w.is_inference():
+        return packed
     key = id(w)
-    hit = _GEMM_WEIGHTS.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == w._version:
-        return hit[2]
-    packed = packed.contiguous()
     ref = weakref.ref(w, lambda _, key=key: _GEMM_WEIGHTS.pop(key, None))
     _GEMM_WEIGHTS[key] = (ref, w._version, packed)
     return packed

@@ -83,7 +83,45 @@ class _InstanceNormMean(torch.autograd.Function):
         return gx, None, None
 
 
+# A K2 block's tile: 128 pixels of one frame and 64 channels. A plane of
+# at most MAX_CLUSTER tiles takes the cluster path (one launch, x read once);
+# a larger one the two-pass path (statistics, then normalise and mean).
+TILE = 128
+MAX_CLUSTER = 8
+
+# The two-pass path's launches, by the bit that selects each
+# (csrc/in_mean.cu); the cluster path is one launch.
+PHASES = ("stats", "mean")
+
+
+def mean_tiles(h: int, w: int) -> int:
+    """The tiles of an h x w plane."""
+    return -(-(h * w) // TILE)
+
+
+def mean_cluster_size(h: int, w: int) -> int:
+    """The cluster of K2's cluster path for an h x w plane (its tiles), or
+    0 where the plane takes the two-pass path."""
+    n = mean_tiles(h, w)
+    return n if n <= MAX_CLUSTER else 0
+
+
 def _launch(x: torch.Tensor, eps: float, out_dtype) -> torch.Tensor:
+    launch, out = launcher(x, eps, out_dtype)
+    launch()
+    cuda_build.LAUNCHES["instance_norm_mean"] += 1
+    return out
+
+
+def launcher(x: torch.Tensor, eps: float = 1e-5, out_dtype=None,
+             two_pass=None):
+    """K2's checks, output and scratch for this CUDA input, without a
+    launch: returns (launch, out). The path follows from the plane
+    (`mean_cluster_size`); `two_pass=True` takes the two-pass path for
+    any plane.
+    launch(phases) runs the two-pass path's launches whose bits `phases`
+    sets (bit i: PHASES[i]; both by default), and the cluster path's one
+    launch for any bits; it counts nothing."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm_mean kernel: x on {x.device}; it "
@@ -96,27 +134,33 @@ def _launch(x: torch.Tensor, eps: float, out_dtype) -> torch.Tensor:
         raise ValueError("instance_norm_mean kernel: x and out_dtype must be "
                          f"float32 or bfloat16, got {x.dtype} -> {out_dtype}")
     s, f, h, w, c = x.shape
+    if two_pass is None:
+        two_pass = mean_cluster_size(h, w) == 0
+    # 16-byte copies where C and the pointer allow them, else one element
+    vec = int(c % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0)
     out = torch.empty((f, h, w, c), dtype=out_dtype, device=x.device)
+    stats = (torch.empty((s, f, c, 2), dtype=torch.float32, device=x.device)
+             if two_pass else None)
     lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.tsnet_in_mean(
-            cuda_build.ptr(x), cuda_build.ptr(out), s, f, h * w, c,
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            float(eps), cuda_build.stream_of(x))
-    # a plane too large for the shared-memory slab is refused here
-    # (invalid argument from cudaFuncSetAttribute)
-    cuda_build.check_launch(
-        lib, err, f"instance_norm_mean (its fp32 slab of {h * w} pixels x "
-                  f"32 channels takes {h * w * 128} bytes of shared memory)")
-    cuda_build.LAUNCHES["instance_norm_mean"] += 1
-    return out
+
+    def launch(phases: int = (1 << len(PHASES)) - 1) -> None:
+        with torch.cuda.device(x.device):
+            err = lib.tsnet_in_mean(
+                cuda_build.ptr(x), cuda_build.ptr(out),
+                None if stats is None else cuda_build.ptr(stats), s, f, h * w,
+                c, int(x.dtype == torch.bfloat16),
+                int(out_dtype == torch.bfloat16), vec, int(two_pass), phases,
+                float(eps), cuda_build.stream_of(x))
+        cuda_build.check_launch(lib, err, "instance_norm_mean")
+
+    return launch, out
 
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load_library("in_mean")
     fn = lib.tsnet_in_mean
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
