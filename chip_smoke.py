@@ -57,15 +57,19 @@ non-zero, printing no result, where CUDA or the package is missing.
    input gradients under a fixed flow cotangent; SDPA on the mask-folded
    inputs as a yardstick), and K8 `instance_norm_fused` at
    (32, 256, 256, 64) and, with `phase_groups=4`, (32, 128, 128, 256), in
-   bf16 and f32, relu on and off (against its plain version; the phase
-   identity with `space_to_depth`; `F.instance_norm` as a yardstick).
+   bf16 and f32, relu on and off (the path its planner chose and its
+   cluster; against its plain version, and so is its three-launch path,
+   forced, with its launches timed apart; the phase identity with
+   `space_to_depth`; `F.instance_norm` on the NCHW or the (B, C/G, N*G)
+   view as a yardstick).
 8. Prints one `kernels` JSON line, the card line again, and last
    `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --parts
 
 prints only what one call of K7 and of K2 launches at the main paths'
-shapes, by CUDA kernel, and K6's output bits, and
+shapes and of K8 at its two standalone shapes, by CUDA kernel, and K6's
+output bits, and
 
     python3 chip_smoke.py --requests
 
@@ -1204,54 +1208,91 @@ def flow_phase(line: str) -> dict:
     return res
 
 
-def norm_phase(line: str) -> dict:
+def norm_phase(line: str) -> tuple[dict, dict]:
     """K8 `instance_norm_fused` at the decoder's last up stage of one
     32-frame request, (32, 256, 256, 64), and its phase layout
     (32, 128, 128, 256) with phase_groups=4; bf16 and f32, relu on and
-    off; against the plain version in fp32 (before its one rounding), the
-    phase identity, and times beside `F.instance_norm`."""
+    off; the path the planner chose (its cluster, and how many such
+    clusters run at once) against the plain version in fp32 (before its
+    one rounding), the forced three-launch path the same way with its
+    launches timed apart, what one call launches by CUDA kernel, the phase
+    identity, and times beside `F.instance_norm` (on the NCHW view, or
+    with phase groups on the (B, C/G, N*G) view). Returns the kernels
+    line's rows: the bf16 case of each shape."""
     name = "instance_norm_fused"
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases, launches = {}, 0
     for groups, shape in K8_SHAPES.items():
+        b, h, w, c = shape
         x32 = torch.randn(shape, generator=gen, device="cuda") * 2 + 1
         for dtype, x in (("bf16", x32.to(torch.bfloat16)), ("f32", x32)):
+            plan = nk.fused_plan(h * w, c, groups, x.element_size(),
+                                 x.data_ptr() % 16 == 0)
+            where = plan.path
+            if plan.path == "cluster":
+                where += (f" of {plan.cluster} blocks x {plan.rows_per_block}"
+                          f" pixels, slab {plan.slab} channels, "
+                          f"{plan.smem_bytes} B shared a block, "
+                          f"{nk.fused_max_clusters(plan, x.dtype)} clusters "
+                          "at once")
+            # the library's one call: relu off, the groups pooled by a view
+            lib_view = (x.permute(0, 3, 1, 2) if groups == 1 else
+                        x.view(b, h * w * groups, c // groups).transpose(1, 2))
             for relu in (False, True):
-                out = one_launch(name, lambda: nk.instance_norm_fused(
-                    x, relu=relu, phase_groups=groups))
+                def kernel():
+                    return nk.instance_norm_fused(x, relu=relu,
+                                                  phase_groups=groups)
+                out = one_launch(name, kernel)
                 launches += 1
                 check(out.dtype == x.dtype and out.shape == x.shape,
                       f"{name}: output {out.dtype} {tuple(out.shape)}")
-                res = compare(out, nk.instance_norm_fused_plain(
+                want = nk.instance_norm_fused_plain(
                     x, relu=relu, phase_groups=groups,
-                    out_dtype=torch.float32), IN_TOL[dtype])
+                    out_dtype=torch.float32)
+                res = compare(out, want, IN_TOL[dtype])
                 del out
+                key = f"{name}_g{groups}_{dtype}" + ("_relu" if relu else "")
                 check(res["worst_err_over_tol"] <= 1.0,
-                      f"{name} {shape} groups {groups} {dtype} relu {relu} "
-                      f"disagrees with its plain version: {res}")
-                res["ms"] = time_ms(lambda: nk.instance_norm_fused(
-                    x, relu=relu, phase_groups=groups))
+                      f"{key} {shape} disagrees with its plain version: {res}")
+                # the three-launch path, forced, held the same way
+                launch3, out3 = nk.fused_launcher(
+                    x, relu=relu, phase_groups=groups, path="three_launch")
+                launch3()
+                torch.cuda.synchronize()
+                three = compare(out3, want, IN_TOL[dtype])
+                del out3, want
+                check(three["worst_err_over_tol"] <= 1.0,
+                      f"{key} {shape} three-launch path disagrees with the "
+                      f"plain version: {three}")
+                res["ms"] = time_ms(kernel)
                 res["plain_ms"] = time_ms(lambda: nk.instance_norm_fused_plain(
                     x, relu=relu, phase_groups=groups), iters=3)
-                res["library_ms"] = None
-                if groups == 1 and not relu:
-                    nchw = x.permute(0, 3, 1, 2)
-                    res["library_ms"] = time_ms(
-                        lambda: F.instance_norm(nchw, eps=1e-5))
+                res["three_launch_ms"] = time_ms(launch3)
+                res["parts_ms"] = parts_ms(launch3, nk.FUSED_PHASES,
+                                           "three_launch_")
+                res["device_parts"] = device_parts(kernel)
+                res["library_ms"] = None if relu else time_ms(
+                    lambda: F.instance_norm(lib_view, eps=1e-5))
                 res["bound_ms"], res["bound_by"] = bound(
                     2 * x.numel() * x.element_size(), 7 * x.numel())
-                key = f"{name}_g{groups}_{dtype}" + ("_relu" if relu else "")
                 cases[key] = res
-                library = ("none" if res["library_ms"] is None else
-                           f"{res['library_ms']:.4f} (F.instance_norm, NCHW "
-                           f"view)")
-                print(f"[kernel] {key} (K8, {shape}): max_abs_err="
+                library = ("none (relu)" if res["library_ms"] is None else
+                           f"{res['library_ms']:.4f} (F.instance_norm, "
+                           + ("NCHW view)" if groups == 1 else
+                              "(B, C/G, N*G) view)"))
+                print(f"[kernel] {key} (K8, {shape}, {where}): max_abs_err="
                       f"{res['max_abs_err']:.3e} mean_abs_err="
                       f"{res['mean_abs_err']:.3e} (atol, rtol)="
                       f"{IN_TOL[dtype]} kernel_ms={res['ms']:.4f} plain_ms="
                       f"{res['plain_ms']:.4f} library_ms={library} bound_ms="
-                      f"{res['bound_ms']:.4f} ({res['bound_by']}) | {line}",
-                      flush=True)
+                      f"{res['bound_ms']:.4f} ({res['bound_by']}) "
+                      f"bound_share={res['bound_ms'] / res['ms']:.4f} "
+                      f"device_parts={json.dumps(res['device_parts'])} | "
+                      f"{line}", flush=True)
+                print(f"[kernel] {key} three-launch path (forced): "
+                      f"max_abs_err={three['max_abs_err']:.3e} "
+                      f"ms={res['three_launch_ms']:.4f} parts_ms="
+                      f"{json.dumps(res['parts_ms'])} | {line}", flush=True)
         if groups == 1:
             # the phase layout of x normalises as x does
             phase = nk.instance_norm_fused(space_to_depth(x32, 2),
@@ -1263,13 +1304,17 @@ def norm_phase(line: str) -> dict:
             check(ident["worst_err_over_tol"] <= 1.0,
                   f"{name}: phase layout vs interleaved: {ident}")
             del phase
-        del x32, x
+        del x32, x, lib_view
         torch.cuda.empty_cache()
-    # the kernels line's row: the case with a library yardstick
-    row = dict(cases[f"{name}_g1_bf16"], launches=launches, tier=STANDALONE,
-               replaces="wacv23_tsnet_tpu/ops/pallas_norms.py:206",
-               source="wacv23_tsnet_tpu_torch/csrc/in_fused.cu")
-    return row
+    # the kernels line's rows: the bf16 case of each shape (phase_groups=4
+    # ran furthest from its bound on the three-launch path)
+    rows = tuple(dict(cases[f"{name}_g{g}_bf16"], tier=STANDALONE,
+                      launch=name,
+                      replaces="wacv23_tsnet_tpu/ops/pallas_norms.py:206",
+                      source="wacv23_tsnet_tpu_torch/csrc/in_fused.cu")
+                 for g in K8_SHAPES)
+    rows[0]["launches"] = launches
+    return rows
 
 
 def k6_bits(s: int, f: int, hw: int, k: int, co: int, seed: int) -> str:
@@ -1288,9 +1333,11 @@ def k6_bits(s: int, f: int, hw: int, k: int, co: int, seed: int) -> str:
 
 def parts_phase(line: str) -> None:
     """`--parts`: what one call of K7 and of K2 launches at the main
-    paths' shapes, by CUDA kernel (device ms and launches per call), and
-    K6's output bits; only entry points that every version of the port
-    has, so that the same script reads an earlier tree's kernels."""
+    paths' shapes, and of K8 at K8_SHAPES (bf16 and f32, also its ms by
+    CUDA events), by CUDA kernel (device ms and launches per call), and
+    K6's output bits; only entry
+    points that every version of the port has, so that the same script
+    reads an earlier tree's kernels."""
     g = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
     wc = (torch.randn(512, 512, 3, 3, generator=g) * 0.02).to(dev)
@@ -1306,6 +1353,17 @@ def parts_phase(line: str) -> None:
         parts = device_parts(lambda: nk.instance_norm_mean(xx))
         print(f"[parts] instance_norm_mean_{name} (3, 32, 32, 32, 1024): "
               f"{json.dumps(parts)} | {line}", flush=True)
+    for groups, shape in K8_SHAPES.items():
+        x = (torch.randn(shape, generator=g) * 2 + 1).to(dev)
+        for name, xx in (("bf16", x.to(torch.bfloat16)), ("f32", x)):
+            def call():
+                return nk.instance_norm_fused(xx, phase_groups=groups)
+            parts = device_parts(call)
+            # and by CUDA events, as the standalone phase times it
+            print(f"[parts] instance_norm_fused_g{groups}_{name} {shape}: "
+                  f"{json.dumps(parts)} ms={time_ms(call):.4f} | {line}",
+                  flush=True)
+        del x, xx
     print(f"[bits] fuse_pair_conv2 sha256: (2, 3, 12, 64 -> 72, seed 20) "
           f"{k6_bits(2, 3, 12, 64, 72, 20)}; (3, 8, 32, 1024 -> 1024, seed "
           f"21) {k6_bits(3, 8, 32, 1024, 1024, 21)}", flush=True)
@@ -1397,8 +1455,10 @@ def main() -> int:
     report = main_path(line)
     report["train"] = train_phase(line)
     t0 = time.perf_counter()
-    standalone = {"masked_attention_flow_fused": flow_phase(line),
-                  "instance_norm_fused": norm_phase(line)}
+    flow = flow_phase(line)
+    norm, norm_g4 = norm_phase(line)
+    standalone = {"masked_attention_flow_fused": flow,
+                  "instance_norm_fused": norm}
     print(f"[{STANDALONE}] K5 and K8 phase {time.perf_counter() - t0:.1f} s",
           flush=True)
     report[STANDALONE] = {"launches": {n: k.pop("launches")
@@ -1408,6 +1468,7 @@ def main() -> int:
     for name, k in train_kernels.items():
         kernels[name] = dict(k, tier="train")
     kernels.update(standalone)
+    kernels["instance_norm_fused_g4"] = norm_g4  # K8 at phase_groups=4
     for name, k in kernels.items():
         # K2 is one kernel: its row is the f32 form, on the bit-parity
         # clip path (the bf16 form is checked and printed above); K7's row

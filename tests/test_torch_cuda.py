@@ -18,7 +18,10 @@ K7 at each cluster size on its path (1, 2, 4 and 8 tiles) and past it
 cluster, at ragged planes, on one-element loads and twice for the same
 bits; for K5, T and S apart and off the
 64-row tiles, real-valued masks; for K8, channel counts off the 16-byte
-chunks, views off a 16-byte boundary, more than one 256-chunk slab),
+chunks, views off a 16-byte boundary, more than one 256-chunk slab, units
+that fill a cluster of 16 blocks, N ragged across a cluster's blocks and a
+unit past the cluster, on both its paths, its phase identity at 2 and 4
+groups, and its cluster path as one kernel that gives the same bits),
 and the train shape of the backward, with its own ragged edges and a
 check that two calls give the same bits; chip_smoke.py checks the main
 path's shapes.
@@ -45,8 +48,8 @@ from wacv23_tsnet_tpu_torch.ops.flow_kernels import (
 from wacv23_tsnet_tpu_torch.ops.fuse_kernels import (fuse_pair_conv2,
                                                      fuse_pair_conv2_plain)
 from wacv23_tsnet_tpu_torch.ops.norm_kernels import (
-    instance_norm_fused, instance_norm_fused_plain, instance_norm_mean,
-    instance_norm_mean_plain, mean_tiles)
+    fused_launcher, fused_plan, instance_norm_fused, instance_norm_fused_plain,
+    instance_norm_mean, instance_norm_mean_plain, mean_tiles)
 from wacv23_tsnet_tpu_torch.ops.norm_kernels import launcher as norm_launcher
 from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
 from wacv23_tsnet_tpu_torch.ops.similarity import transformation_warp
@@ -665,30 +668,82 @@ def test_transformation_warp_kernel_path(dev):
 
 
 # (B, H, W, C, phase groups): one 16-byte chunk per 8 (bf16) or 4 (f32)
-# channels; H*W off 8 with 24 channels; 12 channels (bf16 one at a time);
-# 2056 channels (bf16: 257 chunks, two slabs)
+# channels; H*W off 8 with 24 channels; 12 channels (bf16 one at a time,
+# the three-launch path); 2056 channels (bf16: 257 chunks, two slabs of
+# the three-launch path); units that fill a cluster of 16 blocks (256 and
+# 64 pixels a block); N = 1000 ragged across 16 blocks of 63 pixels, with
+# C/G = 24 (bf16: 16-byte slabs); a sample of K8_SHAPES[1] in chip_smoke.py
+# (a thread's chunks past its registers, 208 KiB of shared memory a
+# block); a unit past 16 blocks (the three-launch path)
 NORM_SHAPES = [(2, 8, 8, 64, 1), (2, 8, 8, 64, 4), (1, 5, 7, 24, 4),
-               (2, 6, 10, 12, 1), (1, 9, 9, 2056, 4)]
+               (2, 6, 10, 12, 1), (1, 9, 9, 2056, 4), (2, 64, 64, 64, 1),
+               (2, 32, 32, 256, 4), (1, 25, 40, 48, 2), (1, 256, 256, 64, 1),
+               (1, 512, 512, 16, 1)]
+NORM_IDS = ["g1", "g4", "ragged", "narrow", "two_slabs", "cluster_g1",
+            "cluster_g4", "ragged_cluster", "full_plane", "past_cluster"]
 
 
+def _norm_input(dims, dtype, dev, seed=16):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(*dims, generator=gen) * 2 + 1).to(dev, dtype)
+
+
+@pytest.mark.parametrize("path", ["cluster", "three_launch"])
 @pytest.mark.parametrize("relu", [False, True], ids=["norm", "relu"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", NORM_SHAPES,
-                         ids=["g1", "g4", "ragged", "narrow", "two_slabs"])
-def test_instance_norm_fused_kernel(dev, shape, dtype, relu):
-    """K8 against its plain version in fp32 (before its one rounding),
-    one launch a call."""
+@pytest.mark.parametrize("shape", NORM_SHAPES, ids=NORM_IDS)
+def test_instance_norm_fused_kernel(dev, shape, dtype, relu, path):
+    """K8 on each path against its plain version in fp32 (before its one
+    rounding); the entry point takes the planner's path in one launch,
+    and a shape that no cluster covers is refused the cluster path."""
     *dims, groups = shape
-    gen = torch.Generator(device="cpu").manual_seed(16)
-    x = (torch.randn(*dims, generator=gen) * 2 + 1).to(dev, dtype)
+    b, h, w, c = dims
+    x = _norm_input(dims, dtype, dev)
+    plan = fused_plan(h * w, c, groups, x.element_size())
+    if path == "cluster" and plan.path != "cluster":
+        with pytest.raises(ValueError, match="no cluster covers"):
+            fused_launcher(x, relu=relu, phase_groups=groups, path=path)
+        return
+    want = instance_norm_fused_plain(x, relu=relu, phase_groups=groups,
+                                     out_dtype=torch.float32)
+    launch, got = fused_launcher(x, relu=relu, phase_groups=groups,
+                                 path=path)
     cuda_build.reset_launches()
-    got = instance_norm_fused(x, relu=relu, phase_groups=groups)
+    launch()
     torch.cuda.synchronize()
-    assert cuda_build.LAUNCHES["instance_norm_fused"] == 1
-    assert sum(cuda_build.LAUNCHES.values()) == 1
+    assert sum(cuda_build.LAUNCHES.values()) == 0
+    _assert_close(got, want)
+    if path == plan.path:
+        got = instance_norm_fused(x, relu=relu, phase_groups=groups)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["instance_norm_fused"] == 1
+        assert sum(cuda_build.LAUNCHES.values()) == 1
     assert got.dtype == dtype and got.shape == x.shape
-    _assert_close(got, instance_norm_fused_plain(
-        x, relu=relu, phase_groups=groups, out_dtype=torch.float32))
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 256, 4), (1, 25, 40, 48, 2)],
+                         ids=["cluster_g4", "ragged_cluster"])
+def test_instance_norm_fused_cluster_path_is_one_kernel(dev, shape):
+    """The cluster path is one CUDA kernel a call (a profiler trace of
+    the device), and two calls give the same bits: the statistics are
+    summed in a fixed order over the cluster, with no atomics."""
+    *dims, groups = shape
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _norm_input(dims, dtype, dev, seed=17)
+        assert fused_plan(dims[1] * dims[2], dims[3], groups,
+                          x.element_size()).path == "cluster"
+        first = instance_norm_fused(x, relu=True, phase_groups=groups)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            again = instance_norm_fused(x, relu=True, phase_groups=groups)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert [e.count for e in kernels] == [1], [e.key for e in kernels]
+        assert "in_fused_cluster_kernel" in kernels[0].key
+        assert torch.equal(first, again)
 
 
 def test_instance_norm_fused_off_16_byte_boundary(dev):
@@ -702,10 +757,24 @@ def test_instance_norm_fused_off_16_byte_boundary(dev):
                                             out_dtype=torch.float32))
 
 
-def test_instance_norm_fused_phase_identity(dev):
+def _phase_fold(x, groups):
+    """x (B, H, W, C) in a layout of `groups` phase groups: the 2x2 phases
+    of `space_to_depth` (4), or the column parities (2)."""
+    if groups == 4:
+        return space_to_depth(x, 2)
+    b, h, w, c = x.shape
+    return x.reshape(b, h, w // 2, 2 * c)
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+def test_instance_norm_fused_phase_identity(dev, groups):
+    """The phase layout of x normalises as x does, on the cluster path."""
     x = torch.randn(2, 16, 12, 32, device=dev) * 3 - 1
-    _assert_close(instance_norm_fused(space_to_depth(x, 2), phase_groups=4),
-                  space_to_depth(instance_norm_fused(x), 2))
+    folded = _phase_fold(x, groups)
+    assert fused_plan(folded.shape[1] * folded.shape[2], folded.shape[3],
+                      groups, 4).path == "cluster"
+    _assert_close(instance_norm_fused(folded, phase_groups=groups),
+                  _phase_fold(instance_norm_fused(x), groups))
 
 
 def test_instance_norm_fused_refuses_a_tensor_that_requires_grad(dev):

@@ -6,8 +6,12 @@ version; the JAX side runs its two Pallas kernels (`_stats_kernel`,
 `instance_norm_phase`) where H*W is not a multiple of 8. Also the port's
 `instance_norm_phase` against the JAX package's (`ops/upconv.py`), the
 phase identity with `ops/warp.py:space_to_depth`, the degenerate-channel
-case of tests/test_fuse_clip.py:49-61 and the wrapper's refusals. The
-CUDA kernel itself is held against the plain version on the GPU
+case of tests/test_fuse_clip.py:49-61 and the wrapper's refusals; the
+planner `fused_plan` (which path, slab, cluster, pixels a block and shared
+memory) at the standalone shapes and at shapes each path must take, a
+model of the cluster kernel's index map that covers every (sample,
+channel, pixel) exactly once, and `fused_launcher`'s refusals. The CUDA
+kernel itself is held against the plain version on the GPU
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -22,7 +26,13 @@ from wacv23_tsnet_tpu.ops.pallas_norms import \
     instance_norm_fused as j_in_fused
 from wacv23_tsnet_tpu.ops.upconv import instance_norm_phase as j_in_phase
 from wacv23_tsnet_tpu_torch.ops import cuda_build
-from wacv23_tsnet_tpu_torch.ops.norm_kernels import (instance_norm_fused,
+from wacv23_tsnet_tpu_torch.ops.norm_kernels import (FUSED_PATHS,
+                                                     FUSED_THREADS,
+                                                     MAX_FUSED_CLUSTER,
+                                                     REG_CHUNKS,
+                                                     fused_launcher,
+                                                     fused_plan,
+                                                     instance_norm_fused,
                                                      instance_norm_fused_plain)
 from wacv23_tsnet_tpu_torch.ops.norms import (instance_norm,
                                               instance_norm_phase)
@@ -169,3 +179,125 @@ def test_in_fused_grad_refusal_follows_grad_mode():
     x = _meta(2, 4, 4, 16, dtype=torch.float32, grad=True)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
         instance_norm_fused(x)
+
+
+# the H100's shared memory a block can take (227 KB)
+SMEM_LIMIT = 232448
+# chip_smoke.py's K8_SHAPES: phase_groups -> (B, H, W, C)
+K8_SHAPES = {1: (32, 256, 256, 64), 4: (32, 128, 128, 256)}
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("groups", list(K8_SHAPES), ids=["g1", "g4"])
+def test_fused_plan_at_the_standalone_shapes(groups, itemsize):
+    """A slab is 64 bytes of channels a group, so a unit (sample, slab)
+    is N * G * 64 bytes = 4 MiB at all four cases, spread over a cluster
+    of 16 blocks of 256 KiB each: 48 KiB in registers (12 chunks of 16
+    bytes a thread) and 208 KiB of shared memory."""
+    b, h, w, c = K8_SHAPES[groups]
+    n = h * w
+    plan = fused_plan(n, c, groups, itemsize)
+    assert plan.path == "cluster"
+    assert plan.slab * itemsize == 64
+    assert n * groups * plan.slab * itemsize == 4 << 20
+    assert plan.cluster * plan.rows_per_block == n
+    in_registers = REG_CHUNKS * FUSED_THREADS * 16
+    assert (plan.smem_bytes + in_registers) * plan.cluster == 4 << 20
+    assert plan.smem_bytes == 208 << 10 <= SMEM_LIMIT
+    assert plan.cluster == MAX_FUSED_CLUSTER == 16
+
+
+# (n, C, G, itemsize, aligned) -> why the three-launch path takes it
+THREE_LAUNCH = {
+    "unit_past_cluster": (512 * 512, 16, 1, 2, True),
+    "chunk_off_group": (64, 12, 1, 2, True),
+    "f32_chunk_off_group": (64, 24, 4, 4, True),
+    "unaligned": (64, 64, 1, 4, False),
+    "slots_past_threads": (64, 2 * 2056, 257, 2, True),
+}
+
+
+@pytest.mark.parametrize("case", list(THREE_LAUNCH))
+def test_fused_plan_takes_three_launches_where_no_cluster_covers(case):
+    """A unit past 16 blocks' shared memory, C/G off the 16-byte chunks,
+    x off a 16-byte boundary, or more 16-byte slots a pixel than a block
+    has threads: the three-launch path, which takes any shape."""
+    n, c, groups, itemsize, aligned = THREE_LAUNCH[case]
+    assert fused_plan(n, c, groups, itemsize, aligned) == (
+        "three_launch", 0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("c,groups,itemsize,slab", [
+    (128, 2, 2, 32), (64, 4, 4, 16), (16, 1, 2, 16), (40, 1, 4, 8),
+    (48, 2, 2, 8), (24, 1, 2, 8), (12, 1, 4, 4), (40, 2, 4, 4)])
+def test_fused_plan_slab_follows_the_group_width(c, groups, itemsize, slab):
+    """A slab is 64 bytes of channels where C/G is a multiple of 64 bytes,
+    else 32, else 16 (C/G not a multiple of the 64-byte slab's channels),
+    on the cluster path."""
+    plan = fused_plan(1000, c, groups, itemsize)
+    assert (plan.path, plan.slab) == ("cluster", slab)
+
+
+def _cluster_cover(b, n, c, groups, itemsize):
+    """How often the cluster kernel (csrc/in_fused.cu) touches each
+    element of x (B, N, C), modelled block by block and thread by thread:
+    blockIdx = unit * cluster + rank, unit = sample * slabs + slab; block
+    `rank` takes pixels [rank * rows, (rank + 1) * rows); thread t takes
+    slot t % S of every P-th pixel from rank * rows + t // S and keeps its
+    i-th chunk in a register below REG_CHUNKS, else at
+    held[(i - REG_CHUNKS) * THREADS + t]. Also returns the largest `held`
+    index used, in 16-byte chunks (-1: none)."""
+    plan = fused_plan(n, c, groups, itemsize)
+    assert plan.path == "cluster"
+    v = 16 // itemsize
+    cg = c // groups
+    slabs, hs = cg // plan.slab, plan.slab // v
+    slots = groups * hs
+    lanes = FUSED_THREADS // slots
+    cover = np.zeros((b, n, c), np.int64)
+    top = -1
+    for block in range(b * slabs * plan.cluster):
+        unit, rank = divmod(block, plan.cluster)
+        sample, j = divmod(unit, slabs)
+        pend = min(n, (rank + 1) * plan.rows_per_block)
+        for t in range(FUSED_THREADS):
+            s, pl = t % slots, t // slots
+            g, h = divmod(s, hs)
+            p0 = rank * plan.rows_per_block + pl
+            if pl >= lanes or p0 >= pend:
+                continue
+            m = -(-(pend - p0) // lanes)
+            ch = g * cg + j * plan.slab + h * v
+            cover[sample, p0:pend:lanes, ch:ch + v] += 1
+            if m > REG_CHUNKS:
+                top = max(top, (m - 1 - REG_CHUNKS) * FUSED_THREADS + t)
+    return plan, cover, top
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 64, 64, 1, 4), (2, 1024, 256, 4, 2), (1, 1000, 48, 2, 2),
+    (1, 256, 96, 3, 4), (3, 561, 128, 2, 2), (2, 4096, 16, 1, 2),
+    (1, 16384, 64, 1, 2), (1, 4096, 128, 4, 4)],
+    ids=["g1_f32", "g4_bf16", "ragged", "g3", "odd_n", "whole_rows",
+         "past_registers", "past_registers_g4"])
+def test_cluster_map_covers_every_element_once(shape):
+    """Every (sample, channel, pixel) is in exactly one block's part and
+    one thread's chunks, and each block's chunks past the registers fit
+    its shared memory."""
+    b, n, c, groups, itemsize = shape
+    plan, cover, top = _cluster_cover(b, n, c, groups, itemsize)
+    assert (cover == 1).all()
+    assert (top + 1) * 16 <= plan.smem_bytes
+
+
+@pytest.mark.parametrize("path", [None, *FUSED_PATHS])
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_fused_launcher_takes_only_cuda_tensors(device, path):
+    """K8's launcher (its launches, timed apart by chip_smoke.py) refuses
+    a tensor off CUDA on either path; only the wrapper sends CPU tensors
+    to the plain version."""
+    x = torch.empty(2, 4, 4, 16, device=device)
+    cuda_build.reset_launches()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_launcher(x, relu=True, phase_groups=2, path=path)
+    assert set(cuda_build.LAUNCHES.values()) == {0}

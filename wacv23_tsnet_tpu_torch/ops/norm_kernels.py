@@ -6,11 +6,13 @@ Counterparts of the JAX package's `ops/pallas_norms.py`:
   each (s, f) plane averaged over S, without writing the per-pair
   normalised tensor; `csrc/in_mean.cu`.
 - `instance_norm_fused` (K8, the TPU's `_stats_kernel` and `_norm_kernel`
-  behind one entry point): the instance norm (+ relu) of an NHWC tensor
-  in two passes over it, statistics then normalise; with
-  `phase_groups=g` the statistics pool the g channel groups (the 2x2
-  phase layout of `ops/warp.py:space_to_depth` for g=4);
-  `csrc/in_fused.cu`. Inference only, as in the JAX package.
+  behind one entry point): the instance norm (+ relu) of an NHWC tensor;
+  with `phase_groups=g` the statistics pool the g channel groups (the
+  2x2 phase layout of `ops/warp.py:space_to_depth` for g=4);
+  `csrc/in_fused.cu`. One launch that reads x once where a thread-block
+  cluster holds a (sample, channel slab) unit (`fused_plan`), else three
+  (statistics, finalize, normalise). Inference only, as in the JAX
+  package.
 
 Each runs its CUDA source on CUDA tensors (see its header for the design
 and what bounds it) and its plain version on CPU tensors. A CUDA tensor
@@ -33,6 +35,8 @@ JAX entry has no composition of its own beside them.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -208,10 +212,77 @@ def instance_norm_fused(x: torch.Tensor, eps: float = 1e-5,
     if torch.is_grad_enabled() and x.requires_grad:
         raise ValueError("instance_norm_fused kernel: inference only (no "
                          "gradient, as in the JAX package); x requires grad")
+    launch, out = fused_launcher(x, eps, relu, phase_groups)
+    launch()
+    cuda_build.LAUNCHES["instance_norm_fused"] += 1
+    return out
+
+
+# K8's cluster path takes a unit of work, (sample, slab of SEGMENT bytes of
+# channels of each phase group, or 32 or 16 where C/G does not allow it)
+# over all N pixels, in a cluster of up to MAX_FUSED_CLUSTER blocks of at
+# least MIN_ROWS pixels each; a block holds its part of the unit in
+# 16-byte chunks, one slot of a pixel's chunks a thread, REG_CHUNKS of a
+# thread's chunks in registers and the rest in at most MAX_FUSED_SMEM
+# bytes of shared memory (csrc/in_fused.cu). What no such cluster covers
+# takes the three-launch path (statistics, finalize, normalise), which
+# reads x twice.
+SEGMENT = 64
+CHUNK = 16
+FUSED_THREADS = 256
+MAX_FUSED_CLUSTER = 16
+MIN_ROWS = 64
+MAX_FUSED_SMEM = 208 * 1024
+REG_CHUNKS = 12
+
+FUSED_PATHS = ("cluster", "three_launch")
+# The three-launch path's launches, by the bit that selects each
+# (csrc/in_fused.cu); the cluster path is one launch.
+FUSED_PHASES = ("stats", "finalize", "norm")
+
+
+class FusedPlan(NamedTuple):
+    """How K8 runs a call: its path, and on the cluster path the channels
+    of a slab, the blocks of a cluster, the pixels of a block and the
+    dynamic shared memory of a block (0 on the three-launch path)."""
+    path: str
+    slab: int
+    cluster: int
+    rows_per_block: int
+    smem_bytes: int
+
+
+def fused_plan(n: int, c: int, groups: int, itemsize: int,
+               aligned: bool = True) -> FusedPlan:
+    """K8's path for N = n pixels, C = c channels in `groups` phase groups
+    of `itemsize`-byte elements; `aligned`: x starts on a 16-byte
+    boundary. The cluster path needs C/G in whole 16-byte chunks and a
+    block's part within its registers and MAX_FUSED_SMEM."""
+    three = FusedPlan("three_launch", 0, 0, 0, 0)
+    cg = c // groups
+    vec = CHUNK // itemsize
+    if not aligned or cg % vec:
+        return three
+    slab = next(k for k in (SEGMENT // itemsize, 32 // itemsize, vec)
+                if cg % k == 0)
+    slots = groups * (slab // vec)       # 16-byte chunks of a pixel
+    if slots > FUSED_THREADS:
+        return three
+    lanes = FUSED_THREADS // slots       # pixels the block's threads take
+    cluster = min(MAX_FUSED_CLUSTER, -(-n // MIN_ROWS))
+    rows = -(-n // cluster)
+    cluster = -(-n // rows)
+    smem = max(0, -(-rows // lanes) - REG_CHUNKS) * FUSED_THREADS * CHUNK
+    if smem > MAX_FUSED_SMEM:
+        return three
+    return FusedPlan("cluster", slab, cluster, rows, smem)
+
+
+def _fused_check(x: torch.Tensor, phase_groups: int) -> None:
     if x.dim() != 4:
         raise ValueError("instance_norm_fused kernel: x must be (B, H, W, C), "
                          f"got {tuple(x.shape)}")
-    b, h, w, c = x.shape
+    c = x.shape[-1]
     if phase_groups < 1 or c % phase_groups:
         raise ValueError(f"instance_norm_fused kernel: C={c} is not a "
                          f"multiple of phase_groups={phase_groups}")
@@ -227,8 +298,42 @@ def instance_norm_fused(x: torch.Tensor, eps: float = 1e-5,
     if x.numel() == 0:
         raise ValueError("instance_norm_fused kernel: empty x "
                          f"{tuple(x.shape)}")
+
+
+def fused_launcher(x: torch.Tensor, eps: float = 1e-5, relu: bool = False,
+                   phase_groups: int = 1, path=None):
+    """K8's checks, plan, output and scratch for this CUDA input, without a
+    launch: returns (launch, out). The path follows from the shape
+    (`fused_plan`); `path` forces one of FUSED_PATHS.
+    launch(phases) runs the three-launch path's launches whose bits
+    `phases` sets (bit i: FUSED_PHASES[i]; all by default), and the
+    cluster path's one launch for any bits; it counts nothing."""
+    _fused_check(x, phase_groups)
+    b, h, w, c = x.shape
     n = h * w
+    plan = fused_plan(n, c, phase_groups, x.element_size(),
+                      x.data_ptr() % 16 == 0)
+    if path not in (None, *FUSED_PATHS):
+        raise ValueError(f"instance_norm_fused kernel: path {path!r} is not "
+                         f"one of {FUSED_PATHS}")
+    if path not in (None, plan.path, "three_launch"):
+        raise ValueError(f"instance_norm_fused kernel: no cluster covers "
+                         f"{tuple(x.shape)} {x.dtype} with phase_groups="
+                         f"{phase_groups}")
     out = torch.empty_like(x)
+    lib = _fused_library()
+    p = cuda_build.ptr
+    bf16 = int(x.dtype == torch.bfloat16)
+    if path != "three_launch" and plan.path == "cluster":
+        def launch(phases: int = (1 << len(FUSED_PHASES)) - 1) -> None:
+            with torch.cuda.device(x.device):
+                err = lib.tsnet_in_fused_cluster(
+                    p(x), p(out), b, n, c, phase_groups, plan.slab,
+                    plan.cluster, plan.rows_per_block, plan.smem_bytes, bf16,
+                    int(relu), float(eps), cuda_build.stream_of(x))
+            cuda_build.check_launch(lib, err, "instance_norm_fused")
+
+        return launch, out
     # 16-byte loads where C and the pointer allow them, else one channel
     vec = 16 // x.element_size()
     if c % vec or x.data_ptr() % 16:
@@ -241,24 +346,48 @@ def instance_norm_fused(x: torch.Tensor, eps: float = 1e-5,
     splits = max(1, min(-(-blocks // (b * slabs)), -(-n // 64)))
     f32 = dict(dtype=torch.float32, device=x.device)
     partial = torch.empty((b, splits, 2, c), **f32)
-    stats = torch.empty((b, 2, c), **f32)
+    stats = torch.empty((b, c, 2), **f32)
+
+    def launch(phases: int = (1 << len(FUSED_PHASES)) - 1) -> None:
+        with torch.cuda.device(x.device):
+            err = lib.tsnet_in_fused(
+                p(x), p(out), p(partial), p(stats), b, n, c, phase_groups,
+                splits, vec, bf16, int(relu), phases, float(eps),
+                cuda_build.stream_of(x))
+        cuda_build.check_launch(lib, err, "instance_norm_fused")
+
+    return launch, out
+
+
+def fused_max_clusters(plan: FusedPlan, dtype) -> int:
+    """How many clusters of `plan`'s cluster path for x of `dtype` the
+    current CUDA device runs at once."""
+    return _max_clusters(plan.cluster, plan.smem_bytes,
+                         dtype == torch.bfloat16, torch.cuda.current_device())
+
+
+@functools.cache
+def _max_clusters(cluster: int, smem: int, bf16: bool, device: int) -> int:
     lib = _fused_library()
-    p = cuda_build.ptr
-    with torch.cuda.device(x.device):
-        err = lib.tsnet_in_fused(
-            p(x), p(out), p(partial), p(stats), b, n, c, phase_groups, splits,
-            vec, int(x.dtype == torch.bfloat16), int(relu), float(eps),
-            cuda_build.stream_of(x))
-    cuda_build.check_launch(lib, err, "instance_norm_fused")
-    cuda_build.LAUNCHES["instance_norm_fused"] += 1
-    return out
+    n = ctypes.c_int(0)
+    cuda_build.check_launch(lib, lib.tsnet_in_fused_max_clusters(
+        cluster, smem, int(bf16), ctypes.byref(n)),
+        "instance_norm_fused occupancy")
+    return n.value
 
 
 def _fused_library() -> ctypes.CDLL:
     lib = cuda_build.load_library("in_fused")
     fn = lib.tsnet_in_fused
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        cl = lib.tsnet_in_fused_cluster
+        cl.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
+        cl.restype = ctypes.c_int
+        occ = lib.tsnet_in_fused_max_clusters
+        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
     return lib
