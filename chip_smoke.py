@@ -49,7 +49,29 @@ non-zero, printing no result, where CUDA or the package is missing.
    (one K3-flow, one K4 and one K2 a step; no inference kernel), with
    ms/step, samples/s, the CUDA-event stage split, peak memory and a
    profile; the metrics must stay finite and G_VGG must fall.
-7. Drives the two kernels that no model path reaches through their own
+7. Serves from a saved model (`[serve]`): the train state after those
+   steps saved as a trainer snapshot (flax msgpack, the JAX package's
+   format) and restored into a fresh state bit for bit (parameters, Adam
+   moments, step counts, step), the generator saved as a reference `.pth`
+   and loaded back bit for bit; the keypoint rasterizer on the card held
+   against its CPU run and timed a 32-frame chunk; then in the bench tier
+   (the CLI's defaults) and the bit-parity tier, the snapshot loaded by
+   `cli.demo_face.load_params` and served by `cli.serve.Server` on
+   127.0.0.1 from a thread: a session of 3 references, a 64-frame base64
+   keypoint request with the launch counts zeroed just before and read
+   just after (one K1 and one K2 a chunk in bench, one K3-nf and one K2
+   in bit-parity, nothing else), five timed 32-frame requests (client
+   wall and server ms, peak memory) and a 2-frame int-list request, all
+   within 1 LSB of an in-process `push_keypoints`, and the model-space
+   kernel path against the plain path (bit-parity <=1e-3 max abs, bench
+   <=0.01 mean L1). Two frames decoded alone against the same frames in
+   a 32-frame chunk, on the kernel path (held to the same limit) and on
+   the plain path (printed beside it). One 32-frame request split into
+   its stages, each timed alone (rasterize, extent bbox, decode, copy
+   back, RGB copy, base64, JSON both ways), and profiled: its CUDA
+   launches and the device's busy share. Files go to a temporary
+   directory in the checkout.
+8. Drives the two kernels that no model path reaches through their own
    entry points at full width, launch counts zeroed just before each call
    and read just after (exactly one launch a call): K5 through
    `transformation_warp(use_kernels=True)` at B=15, 32x32, C=512 (temps
@@ -62,7 +84,7 @@ non-zero, printing no result, where CUDA or the package is missing.
    forced, with its launches timed apart; the phase identity with
    `space_to_depth`; `F.instance_norm` on the NCHW or the (B, C/G, N*G)
    view as a yardstick).
-8. Prints one `kernels` JSON line, the card line again, and last
+9. Prints one `kernels` JSON line, the card line again, and last
    `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --parts
@@ -81,6 +103,7 @@ loaded beside an earlier tree's package they read that tree the same way.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
 import hashlib
@@ -89,7 +112,11 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
+from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -97,7 +124,12 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 from torch.profiler import ProfilerActivity, profile
 
+from wacv23_tsnet_tpu_torch.cli.demo_face import load_params
+from wacv23_tsnet_tpu_torch.cli.serve import Server, make_handler
+from wacv23_tsnet_tpu_torch.compat import (export_flax_params,
+                                           save_reference_checkpoint)
 from wacv23_tsnet_tpu_torch.configs import face_config
+from wacv23_tsnet_tpu_torch.data.rasterize_device import rasterize_face_clip
 from wacv23_tsnet_tpu_torch.infer import RetargetSession
 from wacv23_tsnet_tpu_torch.models import (TSNetModules, tsnet_forward,
                                            tsnet_forward_clip)
@@ -119,7 +151,10 @@ from wacv23_tsnet_tpu_torch.ops.similarity import (
     transformation_warp_clip_mean)
 from wacv23_tsnet_tpu_torch.ops.warp import space_to_depth
 from wacv23_tsnet_tpu_torch.train import (GEN_SUBNETS, create_train_state,
-                                          make_train_step)
+                                          find_latest_checkpoint,
+                                          make_train_step,
+                                          restore_checkpoint,
+                                          save_checkpoint)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -188,6 +223,12 @@ FLOW_GRAD_RTOL = 1e-6
 # phase layout (phase_groups=4)
 K8_SHAPES = {1: (32, 256, 256, 64), 4: (32, 128, 128, 256)}
 FORWARD_KEYS = ("src_img", "src_lbl", "src_bbox", "tar_lbl", "tar_bbox")
+# the serve phase: a 64-frame base64 request in two 32-frame chunks, then
+# SERVE_REPEATS timed 32-frame requests and a 2-frame int-list request
+SERVE_FRAMES = 64
+SERVE_REPEATS = 5
+SERVE_KERNELS = {"bench": "transform_warp_pairs_mean",
+                 "bit-parity": "transform_warp_pairs_nf"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -467,7 +508,8 @@ def fused_tail_cases(g) -> dict:
 def device_breakdown(forward, tier: str, top: int = 12) -> dict:
     """Device time of one call by kernel (torch.profiler/CUPTI): the time
     some kernel ran, its share of the same profiled call's host-clock
-    time, and the kernels that take the most."""
+    time, the CUDA launches (kernels, copies, fills), and the kernels
+    that take the most."""
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -480,9 +522,10 @@ def device_breakdown(forward, tier: str, top: int = 12) -> dict:
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     # busy time: the union of the kernels' intervals, so that kernels
     # that overlap (another stream) are not counted twice
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
     busy_us, last_end = 0.0, float("-inf")
-    for start, end in sorted((e.time_range.start, e.time_range.end)
-                             for e in prof.events() if e.device_type == cuda):
+    for start, end in spans:
         if end > last_end:
             busy_us += end - max(start, last_end)
             last_end = end
@@ -490,7 +533,8 @@ def device_breakdown(forward, tier: str, top: int = 12) -> dict:
         print(f"[profile] {tier}: {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:110]}")
     return {"device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / 1e6 / wall_s}
+            "device_busy_share": busy_us / 1e6 / wall_s,
+            "profiled_wall_ms": 1e3 * wall_s, "cuda_launches": len(spans)}
 
 
 def stage_ms(mods, src, tar_lbl, tar_bbox, fused: bool = False) -> dict:
@@ -953,8 +997,9 @@ def generator_vjp(state, batch: dict, rec_ct, use_kernels: bool) -> dict:
     return grads_of(state, GEN_SUBNETS)
 
 
-def train_phase(line: str) -> dict:
-    """The GAN train step at the full width of face_config(), batch 15."""
+def train_phase(line: str):
+    """The GAN train step at the full width of face_config(), batch 15.
+    Returns the report and the state after its steps."""
     cfg = face_config()
     torch.cuda.empty_cache()
     batch = train_batch(cfg, TRAIN_BATCH)
@@ -1099,7 +1144,315 @@ def train_phase(line: str) -> dict:
           flush=True)
     return {"launches": launches, "ms_per_step": ms,
             "samples_per_s": TRAIN_BATCH / ms * 1e3, "peak_mem_gb": peak_gb,
-            "stage_ms": split, **prof}
+            "stage_ms": split, **prof}, state
+
+
+def _http(url: str, payload: dict | None = None) -> dict:
+    """GET (no payload) or POST JSON to the local server; the reply's
+    JSON, which must come with status 200."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        check(resp.status == 200, f"serve: {url} answered {resp.status}")
+        return json.loads(resp.read())
+
+
+def _frames(body: dict) -> np.ndarray:
+    if "frames_b64" in body:
+        return np.frombuffer(base64.b64decode(body["frames_b64"]),
+                             np.uint8).reshape(body["shape"])
+    return np.asarray(body["frames"], np.uint8)
+
+
+def _train_state_equal(a, b) -> list[str]:
+    """Names of what differs between two TrainStates: every parameter
+    (generator, netD, VGG19), each Adam moment and per-parameter step,
+    and the step. A parameter without a gradient (FuseNet's conv2 bias)
+    has no torch Adam state in a trained state; restored, it holds optax's
+    count and zero moments."""
+    bad = [f"param {n}" for (n, p), (_, q) in zip(
+        list(a.mods.named_parameters()) + list(a.vgg.named_parameters()),
+        list(b.mods.named_parameters()) + list(b.vgg.named_parameters()))
+        if not torch.equal(p, q)]
+    for tag in ("gen_opt", "disc_opt"):
+        oa, ob = getattr(a, tag), getattr(b, tag)
+        for ga, gb in zip(oa.param_groups, ob.param_groups):
+            for i, (pa, pb) in enumerate(zip(ga["params"], gb["params"])):
+                sa, sb = oa.state.get(pa, {}), ob.state.get(pb, {})
+                if not sa:
+                    if any(sb[k].any() for k in ("exp_avg", "exp_avg_sq")):
+                        bad.append(f"{tag} {ga['name']}[{i}] moments")
+                    continue
+                bad += [f"{tag} {ga['name']}[{i}] {k}" for k in sa
+                        if not torch.equal(sa[k], sb[k])]
+    if a.step != b.step:
+        bad.append("step")
+    return bad
+
+
+def serve_phase(line: str, state) -> dict:
+    """Serving from a saved model, at the full width of face_config():
+    the train phase's state (20 Adam steps) saved as a trainer snapshot
+    and restored bit for bit; the generator saved as a reference `.pth`
+    and loaded bit for bit; then, per tier (bench = the CLI's defaults,
+    and bit-parity), the snapshot loaded onto the card by `load_params`
+    and served by `cli.serve.Server` on 127.0.0.1 from a thread: one
+    session, a 64-frame base64 keypoint request (launches counted: one
+    warp kernel and one K2 a chunk, nothing else), timed 32-frame
+    requests and a 2-frame int-list request, held against an in-process
+    `push_keypoints` (1 LSB) and the model-space kernel path against the
+    plain path (PERF.md §2's limits). The rasterizer on the card is held
+    against its CPU run and timed a 32-frame chunk."""
+    cfg = face_config()
+    hw = cfg.image_size
+    report = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_",
+                                     dir=root) as tmp:
+        snap = os.path.join(tmp, f"TSNet_S{state.step:06d}.msgpack")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(snap, state)
+        report["save_s"] = time.perf_counter() - t0
+        report["snapshot_bytes"] = os.path.getsize(snap)
+        check(find_latest_checkpoint(tmp) == snap, "serve: latest snapshot")
+        fresh = create_train_state(cfg, device="cuda", seed=1)
+        t0 = time.perf_counter()
+        restore_checkpoint(snap, fresh)
+        torch.cuda.synchronize()
+        report["restore_s"] = time.perf_counter() - t0
+        bad = _train_state_equal(state, fresh)
+        check(not bad, f"serve: restored state differs: {bad[:8]}")
+        del fresh
+
+        tree = export_flax_params(state.mods)
+        pth = os.path.join(tmp, "TSNet_generator.pth")
+        t0 = time.perf_counter()
+        save_reference_checkpoint(pth, {k: tree[k] for k in GEN_SUBNETS},
+                                  cfg, example=state.step)
+        report["pth_save_s"] = time.perf_counter() - t0
+        report["pth_bytes"] = os.path.getsize(pth)
+        t0 = time.perf_counter()
+        from_pth = load_params(pth, cfg, device="cuda")
+        report["pth_load_s"] = time.perf_counter() - t0
+        trained = dict(state.mods.named_parameters())
+        bad = [n for n, p in from_pth.named_parameters()
+               if not torch.equal(p, trained[n])]
+        check(not bad, f"serve: .pth generator differs: {bad[:8]}")
+        del from_pth, tree, trained
+        torch.cuda.empty_cache()
+        print(f"[serve] checkpoints: {json.dumps(report)} | {line}",
+              flush=True)
+
+        rng = np.random.default_rng(3)
+        s = cfg.n_source
+        payload = {"src_img": rng.integers(0, 256, (s, hw, hw, 3)).tolist(),
+                   "src_lbl": rng.integers(0, 2, (s, hw, hw)).tolist(),
+                   "src_bbox": rng.integers(0, 2, (s, hw, hw)).tolist()}
+        kp = rng.uniform(8, hw - 8, (SERVE_FRAMES, 68, 2)).astype(np.float32)
+
+        # the rasterizer on the card against its CPU run, and its time
+        kp_dev = torch.as_tensor(kp[:CHUNK], device="cuda")
+        ones = torch.ones(CHUNK, device="cuda")
+        lbl_dev = rasterize_face_clip(kp_dev, ones, hw, hw).cpu()
+        lbl_cpu = rasterize_face_clip(torch.as_tensor(kp[:CHUNK]),
+                                      torch.ones(CHUNK), hw, hw)
+        differing = int((lbl_dev != lbl_cpu).sum())
+        report["rasterizer"] = {
+            "pixels_differing_from_cpu": differing,
+            "agreement": 1.0 - differing / lbl_cpu.numel(),
+            "ms_per_chunk": time_ms(lambda: rasterize_face_clip(
+                kp_dev, ones, hw, hw), iters=5)}
+        print(f"[serve] rasterizer, {CHUNK} frames at {hw}^2: "
+              f"{json.dumps(report['rasterizer'])} | {line}", flush=True)
+        check(report["rasterizer"]["agreement"] >= 0.9999,
+              "serve: rasterizer on the card vs its CPU run")
+
+        for tier in ("bench", "bit-parity"):
+            report[tier] = serve_tier(line, tier, snap, payload, kp)
+    return report
+
+
+def request_stages(server: Server, sid: str, kp: np.ndarray) -> dict:
+    """One base64 request of the frames `kp` (one chunk) split into its
+    stages as `Server.run_frames` and `push_keypoints` run them, each
+    timed alone on the host clock with the card synchronized before and
+    after (median ms of SERVE_REPEATS): the client's JSON of the request,
+    the server's parse and keypoint array, the upload, the rasterizer,
+    the extent bbox, the decode (one-hot, `decode_with_sources`, display
+    uint8), the copy back, the RGB copy, base64, the reply's JSON, and
+    the client's JSON parse and base64 decode."""
+    sess = server.sessions[sid]
+    hw = sess.mods.cfg.image_size
+    request = {"session": sid, "keypoints": kp.tolist(),
+               "encoding": "base64"}
+    runs = []
+    for _ in range(SERVE_REPEATS):
+        t, out = {}, {}
+
+        def stage(name, fn, device=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = fn()
+            if device:
+                torch.cuda.synchronize()
+            t[name] = 1e3 * (time.perf_counter() - t0)
+            return out[name]
+
+        body = stage("client_json_dumps", lambda: json.dumps(request).encode())
+        got = stage("server_json_loads", lambda: json.loads(body))
+        arr = stage("keypoint_array", lambda: np.asarray(got["keypoints"],
+                                                         np.float32))
+        with torch.inference_mode():
+            k = stage("upload", lambda: torch.as_tensor(arr).to(sess.device),
+                      True)
+            ones = torch.ones(len(arr), device=sess.device)
+            lbl = stage("rasterize", lambda: rasterize_face_clip(
+                k, ones, hw, hw), True)
+            bbox = stage("extent_bbox", lambda: sess._extent_bbox(
+                k[..., 0], k[..., 1], hw), True)
+            dec = stage("decode", lambda: sess._decode(lbl, bbox), True)
+            rec = stage("copy_back", lambda: dec.cpu().numpy(), True)
+        rgb = stage("rgb_copy", lambda: np.ascontiguousarray(rec[..., ::-1]))
+        b64 = stage("base64_encode",
+                    lambda: base64.b64encode(rgb.tobytes()).decode())
+        reply = stage("reply_json_dumps", lambda: json.dumps(
+            {"frames_b64": b64, "shape": list(rgb.shape), "dtype": "uint8",
+             "ms": 0.0}).encode())
+        back = stage("client_json_loads", lambda: json.loads(reply))
+        stage("client_base64_decode", lambda: _frames(back))
+        check(np.array_equal(out["client_base64_decode"], rgb),
+              "serve: stage split's frames")
+        runs.append(t)
+    return {name: float(np.median([r[name] for r in runs]))
+            for name in runs[0]}
+
+
+def request_profile(server: Server, sid: str, kp: np.ndarray,
+                    tier: str) -> dict:
+    """`device_breakdown` of one `Server.run_frames` of the frames `kp`
+    (one chunk, base64) and of one rasterizer call on them."""
+    request = {"session": sid, "keypoints": kp.tolist(),
+               "encoding": "base64"}
+    hw = server.cfg.image_size
+    k = torch.as_tensor(kp, device=server.device)
+    ones = torch.ones(len(kp), device=server.device)
+    server.run_frames(request)
+    return {"request": device_breakdown(lambda: server.run_frames(request),
+                                        f"serve {tier}", top=8),
+            "rasterize": device_breakdown(lambda: rasterize_face_clip(
+                k, ones, hw, hw), f"serve {tier} rasterizer", top=0)}
+
+
+def serve_tier(line: str, tier: str, snap: str, payload: dict,
+               kp: np.ndarray) -> dict:
+    """One tier of the serve phase (see `serve_phase`)."""
+    base = face_config()
+    cfg = (dataclasses.replace(base, precision="high", fast_tail=True,
+                               fast_trunk=True) if tier == "bench" else base)
+    mods = load_params(snap, cfg, device="cuda")
+    server = Server(cfg, mods, chunk=CHUNK)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    res = {}
+    try:
+        check(_http(url + "/healthz")["backend"] == "cuda",
+              f"serve {tier}: healthz backend")
+        t0 = time.perf_counter()
+        sid = _http(url + "/session", payload)["session"]
+        res["session_ms"] = 1e3 * (time.perf_counter() - t0)
+
+        request = {"session": sid, "keypoints": kp.tolist(),
+                   "encoding": "base64"}
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        body = _http(url + "/frames", request)
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.LAUNCHES)
+        frames = _frames(body)
+        res["launches"] = launches
+        res["first_request_server_ms"] = body["ms"]
+        chunks = -(-SERVE_FRAMES // CHUNK)
+        want = {SERVE_KERNELS[tier]: chunks, "instance_norm_mean": chunks}
+        check(all(launches[k] == want.get(k, 0) for k in launches),
+              f"serve {tier}: launches {launches}, want {want}")
+        check(frames.shape == (SERVE_FRAMES, base.image_size,
+                               base.image_size, 3),
+              f"serve {tier}: frames shape {frames.shape}")
+
+        # 32-frame requests: client wall (base64 decode included), and
+        # the server's ms; peak memory over them
+        one = {"session": sid, "keypoints": kp[:CHUNK].tolist(),
+               "encoding": "base64"}
+        torch.cuda.reset_peak_memory_stats()
+        wall, server_ms = [], []
+        for _ in range(SERVE_REPEATS):
+            t0 = time.perf_counter()
+            reply = _http(url + "/frames", one)
+            _frames(reply)
+            wall.append(1e3 * (time.perf_counter() - t0))
+            server_ms.append(reply["ms"])
+        res["request_wall_ms"] = float(np.median(wall))
+        res["request_server_ms"] = float(np.median(server_ms))
+        res["request_wall_ms_all"] = wall
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        listed = _frames(_http(url + "/frames", {
+            "session": sid, "keypoints": kp[:2].tolist()}))
+
+        # the same session in process on the same frames; the 2-frame
+        # request is held against 2 frames in process
+        sess = server.sessions[sid]
+        inproc = sess.push_keypoints(kp)[..., ::-1]
+        inproc2 = sess.push_keypoints(kp[:2])[..., ::-1]
+        res["http_vs_inprocess_max_levels"] = int(np.abs(
+            frames.astype(np.int16) - inproc).max())
+        res["int_list_vs_inprocess_max_levels"] = int(np.abs(
+            listed.astype(np.int16) - inproc2).max())
+        res["batch2_vs_batch32_max_levels"] = int(np.abs(
+            inproc2.astype(np.int16) - inproc[:2]).max())
+        # model space: the kernel path against the plain path, and each
+        # path's 2 frames decoded alone against the same frames in a
+        # 32-frame chunk (the plain path launches none of the port's
+        # kernels: a distance there is cuDNN's and cuBLAS's, whose
+        # algorithms go by batch size)
+        inputs = server.session_inputs(payload)
+        model, alone = [], []
+        for k in (True, False):
+            plain_sess = RetargetSession(mods, *inputs, chunk=CHUNK,
+                                         device=mods.device, use_kernels=k)
+            model.append(plain_sess.push_keypoints(kp))
+            alone.append(plain_sess.push_keypoints(kp[:2]))
+        diff = np.abs(model[0] - model[1])
+        res["vs_plain_max_abs"] = float(diff.max())
+        res["vs_plain_mean_abs"] = float(diff.mean())
+        for path, m, a in zip(("kernels", "plain"), model, alone):
+            d = np.abs(a - m[:2])
+            res[f"batch2_vs_batch32_{path}_max_abs"] = float(d.max())
+            res[f"batch2_vs_batch32_{path}_mean_abs"] = float(d.mean())
+        res["stages_ms"] = request_stages(server, sid, kp[:CHUNK])
+        res["stages_sum_ms"] = sum(res["stages_ms"].values())
+        res["profile"] = request_profile(server, sid, kp[:CHUNK], tier)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), f"serve {tier}: server thread still alive")
+    print(f"[serve] {tier}: {json.dumps(res)} | {line}", flush=True)
+    check(res["http_vs_inprocess_max_levels"] <= 1
+          and res["int_list_vs_inprocess_max_levels"] <= 1,
+          f"serve {tier}: served frames vs in-process push_keypoints")
+    key, tol = (("max_abs", 1e-3) if tier == "bit-parity"
+                else ("mean_abs", 0.01))
+    check(res[f"vs_plain_{key}"] <= tol,
+          f"serve {tier}: kernel path vs plain path")
+    check(res[f"batch2_vs_batch32_kernels_{key}"] <= tol,
+          f"serve {tier}: 2 frames alone vs in a 32-frame chunk")
+    del mods, server
+    torch.cuda.empty_cache()
+    return res
 
 
 def one_launch(name: str, call):
@@ -1453,7 +1806,12 @@ def main() -> int:
     kernels = kernel_checks(line)
     train_kernels = train_kernel_checks(line)
     report = main_path(line)
-    report["train"] = train_phase(line)
+    report["train"], state = train_phase(line)
+    t0 = time.perf_counter()
+    report["serve"] = serve_phase(line, state)
+    print(f"[serve] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    del state
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     flow = flow_phase(line)
     norm, norm_g4 = norm_phase(line)
