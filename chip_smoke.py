@@ -71,7 +71,28 @@ non-zero, printing no result, where CUDA or the package is missing.
    back, RGB copy, base64, JSON both ways), and profiled: its CUDA
    launches and the device's busy share. Files go to a temporary
    directory in the checkout.
-8. Drives the two kernels that no model path reaches through their own
+8. Trains from files on disk (`[loop]`): a synthetic face dataset (15
+   videos x 10 seeded-noise PNG frames at 320x320, written by the port's
+   PNG writer, with 68-point landmark files) in a temporary directory of
+   the checkout; `cli.train_face.main` at the full width of
+   `face_config()`, bit-parity tier, batch 15, 14 steps (two clip batches
+   of 7) with the launch counts zeroed just before and read just after
+   (one K3-flow, one K4 and one K2 a step, nothing else), ms/step over
+   steps 2-14, the loader's data wait as a share of the loop's wall, peak
+   memory; the final snapshot restored and held equal to the trained
+   state, then one more step through `--restore-from --set-start` (its
+   launches counted under torch.profiler). The fast train tier
+   (`precision="high"`, `bwd_precision="default"`, `fast_tail`): the
+   full-generator gradient cosines of the bf16 backward against the f32
+   backward and of the bf16 tail against the f32 tail (each >= 0.99, the
+   plain path's beside it), 10 timed steps of it and of the bit-parity
+   tier; `remat=True`'s peak memory and gradients (within the plain
+   path's own 1e-6-nudge spread). `ClipInference` on a 64-frame clip of
+   the dataset in both tiers: bit-equal to `tsnet_forward_clip` over the
+   same 32-frame chunks, one warp kernel and one K2 a chunk,
+   `run_renormalized` against its plain path, `l1`/`psnr`/`ssim` on the
+   card against the CPU.
+9. Drives the two kernels that no model path reaches through their own
    entry points at full width, launch counts zeroed just before each call
    and read just after (exactly one launch a call): K5 through
    `transformation_warp(use_kernels=True)` at B=15, 32x32, C=512 (temps
@@ -84,7 +105,7 @@ non-zero, printing no result, where CUDA or the package is missing.
    forced, with its launches timed apart; the phase identity with
    `space_to_depth`; `F.instance_norm` on the NCHW or the (B, C/G, N*G)
    view as a yardstick).
-9. Prints one `kernels` JSON line, the card line again, and last
+10. Prints one `kernels` JSON line, the card line again, and last
    `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --parts
@@ -109,6 +130,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import random
 import re
 import subprocess
 import sys
@@ -124,15 +146,19 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 from torch.profiler import ProfilerActivity, profile
 
+from wacv23_tsnet_tpu_torch.cli import train_face
 from wacv23_tsnet_tpu_torch.cli.demo_face import load_params
 from wacv23_tsnet_tpu_torch.cli.serve import Server, make_handler
 from wacv23_tsnet_tpu_torch.compat import (export_flax_params,
                                            save_reference_checkpoint)
 from wacv23_tsnet_tpu_torch.configs import face_config
+from wacv23_tsnet_tpu_torch.data.datasets import FaceDatasetTrain
+from wacv23_tsnet_tpu_torch.data.image_io import write_png
 from wacv23_tsnet_tpu_torch.data.rasterize_device import rasterize_face_clip
-from wacv23_tsnet_tpu_torch.infer import RetargetSession
-from wacv23_tsnet_tpu_torch.models import (TSNetModules, tsnet_forward,
-                                           tsnet_forward_clip)
+from wacv23_tsnet_tpu_torch.infer import ClipInference, RetargetSession
+from wacv23_tsnet_tpu_torch.infer import metrics as im
+from wacv23_tsnet_tpu_torch.models import (TSNet, TSNetModules,
+                                           tsnet_forward, tsnet_forward_clip)
 from wacv23_tsnet_tpu_torch.models.tsnet import (decode_with_sources,
                                                  encode_sources)
 from wacv23_tsnet_tpu_torch.nn import fuse_clip
@@ -229,6 +255,20 @@ SERVE_FRAMES = 64
 SERVE_REPEATS = 5
 SERVE_KERNELS = {"bench": "transform_warp_pairs_mean",
                  "bit-parity": "transform_warp_pairs_nf"}
+# the loop phase: a synthetic face dataset (LOOP_VIDEOS videos of
+# LOOP_FRAMES PNG frames at LOOP_HW^2), trained through cli.train_face for
+# LOOP_STEPS steps (two clip batches of 7 steps) at batch 15
+LOOP_VIDEOS = 15
+LOOP_FRAMES = 10
+LOOP_HW = 320
+LOOP_STEPS = 14
+LOOP_PRINT_FREQ = 7
+# the fast train tier (the JAX package's shipped tier) and its fidelity
+# floors: full-generator gradient cosines against the f32 backward and
+# the f32 tail (JAX on its chip: 0.99947 and 0.9937)
+FAST_TIER = dict(precision="high", bwd_precision="default", fast_tail=True)
+GRAD_COS_FLOOR = 0.99
+TIER_STEPS = 10
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1455,6 +1495,339 @@ def serve_tier(line: str, tier: str, snap: str, payload: dict,
     return res
 
 
+def _face_landmarks(rng, cx, cy, r) -> np.ndarray:
+    """A plausible 68-point layout (an ellipse jaw and feature clusters,
+    as tests/test_train_loop.py draws it)."""
+    t = np.linspace(np.pi * 0.1, np.pi * 0.9, 17)
+    jaw = np.stack([cx + r * np.cos(t + np.pi / 2) * 1.2,
+                    cy + r * np.sin(t)], 1)
+    rest = rng.uniform(-r * 0.5, r * 0.5, (51, 2)) + [cx, cy - r * 0.2]
+    return np.concatenate([jaw, rest])
+
+
+def write_face_dataset(root: str, seed: int = 0) -> tuple[str, str]:
+    """LOOP_VIDEOS videos of LOOP_FRAMES seeded-noise PNG frames at
+    LOOP_HW^2, written by the port's own PNG writer, and a landmark file
+    each; face widths of 140-200 px, so the jittered crops (2x the face)
+    both shrink and grow to 256^2."""
+    rng = np.random.default_rng(seed)
+    lbl_root, img_root = os.path.join(root, "labels"), os.path.join(
+        root, "images")
+    for vid in range(LOOP_VIDEOS):
+        os.makedirs(os.path.join(lbl_root, f"vid{vid:02d}"))
+        os.makedirs(os.path.join(img_root, f"vid{vid:02d}"))
+        r = 60 + 4 * vid
+        for f in range(LOOP_FRAMES):
+            kp = _face_landmarks(rng, 160 + 2 * f, 170 - f, r)
+            np.savetxt(os.path.join(lbl_root, f"vid{vid:02d}",
+                                    f"{f:03d}.txt"), kp, delimiter=",")
+            write_png(os.path.join(img_root, f"vid{vid:02d}", f"{f:03d}.png"),
+                      rng.integers(0, 256, (LOOP_HW, LOOP_HW, 3), np.uint8))
+    return lbl_root, img_root
+
+
+def tier_grad(cfg, batch: dict, use_kernels: bool = True,
+              seed: int = 0) -> tuple[torch.Tensor, float]:
+    """The full generator's gradient of mean|rec - tar| + 1e-3 warp
+    loss (tests/test_fast_tail_train.py's loss) from the seeded weights,
+    as one float64 vector, and the peak device memory of that pass (GB)."""
+    mods = TSNetModules(cfg, device="cuda", seed=seed, train=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = tsnet_forward(mods, *(batch[k] for k in FORWARD_KEYS),
+                        tar_img=batch["tar_img"], train=True,
+                        use_kernels=use_kernels)
+    ((out["rec_img"] - batch["tar_img"]).abs().mean()
+     + 1e-3 * out["loss_warp"]).backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    grad = torch.cat([p.grad.flatten() for name in GEN_SUBNETS
+                      for p in getattr(mods, name).parameters()
+                      if p.grad is not None]).double()
+    del mods, out
+    torch.cuda.empty_cache()
+    return grad, peak
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.dot(a, b) / (a.norm() * b.norm()))
+
+
+def train_tiers(line: str) -> dict:
+    """The fast train tier at full width and batch 15: its two gradient
+    fidelity checks from one seeded state and one batch (kernel path, the
+    plain path's beside it), TIER_STEPS timed steps of it and of the
+    bit-parity tier, and remat's peak memory and gradients."""
+    base = face_config()
+    batch = train_batch(base, TRAIN_BATCH, seed=5)
+    high = dataclasses.replace(base, precision="high")
+    cases = {
+        # bwd_precision "default" against None, both "high", f32 tail
+        "bwd_default_vs_none": (dataclasses.replace(
+            high, bwd_precision="default"), high),
+        # fast_tail on against off, both "high" + "default" backward
+        "fast_tail_vs_f32_tail": (dataclasses.replace(base, **FAST_TIER),
+                                  dataclasses.replace(
+                                      high, bwd_precision="default")),
+    }
+    report = {}
+    for name, (cfg_a, cfg_b) in cases.items():
+        cos = {}
+        for path, use_kernels in (("kernel", True), ("plain", False)):
+            ga, _ = tier_grad(cfg_a, batch, use_kernels)
+            gb, _ = tier_grad(cfg_b, batch, use_kernels)
+            cos[path] = cosine(ga, gb)
+            del ga, gb
+        report[name] = cos
+        check(cos["kernel"] >= GRAD_COS_FLOOR,
+              f"loop: {name} gradient cosine {cos} below {GRAD_COS_FLOOR}")
+
+    # remat: peak memory of one gradient pass, and its gradient against
+    # the plain path's own spread under a 1e-6 input nudge
+    g_kernel, peak = tier_grad(base, batch)
+    g_remat, peak_remat = tier_grad(dataclasses.replace(base, remat=True),
+                                    batch)
+    g_plain, _ = tier_grad(base, batch, use_kernels=False)
+    gen = torch.Generator().manual_seed(3)
+    nudged = dict(batch)
+    for k in ("src_img", "tar_img"):
+        nudged[k] = batch[k] * (1 + INPUT_NUDGE * torch.randn(
+            batch[k].shape, generator=gen).to(batch[k].device))
+    g_nudged, _ = tier_grad(base, nudged, use_kernels=False)
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    report["remat"] = {
+        "peak_gb": peak, "peak_gb_remat": peak_remat,
+        "grad_rel_l2_remat_vs_kernel": rel(g_remat, g_kernel),
+        "grad_rel_l2_kernel_vs_plain": rel(g_kernel, g_plain),
+        "grad_rel_l2_nudged_plain_vs_plain": rel(g_nudged, g_plain)}
+    del g_kernel, g_remat, g_plain, g_nudged
+    r = report["remat"]
+    check(r["peak_gb_remat"] < r["peak_gb"],
+          f"loop: remat does not lower peak memory: {r}")
+    check(r["grad_rel_l2_remat_vs_kernel"] <= max(
+        STEP_GRAD_RTOL, NUDGE_MARGIN * r["grad_rel_l2_nudged_plain_vs_plain"]),
+          f"loop: remat gradients beyond the nudged plain path's spread: {r}")
+
+    # TIER_STEPS train steps of each tier on the fixed batch, in turns
+    ms = {}
+    for tier, cfg in (("fast", dataclasses.replace(base, **FAST_TIER)),
+                      ("bit-parity", base)):
+        state = create_train_state(cfg, device="cuda", seed=0)
+        step = make_train_step(state)
+        step(state, batch, TRAIN_LR)                 # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(TIER_STEPS):
+            _, metrics, _ = step(state, batch, TRAIN_LR)
+        vals = [v.item() for v in metrics.values()]
+        torch.cuda.synchronize()
+        ms[tier] = 1e3 * (time.perf_counter() - t0) / TIER_STEPS
+        ms[f"{tier}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        per_step = {k: v / TIER_STEPS for k, v in cuda_build.LAUNCHES.items()
+                    if v}
+        check(all(np.isfinite(vals)), f"loop: {tier} tier metrics {vals}")
+        check(per_step == {k: 1 for k in TRAIN_KERNELS},
+              f"loop: {tier} tier launches per step {per_step}")
+        del state, step
+        torch.cuda.empty_cache()
+    report["ms_per_step"] = ms
+    print(f"[loop] train tiers at batch {TRAIN_BATCH}: {json.dumps(report)} "
+          f"| {line}", flush=True)
+    return report
+
+
+def clip_inference_check(line: str, gen_tree: dict, lbl_root: str,
+                         img_root: str) -> dict:
+    """`ClipInference` on a 64-frame clip cut from the dataset, in the
+    bit-parity and bench tiers: bit for bit against `tsnet_forward_clip`
+    over the same 32-frame chunks, `run_renormalized` against its plain
+    path, launches per chunk, and the metrics on the card against the
+    same calls on the CPU."""
+    base = face_config()
+    ds = FaceDatasetTrain(lbl_root, img_root, mean=base.img_mean_array(),
+                          n_frame_total=LOOP_FRAMES, is_jitter=False,
+                          is_mirror=False, rng=random.Random(0))
+    samples = [ds[i] for i in range(CLIP_FRAMES // LOOP_FRAMES + 1)]
+    imgs = np.concatenate([x["img"] for x in samples])[:CLIP_FRAMES + 3]
+    lbls = np.concatenate([x["lbl"] for x in samples])[:CLIP_FRAMES + 3]
+    boxes = np.concatenate([x["bbox"] for x in samples])[:CLIP_FRAMES + 3]
+    src = (imgs[:3], lbls[:3], boxes[:3].astype(np.float32))
+    tar_lbl, tar_bbox = lbls[3:], boxes[3:].astype(np.float32)
+    bench = dataclasses.replace(base, precision="high", fast_tail=True,
+                                fast_trunk=True)
+    report = {}
+    for tier, cfg, warp_kernel in (
+            ("bit-parity", base, "transform_warp_pairs_nf"),
+            ("bench", bench, "transform_warp_pairs_mean")):
+        clip = ClipInference(cfg, gen_tree, chunk=CHUNK)
+        plain = ClipInference(cfg, gen_tree, chunk=CHUNK, use_kernels=False)
+        clip.run(*src, tar_lbl[:CHUNK], tar_bbox[:CHUNK])   # warm-up
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        got = clip.run(*src, tar_lbl, tar_bbox)
+        run_ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        chunks = CLIP_FRAMES // CHUNK
+        check(launches == {warp_kernel: chunks, "instance_norm_mean": chunks},
+              f"loop: ClipInference {tier} launches {launches}")
+        src_dev = clip.prepare_sources(*src)
+        onehot = F.one_hot(torch.as_tensor(tar_lbl, device="cuda").long(),
+                           cfg.label_nc).float()
+        bbox = torch.as_tensor(tar_bbox, device="cuda")
+        with torch.inference_mode():
+            want = torch.cat([tsnet_forward_clip(
+                clip.mods, *src_dev, onehot[lo:lo + CHUNK],
+                bbox[lo:lo + CHUNK]) for lo in range(0, CLIP_FRAMES, CHUNK)])
+        want = want.permute(0, 3, 1, 2).cpu().numpy()
+        check(np.array_equal(got, want),
+              f"loop: ClipInference {tier} differs from tsnet_forward_clip")
+        renorm = clip.run_renormalized(*src, tar_lbl, tar_bbox)
+        renorm_plain = plain.run_renormalized(*src, tar_lbl, tar_bbox)
+        err = np.abs(renorm - renorm_plain)
+        res = {"run_ms_64_frames": run_ms,
+               "launches_per_chunk": {k: v / chunks
+                                      for k, v in launches.items()},
+               "renorm_vs_plain_max_abs": float(err.max()),
+               "renorm_vs_plain_mean_abs": float(err.mean())}
+        if tier == "bit-parity":
+            check(res["renorm_vs_plain_max_abs"] <= 1e-3,
+                  f"loop: run_renormalized kernel vs plain path {res}")
+        else:
+            check(res["renorm_vs_plain_mean_abs"] <= 0.01,
+                  f"loop: run_renormalized kernel vs plain path {res}")
+        # the metrics on the card against the same calls on the CPU, on
+        # display-range images: the reconstructions against the targets;
+        # relative to max(1, |value|), as the train metrics are held
+        # (with random weights SSIM sits near 0, where fp32 rounding of
+        # the window sums is all its relative error)
+        mean = torch.as_tensor(base.img_mean_array() / 255.0)
+        a = torch.clamp(torch.as_tensor(got).permute(0, 2, 3, 1) + mean, 0, 1)
+        b = torch.clamp(torch.as_tensor(imgs[3:] / 255.0).permute(
+            0, 2, 3, 1).float() + mean, 0, 1)
+        for fn in (im.l1, im.psnr, im.ssim):
+            cpu = float(fn(a, b))
+            dev = float(fn(a.cuda(), b.cuda()))
+            res[fn.__name__] = dev
+            res[f"{fn.__name__}_rel_vs_cpu"] = abs(dev - cpu) / max(
+                1.0, abs(cpu))
+            check(res[f"{fn.__name__}_rel_vs_cpu"] <= 1e-5,
+                  f"loop: {fn.__name__} on the card vs the CPU: {res}")
+        report[tier] = res
+        del clip, plain
+        torch.cuda.empty_cache()
+    print(f"[loop] ClipInference on a {CLIP_FRAMES}-frame dataset clip: "
+          f"{json.dumps(report)} | {line}", flush=True)
+    return report
+
+
+def loop_phase(line: str) -> dict:
+    """Training from files on disk through `cli.train_face.main` at the
+    full width of face_config(), bit-parity tier, batch 15: a synthetic
+    dataset written with the port's PNG writer, LOOP_STEPS steps (launch
+    counts zeroed just before and read just after: one K3-flow, one K4
+    and one K2 a step, nothing else), ms/step over steps 2-LOOP_STEPS
+    (host clock, synchronized at step 1's end and the last step's), the
+    loader's data wait as a share of the loop's wall, peak memory; then a
+    resume from the final snapshot (`--restore-from --set-start`),
+    checked equal to the saved state and stepped once under the profiler;
+    the fast train tier (`train_tiers`) and `ClipInference`
+    (`clip_inference_check`)."""
+    report = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_",
+                                     dir=root) as tmp:
+        t0 = time.perf_counter()
+        lbl_root, img_root = write_face_dataset(os.path.join(tmp, "data"))
+        report["dataset_write_s"] = time.perf_counter() - t0
+        run_root = os.path.join(tmp, "run")
+        args = ["--label-path", lbl_root, "--image-path", img_root,
+                "--root-dir", run_root, "--batch-size", str(TRAIN_BATCH),
+                "--n-frame-total", str(LOOP_FRAMES), "--n-source", "3",
+                "--num-videos", str(LOOP_VIDEOS),
+                "--print-freq", str(LOOP_PRINT_FREQ)]
+
+        # steps 2..LOOP_STEPS timed between two synchronized stamps
+        stamps = {}
+        inner = TSNet.optimize_parameters_on
+
+        def stamped(self, batch):
+            inner(self, batch)
+            if self.state.step in (1, LOOP_STEPS):
+                torch.cuda.synchronize()
+                stamps[self.state.step] = time.perf_counter()
+
+        TSNet.optimize_parameters_on = stamped
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            model, timer = train_face.main(
+                args + ["--final-step", str(LOOP_STEPS)])
+            torch.cuda.synchronize()
+            report["main_s"] = time.perf_counter() - t0
+            launches = dict(cuda_build.LAUNCHES)
+        finally:
+            TSNet.optimize_parameters_on = inner
+        per_step = {k: v / LOOP_STEPS for k, v in launches.items() if v}
+        check(model.state.step == LOOP_STEPS,
+              f"loop: trained to step {model.state.step}")
+        check(per_step == {k: 1 for k in TRAIN_KERNELS},
+              f"loop: launches per step {per_step}")
+        losses = model.get_current_losses()
+        check(all(np.isfinite(v) for v in losses.values()),
+              f"loop: non-finite loss {losses}")
+        report.update({
+            "ms_per_step_2_to_last": 1e3 * (stamps[LOOP_STEPS] - stamps[1])
+            / (LOOP_STEPS - 1),
+            "data_wait_s": timer.data.sum, "clip_batches_s": timer.batch.sum,
+            "data_wait_share": timer.data.sum / timer.batch.sum,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": per_step, "last_losses": losses})
+        snaps = os.path.join(run_root, "snapshots")
+        snap = find_latest_checkpoint(snaps)
+        check(os.path.basename(snap) == f"TSNet_S{LOOP_STEPS:06d}.msgpack",
+              f"loop: snapshot {snap}")
+        history = open(os.path.join(run_root, "history.csv")).read()
+        check(len(history.splitlines()) == 1 + LOOP_STEPS // LOOP_PRINT_FREQ,
+              f"loop: history.csv {history!r}")
+        print(f"[loop] {LOOP_STEPS} steps through cli.train_face at batch "
+              f"{TRAIN_BATCH}: {json.dumps(report)} | {line}", flush=True)
+
+        # resume: the snapshot restores to the exact state, then one step
+        fresh = create_train_state(face_config(), device="cuda", seed=7)
+        restore_checkpoint(snap, fresh)
+        bad = _train_state_equal(model.state, fresh)
+        check(not bad, f"loop: restored state differs: {bad[:8]}")
+        gen_tree = export_flax_params(model.mods)
+        del fresh, model
+        torch.cuda.empty_cache()
+        cuda_build.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            resumed, _ = train_face.main(
+                args + ["--final-step", str(LOOP_STEPS + 1), "--set-start",
+                        "--restore-from", snap])
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        check(resumed.state.step == LOOP_STEPS + 1,
+              f"loop: resumed to step {resumed.state.step}")
+        check(launches == {k: 1 for k in TRAIN_KERNELS},
+              f"loop: the resumed step's launches (profiled) {launches}")
+        report["resume"] = {"step": resumed.state.step,
+                            "launches_profiled_step": launches}
+        del resumed
+        torch.cuda.empty_cache()
+        print(f"[loop] resume from {os.path.basename(snap)}: "
+              f"{json.dumps(report['resume'])} | {line}", flush=True)
+        report["tiers"] = train_tiers(line)
+        report["clip_inference"] = clip_inference_check(
+            line, gen_tree, lbl_root, img_root)
+    return report
+
+
 def one_launch(name: str, call):
     """Run `call` with the launch counts zeroed just before and read just
     after; it must launch kernel `name` once and nothing else."""
@@ -1811,6 +2184,14 @@ def main() -> int:
     report["serve"] = serve_phase(line, state)
     print(f"[serve] phase {time.perf_counter() - t0:.1f} s", flush=True)
     del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["loop"] = loop_phase(line)
+    print(f"[loop] phase {time.perf_counter() - t0:.1f} s; ms/step over "
+          f"steps 2-{LOOP_STEPS} from disk "
+          f"{report['loop']['ms_per_step_2_to_last']:.2f} against [train]'s "
+          f"fixed batch {report['train']['ms_per_step']:.2f} | {line}",
+          flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     flow = flow_phase(line)

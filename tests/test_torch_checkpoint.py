@@ -36,7 +36,7 @@ from wacv23_tsnet_tpu_torch.cli.demo_face import load_params
 from wacv23_tsnet_tpu_torch.compat import (
     export_flax_params, export_opt_states, flax_msgpack,
     generator_params_from_checkpoint, load_flax_params,
-    load_reference_checkpoint, reference_checkpoint,
+    load_reference_checkpoint, load_train_state, reference_checkpoint,
     save_reference_checkpoint)
 from wacv23_tsnet_tpu_torch.configs import toy_config
 from wacv23_tsnet_tpu_torch.models import TSNetModules
@@ -288,8 +288,12 @@ def test_one_adam_update_matches_optax(tmp_path, jax_state):
     grads = jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(
         np.float32), _np(jax_state.gen_params))
     eps = 1e-8
-    updates, new = optax.scale_by_adam(*BETAS, eps=eps).update(
-        grads, jax_state.gen_opt_state)
+    # JAX on the CPU may read numpy inputs in place and asynchronously:
+    # give it its own copies and wait for its result before torch runs
+    updates, new = jax.block_until_ready(
+        optax.scale_by_adam(*BETAS, eps=eps).update(
+            jax.tree.map(jnp.array, grads),
+            jax.tree.map(jnp.array, jax_state.gen_opt_state)))
     count = int(new.count)
     exact = jax.tree.map(
         lambda m, v: (np.asarray(m, np.float64) / (1 - BETAS[0] ** count))
@@ -326,6 +330,22 @@ def test_one_adam_update_matches_optax(tmp_path, jax_state):
           + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
     assert max(errs["mu"], errs["nu"], errs["update"]) <= 1e-6
     assert errs["update_vs_optax_f32"] <= 2e-5
+
+
+def test_restored_moments_do_not_alias_the_callers_arrays(jax_state):
+    """`load_train_state` copies the moments it is given: torch's Adam
+    updates them in place, and the caller's arrays (numpy views of JAX
+    buffers, say) must stay as they were."""
+    opt = {"count": np.asarray(3), "mu": _np(jax_state.gen_opt_state.mu),
+           "nu": _np(jax_state.gen_opt_state.nu)}
+    before = jax.tree.map(np.copy, opt)
+    ours = create_train_state(toy_config(), device="cpu", seed=4)
+    load_train_state(ours, _np(jax_state.gen_params),
+                     _np(jax_state.disc_params), gen_opt_state=opt)
+    for p in ours.mods.parameters():
+        p.grad = torch.ones_like(p)
+    ours.gen_opt.step()
+    _assert_trees_equal(opt, before)
 
 
 def _batch(cfg, seed=0, bs=2):

@@ -138,21 +138,83 @@ def test_session_takes_class_map_labels(clip):
         session.push_labels(onehot, inputs[4]), atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["face_config", "toy_config"])
+@pytest.mark.parametrize("name", ["face_config", "toy_config",
+                                  "TrainConfig"])
 def test_config_copy_matches_the_jax_package(name):
     from wacv23_tsnet_tpu import configs as jax_configs
     from wacv23_tsnet_tpu_torch import configs
     ours, theirs = getattr(configs, name)(), getattr(jax_configs, name)()
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
-    assert (ours.feat_ch, ours.feat_size) == (theirs.feat_ch, theirs.feat_size)
-    assert np.array_equal(ours.img_mean_array(), theirs.img_mean_array())
+    props = (("num_examples_per_epoch", "initial_iter", "max_iter")
+             if name == "TrainConfig" else ("feat_ch", "feat_size"))
+    for prop in props:
+        assert getattr(ours, prop) == getattr(theirs, prop), prop
+    if name == "TrainConfig":
+        odd = dict(batch_size=7, n_frame_total=9, num_videos=13,
+                   max_epoch=5, initial_epoch=2)
+        ours, theirs = configs.TrainConfig(**odd), jax_configs.TrainConfig(
+            **odd)
+        for prop in props:
+            assert getattr(ours, prop) == getattr(theirs, prop), prop
+    else:
+        assert np.array_equal(ours.img_mean_array(), theirs.img_mean_array())
 
 
-@pytest.mark.parametrize("knob", ["ring_pad", "use_fg_mask"])
+@pytest.mark.parametrize("knob", ["ring_pad", "use_fg_mask", "use_face_d"])
 def test_unported_knobs_are_refused(knob):
     cfg = dataclasses.replace(toy_config(), **{knob: True})
     with pytest.raises(NotImplementedError):
         TSNetModules(cfg, device="cpu")
+
+
+def _train_grads(cfg):
+    """The generator's flat gradient of one toy train-mode forward, and
+    the bytes autograd saved for it."""
+    from wacv23_tsnet_tpu_torch.models import tsnet_forward
+    mods = TSNetModules(cfg, device="cpu", train=True)
+    rng = np.random.default_rng(0)
+    s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
+    b = {"src_img": rng.random((1, s, hw, hw, 3)),
+         "src_lbl": rng.integers(0, 2, (1, s, hw, hw, nl)),
+         "src_bbox": rng.integers(0, 2, (1, s, hw, hw)),
+         "tar_img": rng.random((1, hw, hw, 3)),
+         "tar_lbl": rng.integers(0, 2, (1, hw, hw, nl)),
+         "tar_bbox": rng.integers(0, 2, (1, hw, hw))}
+    b = {k: torch.from_numpy(v.astype(np.float32)) for k, v in b.items()}
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = tsnet_forward(mods, *(b[k] for k in ("src_img", "src_lbl",
+                                                   "src_bbox", "tar_lbl",
+                                                   "tar_bbox")),
+                            tar_img=b["tar_img"], train=True)
+    (out["rec_img"].square().mean() + out["loss_warp"]).backward()
+    grad = torch.cat([p.grad.reshape(-1) for n, p in mods.named_parameters()
+                      if p.grad is not None and not n.startswith("netD")])
+    return out["rec_img"].detach(), grad, sum(saved)
+
+
+@pytest.mark.parametrize("knob", ["bwd_precision", "remat"])
+def test_training_knobs_change_the_computation(knob):
+    """Neither knob is ignored: `bwd_precision="default"` keeps the
+    forward and moves the gradients by bf16 rounding; `remat=True` keeps
+    forward and gradients and saves fewer bytes for the backward."""
+    base = toy_config()
+    rec, grad, saved = _train_grads(base)
+    value = "default" if knob == "bwd_precision" else True
+    rec_k, grad_k, saved_k = _train_grads(
+        dataclasses.replace(base, **{knob: value}))
+    assert torch.equal(rec, rec_k)
+    rel = float((grad - grad_k).norm() / grad.norm())
+    if knob == "bwd_precision":
+        assert 0.0 < rel <= 5e-2, rel
+        assert saved_k == saved
+    else:
+        assert rel <= 1e-6 and saved_k < saved, (rel, saved_k, saved)
 
 
 def test_entry_points_default_to_cuda():
@@ -172,13 +234,14 @@ def test_entry_points_default_to_cuda():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port imports with `jax`, `flax`, `msgpack` and
-    `wacv23_tsnet_tpu` (matched by exact name, not as a prefix)
-    blocked."""
+    """Every module of the port imports with `jax`, `flax`, `msgpack`,
+    `wacv23_tsnet_tpu` and the image libraries `PIL`, `cv2`, `imageio`
+    and `matplotlib` (matched by exact name, not as a prefix) blocked."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
-        BLOCKED = ("jax", "flax", "msgpack", "wacv23_tsnet_tpu")
+        BLOCKED = ("jax", "flax", "msgpack", "wacv23_tsnet_tpu", "PIL",
+                   "cv2", "imageio", "matplotlib")
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
@@ -201,7 +264,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     # the clip slice's modules, the train slice's (losses, nn.vgg,
-    # nn.discriminator, ops.warp, train) and the serving slice's (cli,
+    # nn.discriminator, ops.warp, train), the serving slice's (cli,
     # data, compat.flax_msgpack / torch_import / torch_export,
-    # train.checkpoint)
-    assert int(proc.stdout.strip()) >= 48
+    # train.checkpoint) and the train-from-disk slice's (utils, data
+    # image_io / rasterize / augment / datasets / loader, ops.dpconv,
+    # models.api, infer.pipeline / metrics, train.loop, cli.train_face)
+    assert int(proc.stdout.strip()) >= 61

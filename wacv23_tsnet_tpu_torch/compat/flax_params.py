@@ -97,8 +97,10 @@ def _moments(opt: torch.optim.Adam, params: Mapping, count: int,
         st = opt.state[p]
         st["step"] = torch.tensor(float(count), dtype=torch.float32)
         for key, tree in (("exp_avg", mu_sd), ("exp_avg_sq", nu_sd)):
-            st[key] = torch.from_numpy(np.ascontiguousarray(
-                tree[name])).to(device=p.device, dtype=p.dtype)
+            # a copy: Adam updates its moments in place, and the caller's
+            # arrays may be views of JAX buffers, which must not change
+            st[key] = torch.tensor(np.asarray(tree[name]), device=p.device,
+                                   dtype=p.dtype)
 
 
 def _opt_state(opt: torch.optim.Adam, params: Mapping) -> dict:

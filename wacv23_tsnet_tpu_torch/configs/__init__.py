@@ -1,3 +1,3 @@
-from .base import TSNetConfig, face_config, toy_config
+from .base import TrainConfig, TSNetConfig, face_config, toy_config
 
-__all__ = ["TSNetConfig", "face_config", "toy_config"]
+__all__ = ["TrainConfig", "TSNetConfig", "face_config", "toy_config"]

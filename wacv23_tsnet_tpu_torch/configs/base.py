@@ -18,14 +18,22 @@ Precision tiers on the GPU (see `nn.blocks.conv2d`):
   instance-norm statistics; the transformation branch writes bf16.
 
 The similarity logits, softmax and flow run in fp32 in every tier.
-Training-only knobs (`bwd_precision`, `remat`, `ring_pad`) are carried so
-that configs round-trip, but the inference port does not implement them:
-`ring_pad=True` is refused where the model is built.
+
+Training knobs: `bwd_precision` sets the tier of the two backward convs
+of every conv (`ops.dpconv.conv2d_dp`), and `remat=True` recomputes the
+encoders', the decoder's and the discriminator's activations in the
+backward pass (`TSNetModules.run`). `ring_pad` (a TPU layout rewrite)
+and the pose variant's `use_fg_mask` and `use_face_d` are refused where
+the model is built.
+
+`TrainConfig` is the optimisation schedule of the JAX package's
+`configs/base.py`, field for field.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -83,6 +91,46 @@ class TSNetConfig:
 
     def img_mean_array(self) -> np.ndarray:
         return np.asarray(self.img_mean, dtype=np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimisation schedule: poly LR decay per example after
+    `initial_iter` examples (reference model/TSNet.py:504-512)."""
+
+    batch_size: int = 15
+    lr: float = 2e-4
+    beta1: float = 0.5
+    beta2: float = 0.999
+    lambda_dec: float = 1.0     # decoder LR multiplier
+    d_lr_factor: float = 0.5    # discriminator LR = 0.5 * lr
+    power: float = 1.0
+    initial_epoch: int = 400
+    max_epoch: int = 900
+    n_frame_total: int = 10
+    n_source: int = 3           # first n_source frames of each clip
+    num_videos: int = 150
+    frame_interval: int = 1
+    seed: int = 1234
+    print_freq: int = 100
+    save_img_freq: int = 100
+    snapshot_dir: str = "snapshots"
+    imgshot_dir: str = "imgshots"
+
+    @property
+    def num_examples_per_epoch(self) -> int:
+        return self.num_videos * (self.n_frame_total - self.n_source)
+
+    @property
+    def initial_iter(self) -> int:
+        return self.num_examples_per_epoch * self.initial_epoch
+
+    @property
+    def max_iter(self) -> int:
+        steps_per_epoch = math.ceil(self.num_examples_per_epoch
+                                    / float(self.batch_size))
+        return max(self.num_examples_per_epoch * self.max_epoch + 1,
+                   steps_per_epoch * self.batch_size * self.max_epoch + 1)
 
 
 def face_config() -> TSNetConfig:

@@ -1,9 +1,16 @@
 """68-landmark face geometry (the port's own copy of the JAX package's
-`data/face.py:FACE_PART_LIST` and `face_bbox_mask`)."""
+`data/face.py`): the part list, the edge-map rasterizer of the training
+labels, the landmark-extent bbox, the face-anchored crop box and the
+shift into crop coordinates."""
 
 from __future__ import annotations
 
+import random as _random
+from typing import Optional, Sequence
+
 import numpy as np
+
+from .rasterize import draw_edge
 
 # 68-landmark part edges (reference dataset_video_face.py part_list)
 FACE_PART_LIST = [
@@ -18,6 +25,21 @@ FACE_PART_LIST = [
 ]
 
 
+def render_face_edges(keypoints: np.ndarray, size, bw: int = 1) -> np.ndarray:
+    """68 landmarks -> edge map (h, w) uint8 with values 0 and 255, each
+    part edge drawn as 3-point quadratic segments; `size` is (w, h)."""
+    w, h = size
+    img = np.zeros((h, w), np.uint8)
+    edge_len = 3
+    for part in FACE_PART_LIST:
+        for edge in part:
+            for i in range(0, max(1, len(edge) - 1), edge_len - 1):
+                sub = np.asarray(edge[i:i + edge_len])
+                draw_edge(img, keypoints[sub, 0], keypoints[sub, 1],
+                          bw=bw, color=(255, 255, 255))
+    return img
+
+
 def face_bbox_mask(keypoints: np.ndarray, size) -> np.ndarray:
     """Landmark extent + 1/16 margin as a filled uint8 mask (values 0 and
     255); `size` is (w, h). `RetargetSession._extent_bbox` is its device
@@ -30,3 +52,40 @@ def face_bbox_mask(keypoints: np.ndarray, size) -> np.ndarray:
     y_max = int(min(h, keypoints[:, 1].max() + h // 16))
     mask[y_min:y_max, x_min:x_max] = 255
     return mask
+
+
+def face_crop_coords(keypoints: np.ndarray, jitter: bool = False,
+                     scale: Optional[Sequence[float]] = None,
+                     rng: Optional[_random.Random] = None):
+    """Face-anchored crop box [min_y, max_y, min_x, max_x].
+
+    The box is 2w x 2h around the face centre (h shifted up by 1.25x);
+    train-time jitter perturbs the centre (+-0.2 extent) and the scale
+    (+-0.2), drawing from `rng` in the JAX package's order. Returns
+    (coords, scale) so a clip can reuse the anchor frame's scale.
+    """
+    rng = rng or _random
+    min_y, max_y = int(keypoints[:, 1].min()), int(keypoints[:, 1].max())
+    min_x, max_x = int(keypoints[:, 0].min()), int(keypoints[:, 0].max())
+    x_cen, y_cen = (min_x + max_x) // 2, (min_y + max_y) // 2
+    w = h = float(max_x - min_x)
+    if jitter:
+        if scale is None:
+            scale = [rng.uniform(0.8, 1.2), rng.uniform(0.8, 1.2)]
+        offset = [rng.uniform(-0.2, 0.2), rng.uniform(-0.2, 0.2)]
+        w *= scale[0]
+        h *= scale[1]
+        x_cen += int(offset[0] * w)
+        y_cen += int(offset[1] * h)
+    min_x = x_cen - w
+    min_y = y_cen - h * 1.25
+    coords = [int(min_y), int(min_y + h * 2), int(min_x), int(min_x + w * 2)]
+    return coords, scale
+
+
+def shift_keypoints(keypoints: np.ndarray, crop_coords) -> np.ndarray:
+    """Keypoints in the coordinates of the crop `crop_coords`."""
+    out = np.array(keypoints, np.float64, copy=True)
+    out[:, 0] -= crop_coords[2]
+    out[:, 1] -= crop_coords[0]
+    return out

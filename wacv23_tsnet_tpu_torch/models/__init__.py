@@ -1,5 +1,6 @@
+from .api import TSNet
 from .tsnet import (TSNetModules, decode_with_sources, encode_sources,
                     tsnet_forward, tsnet_forward_clip)
 
-__all__ = ["TSNetModules", "decode_with_sources", "encode_sources",
+__all__ = ["TSNet", "TSNetModules", "decode_with_sources", "encode_sources",
            "tsnet_forward", "tsnet_forward_clip"]

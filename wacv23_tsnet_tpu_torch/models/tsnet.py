@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import TSNetConfig
 from ..device import resolve_device
@@ -43,6 +44,8 @@ from ..ops.similarity import (transformation_warp_clip,
                               transformation_warp_sources)
 from ..ops.warp import patch_warp
 
+GEN_SUBNETS = ("img_enc", "lbl_enc", "fuse_net", "dec")
+
 
 class TSNetModules(nn.Module):
     """The generator subnets of one config, initialised from `seed`.
@@ -56,6 +59,12 @@ class TSNetModules(nn.Module):
     `train=False` (inference) builds the generator only, with gradients
     off. `train=True` also builds the PatchGAN discriminator `netD`
     (initialised from `seed + 1`) and keeps gradients on.
+
+    Every conv of the encoders, FuseNet, the decoder and netD runs its
+    backward at `cfg.bwd_precision` (`ops.dpconv`). With `cfg.remat`,
+    `run` recomputes the activations of the subnets the JAX package
+    rematerializes (the encoders, the decoder, netD) in the backward
+    pass instead of keeping them.
     """
 
     def __init__(self, cfg: TSNetConfig, device="cuda", seed: int = 0,
@@ -64,9 +73,9 @@ class TSNetModules(nn.Module):
         if cfg.ring_pad:
             raise NotImplementedError("ring_pad is a TPU training knob; the "
                                       "port does not implement it")
-        if cfg.use_fg_mask:
-            raise NotImplementedError("the pose variant (use_fg_mask) is not "
-                                      "ported yet")
+        if cfg.use_fg_mask or cfg.use_face_d:
+            raise NotImplementedError("the pose variant (use_fg_mask, "
+                                      "use_face_d) is not ported yet")
         dev = resolve_device(device)
         self.cfg = cfg
         dt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -74,7 +83,9 @@ class TSNetModules(nn.Module):
         self.dtype = dt
         prec = cfg.precision
         trunk_prec = "default" if cfg.fast_trunk else prec
-        common = dict(ngf=cfg.ngf, n_downsampling=cfg.n_downsampling)
+        bwd = cfg.bwd_precision
+        common = dict(ngf=cfg.ngf, n_downsampling=cfg.n_downsampling,
+                      bwd_precision=bwd)
         self.img_enc = Encoder(3 + cfg.label_nc, n_blocks=cfg.enc_n_blocks,
                                addcoords=cfg.addcoords, dtype=dt,
                                precision=trunk_prec, **common)
@@ -86,16 +97,24 @@ class TSNetModules(nn.Module):
         self.dec = Decoder(output_nc=3, n_blocks=cfg.dec_n_blocks,
                            dtype=tail_dt, precision=tail_prec, **common)
         self.fuse_net = FuseNet(ngf=2 * cfg.feat_ch, n_blocks=1,
-                                dtype=tail_dt, precision=tail_prec)
+                                dtype=tail_dt, precision=tail_prec,
+                                bwd_precision=bwd)
         self.init_generator_params(seed)
         if train:
             self.netD = PatchDiscriminator(3 + cfg.label_nc, ndf=cfg.ndf,
                                            n_layers=cfg.d_n_layers, dtype=dt,
-                                           precision=prec)
+                                           precision=prec, bwd_precision=bwd)
             self.netD.reset_parameters(torch.Generator().manual_seed(seed + 1))
         self.requires_grad_(train)
         self.to(dev)
         self.device = dev
+
+    def run(self, subnet: nn.Module, *args):
+        """`subnet(*args)`, under `torch.utils.checkpoint` with
+        `cfg.remat` while autograd records."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(subnet, *args, use_reentrant=False)
+        return subnet(*args)
 
     def init_generator_params(self, seed: int) -> None:
         """normal(0, 0.02) kernels, zero biases (the JAX package's init
@@ -130,10 +149,11 @@ def tsnet_forward(mods: TSNetModules, src_img, src_lbl, src_bbox, tar_lbl,
     dt = mods.dtype
     b, s, hh, ww, _ = src_img.shape
     enc_in = torch.cat([src_img, src_lbl], dim=-1).to(dt)
-    src_img_fea = mods.img_enc(enc_in.reshape((b * s,) + enc_in.shape[2:]))
+    src_img_fea = mods.run(mods.img_enc,
+                           enc_in.reshape((b * s,) + enc_in.shape[2:]))
     h, w, c = src_img_fea.shape[1:]
     src_img_fea = src_img_fea.reshape(b, s, h, w, c)
-    tar_lbl_fea = mods.lbl_enc(tar_lbl.to(dt))                # (B, h, w, C)
+    tar_lbl_fea = mods.run(mods.lbl_enc, tar_lbl.to(dt))     # (B, h, w, C)
 
     tar_fea_n = l2_normalize(tar_lbl_fea.float())
     tar_mask = resize_nearest(tar_bbox[..., None].float(), (h, w))[..., 0]
@@ -165,7 +185,7 @@ def tsnet_forward(mods: TSNetModules, src_img, src_lbl, src_bbox, tar_lbl,
                          use_kernels=use_kernels)
     if train and cfg.use_align_loss:
         out["loss_align"] = cosine_align_loss(prop_fea, syn_fea)
-    out["rec_img"] = mods.dec(prop_fea, syn_fea).float()
+    out["rec_img"] = mods.run(mods.dec, prop_fea, syn_fea).float()
     out["prop_fea"] = prop_fea
     out["syn_fea"] = syn_fea
     return out

@@ -15,8 +15,9 @@ activation dtype and precision (see `configs/base.py`):
 
 The f32 tiers hold in both directions: autograd would dispatch a
 convolution's backward later, under the process's own TF32 setting
-(cuDNN's default is TF32 on), so `_Conv2dTF32` computes grad-input and
-grad-weight under the same `tf32(...)` setting as the forward.
+(cuDNN's default is TF32 on), so `ops.dpconv.conv2d_dp` computes
+grad-input and grad-weight under the tier's own setting, the forward's
+or `bwd_precision`'s where a module sets one.
 
 Tensors stay NHWC; a convolution sees them as channels_last NCHW views.
 """
@@ -27,10 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.dpconv import PRECISIONS, conv2d_dp
 from ..ops.norms import instance_norm
-from ..ops.precision import tf32
-
-PRECISIONS = ("highest", "high", "default")
 
 
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -46,9 +45,11 @@ def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias=None, stride: int = 1,
            padding: int = 0, precision: str = "highest",
-           dtype=torch.float32) -> torch.Tensor:
+           dtype=torch.float32, bwd_precision=None) -> torch.Tensor:
     """2D convolution of an NHWC tensor with an OIHW kernel, in the tier's
-    dtype and precision. Zero `padding` pixels on each side."""
+    dtype and precision, its backward at `bwd_precision` (None: as the
+    forward; `ops.dpconv`). Zero `padding` pixels on each side. A bf16
+    conv's operands are bf16 in both directions."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
 
@@ -59,37 +60,11 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias=None, stride: int = 1,
     if dtype == torch.bfloat16:
         b = None if bias is None else bias.to(torch.bfloat16)
         return run(x.to(torch.bfloat16), weight.to(torch.bfloat16), b)
-    if precision == "default":
+    if precision == "default" and bwd_precision in (None, "default"):
         y = run(x.to(torch.bfloat16), weight.to(torch.bfloat16), None).float()
         return y if bias is None else y + bias.float()
-    y = _Conv2dTF32.apply(x.float().permute(0, 3, 1, 2), weight.float(), bias,
-                          stride, padding, precision == "high")
-    return y.permute(0, 2, 3, 1)
-
-
-class _Conv2dTF32(torch.autograd.Function):
-    """F.conv2d (NCHW) whose forward and backward both run under one
-    TF32 setting: on for precision "high", off for "highest"."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, stride, padding, allow_tf32):
-        with tf32(allow_tf32):
-            y = F.conv2d(x, weight, bias, stride, padding)
-        ctx.save_for_backward(x, weight)
-        ctx.conf = (stride, padding, allow_tf32, bias is not None)
-        return y
-
-    @staticmethod
-    def backward(ctx, grad):
-        x, weight = ctx.saved_tensors
-        stride, padding, allow_tf32, has_bias = ctx.conf
-        need = ctx.needs_input_grad
-        with tf32(allow_tf32):
-            gx, gw, gb = torch.ops.aten.convolution_backward(
-                grad, x, weight, [weight.shape[0]] if has_bias else None,
-                [stride] * 2, [padding] * 2, [1, 1], False, [0, 0], 1,
-                [need[0], need[1], has_bias and need[2]])
-        return gx, gw, gb, None, None, None
+    return conv2d_dp(x, weight, bias, stride, padding, precision,
+                     bwd_precision)
 
 
 class Conv2d(nn.Module):
@@ -97,7 +72,7 @@ class Conv2d(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  padding: int = 0, dtype=torch.float32,
-                 precision: str = "highest"):
+                 precision: str = "highest", bwd_precision=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch))
@@ -105,6 +80,7 @@ class Conv2d(nn.Module):
         self.padding = padding
         self.dtype = dtype
         self.precision = precision
+        self.bwd_precision = bwd_precision
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
@@ -117,17 +93,19 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d(x, self.weight, self.bias, self.stride, self.padding,
-                      self.precision, self.dtype)
+                      self.precision, self.dtype, self.bwd_precision)
 
 
 class ResnetBlock(nn.Module):
     """reflect-pad 3x3 conv + IN + ReLU, reflect-pad 3x3 conv + IN, +skip."""
 
     def __init__(self, dim: int, dtype=torch.float32,
-                 precision: str = "highest"):
+                 precision: str = "highest", bwd_precision=None):
         super().__init__()
-        self.conv1 = Conv2d(dim, dim, 3, dtype=dtype, precision=precision)
-        self.conv2 = Conv2d(dim, dim, 3, dtype=dtype, precision=precision)
+        kw = dict(dtype=dtype, precision=precision,
+                  bwd_precision=bwd_precision)
+        self.conv1 = Conv2d(dim, dim, 3, **kw)
+        self.conv2 = Conv2d(dim, dim, 3, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = torch.relu(instance_norm(self.conv1(reflect_pad(x, 1))))

@@ -27,12 +27,14 @@ from .blocks import Conv2d, ResnetBlock, reflect_pad
 class Decoder(nn.Module):
     def __init__(self, output_nc: int = 3, ngf: int = 64,
                  n_downsampling: int = 4, n_blocks: int = 0,
-                 dtype=torch.float32, precision: str = "highest"):
+                 dtype=torch.float32, precision: str = "highest",
+                 bwd_precision=None):
         super().__init__()
         self.n_downsampling = n_downsampling
         self.n_blocks = n_blocks
         self.dtype = dtype
-        kw = dict(dtype=dtype, precision=precision)
+        kw = dict(dtype=dtype, precision=precision,
+                  bwd_precision=bwd_precision)
         feat = ngf * 2 ** n_downsampling
         self.map_conv = Conv2d(2 * feat, feat, 1, **kw)
         for j in range(n_blocks):

@@ -21,10 +21,12 @@ from .blocks import Conv2d
 
 class PatchDiscriminator(nn.Module):
     def __init__(self, in_ch: int, ndf: int = 64, n_layers: int = 3,
-                 dtype=torch.float32, precision: str = "highest"):
+                 dtype=torch.float32, precision: str = "highest",
+                 bwd_precision=None):
         super().__init__()
         self.n_layers = n_layers
-        kw = dict(padding=1, dtype=dtype, precision=precision)
+        kw = dict(padding=1, dtype=dtype, precision=precision,
+                  bwd_precision=bwd_precision)
         widths = [ndf] + [ndf * min(2 ** n, 8) for n in range(1, n_layers + 1)]
         ch = in_ch
         for i, out in enumerate(widths):

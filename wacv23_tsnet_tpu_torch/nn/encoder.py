@@ -22,12 +22,14 @@ from .blocks import Conv2d, ResnetBlock, reflect_pad
 class Encoder(nn.Module):
     def __init__(self, in_ch: int, ngf: int = 64, n_downsampling: int = 4,
                  n_blocks: int = 9, addcoords: bool = False,
-                 dtype=torch.float32, precision: str = "highest"):
+                 dtype=torch.float32, precision: str = "highest",
+                 bwd_precision=None):
         super().__init__()
         self.addcoords = addcoords
         self.n_downsampling = n_downsampling
         self.n_blocks = n_blocks
-        kw = dict(dtype=dtype, precision=precision)
+        kw = dict(dtype=dtype, precision=precision,
+                  bwd_precision=bwd_precision)
         self.conv_in = Conv2d(in_ch + 3 * addcoords, ngf, 7, **kw)
         for i in range(n_downsampling):
             self.add_module(f"down{i}", Conv2d(

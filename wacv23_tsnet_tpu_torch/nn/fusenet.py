@@ -38,15 +38,18 @@ from .blocks import Conv2d, ResnetBlock, conv2d, reflect_pad
 
 class FuseNet(nn.Module):
     def __init__(self, ngf: int = 1024, n_blocks: int = 1,
-                 dtype=torch.float32, precision: str = "highest"):
+                 dtype=torch.float32, precision: str = "highest",
+                 bwd_precision=None):
         super().__init__()
         self.n_blocks = n_blocks
         self.dtype = dtype
         self.precision = precision
+        self.bwd_precision = bwd_precision
+        kw = dict(dtype=dtype, precision=precision,
+                  bwd_precision=bwd_precision)
         for j in range(n_blocks):
-            self.add_module(f"block{j}",
-                            ResnetBlock(ngf, dtype=dtype, precision=precision))
-        self.conv = Conv2d(ngf, ngf // 2, 1, dtype=dtype, precision=precision)
+            self.add_module(f"block{j}", ResnetBlock(ngf, **kw))
+        self.conv = Conv2d(ngf, ngf // 2, 1, **kw)
 
     def forward(self, src_fea: torch.Tensor,
                 tar_fea: torch.Tensor) -> torch.Tensor:
@@ -118,7 +121,8 @@ def fuse_train(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
     t = tar_fea.to(dt)
 
     def conv(x, weight, bias=None):
-        return conv2d(x, weight, bias, precision=prec, dtype=dt)
+        return conv2d(x, weight, bias, precision=prec, dtype=dt,
+                      bwd_precision=fuse_net.bwd_precision)
 
     c1a = conv(reflect_pad(a, 1), w1[:, :c]).reshape(b, s, h, w, 2 * c)
     c1t = conv(reflect_pad(t, 1), w1[:, c:], blk.conv1.bias)  # (B, h, w, 2C)

@@ -19,10 +19,8 @@ import torch
 from ..compat.flax_params import load_flax_params
 from ..configs import TSNetConfig
 from ..device import resolve_device
-from ..models.tsnet import TSNetModules
+from ..models.tsnet import GEN_SUBNETS, TSNetModules
 from ..nn.vgg import VGG19Features, load_vgg19_npz
-
-GEN_SUBNETS = ("img_enc", "lbl_enc", "fuse_net", "dec")
 
 
 @dataclasses.dataclass

@@ -66,8 +66,9 @@ def make_train_step(state: TrainState, lambda_dec: float = 1.0,
         real_st = torch.cat([b["tar_lbl"], tar], dim=-1)
 
         # D phase: fake from the current generator, detached
-        pred_fake = mods.netD(torch.cat([b["tar_lbl"], rec.detach()], dim=-1))
-        pred_real = mods.netD(real_st)
+        pred_fake = mods.run(mods.netD,
+                             torch.cat([b["tar_lbl"], rec.detach()], dim=-1))
+        pred_real = mods.run(mods.netD, real_st)
         metrics = {"D_fake": lsgan_loss(pred_fake[-1], False),
                    "D_real": lsgan_loss(pred_real[-1], True)}
         metrics["D"] = 0.5 * (metrics["D_fake"] + metrics["D_real"])
@@ -80,7 +81,8 @@ def make_train_step(state: TrainState, lambda_dec: float = 1.0,
         # G phase: against the updated D, which takes no gradient
         mods.netD.requires_grad_(False)
         try:
-            pred_fake = mods.netD(torch.cat([b["tar_lbl"], rec], dim=-1))
+            pred_fake = mods.run(mods.netD,
+                                 torch.cat([b["tar_lbl"], rec], dim=-1))
             with torch.no_grad():
                 pred_real = mods.netD(real_st)
             metrics["G_GAN"] = lsgan_loss(pred_fake[-1], True)
