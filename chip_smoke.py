@@ -92,7 +92,26 @@ non-zero, printing no result, where CUDA or the package is missing.
    same 32-frame chunks, one warp kernel and one K2 a chunk,
    `run_renormalized` against its plain path, `l1`/`psnr`/`ssim` on the
    card against the CPU.
-9. Drives the two kernels that no model path reaches through their own
+9. Runs the face test-time workflow (`[demo]`): a synthetic test set (a
+   subject and a driving clip of 40 ramp-and-noise PNG frames at 320x320,
+   faces of different sizes, so the retargeter rescales) through
+   `cli.demo_face.main` at the full width of `face_config()` with seeded
+   random weights, in its default tier (K3-nf) and with `--fast-tail`
+   (K1): 40 frames in two 32-frame chunks, the second padded by wrapping,
+   with the launch counts zeroed just before and read just after (one
+   warp kernel and one K2 a chunk, nothing else); the reconstruction
+   against `ClipInference(use_kernels=False)` on the same sample and
+   weights (0.01 mean L1), each montage PNG decoded by the port against
+   the frames it was built from, the GIF's header, frame count and
+   delays; the CLI's frames/s, the PNGs' wall time and the GIF's encode
+   time. Then `cli.eval_snapshots.main` over `[loop]`'s snapshots (one CSV
+   row each, finite metrics, restore and inference seconds),
+   `cli.quick_start.main([])` (one step at batch 4, 256x256, under
+   torch.profiler: one K3-flow, K4 and K2; finite losses; ms and peak
+   memory) and `cli.profile_stages` on a 64-frame clip in the bit-parity
+   tier (its SUM of stages within 15% of `[fps]`'s clip) and its default
+   tier, and the train stages at batch 15.
+10. Drives the two kernels that no model path reaches through their own
    entry points at full width, launch counts zeroed just before each call
    and read just after (exactly one launch a call): K5 through
    `transformation_warp(use_kernels=True)` at B=15, 32x32, C=512 (temps
@@ -105,7 +124,7 @@ non-zero, printing no result, where CUDA or the package is missing.
    forced, with its launches timed apart; the phase identity with
    `space_to_depth`; `F.instance_norm` on the NCHW or the (B, C/G, N*G)
    view as a yardstick).
-10. Prints one `kernels` JSON line, the card line again, and last
+11. Prints one `kernels` JSON line, the card line again, and last
    `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --parts
@@ -146,21 +165,26 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 from torch.profiler import ProfilerActivity, profile
 
-from wacv23_tsnet_tpu_torch.cli import train_face
+from wacv23_tsnet_tpu_torch.cli import (demo_face, eval_snapshots,
+                                        profile_stages, quick_start,
+                                        train_face)
 from wacv23_tsnet_tpu_torch.cli.demo_face import load_params
 from wacv23_tsnet_tpu_torch.cli.serve import Server, make_handler
 from wacv23_tsnet_tpu_torch.compat import (export_flax_params,
                                            save_reference_checkpoint)
 from wacv23_tsnet_tpu_torch.configs import face_config
-from wacv23_tsnet_tpu_torch.data.datasets import FaceDatasetTrain
-from wacv23_tsnet_tpu_torch.data.image_io import write_png
+from wacv23_tsnet_tpu_torch.data.datasets import (FaceDatasetTest,
+                                                  FaceDatasetTrain)
+from wacv23_tsnet_tpu_torch.data.image_io import read_png, write_png
 from wacv23_tsnet_tpu_torch.data.rasterize_device import rasterize_face_clip
-from wacv23_tsnet_tpu_torch.infer import ClipInference, RetargetSession
+from wacv23_tsnet_tpu_torch.infer import (ClipInference, RetargetSession,
+                                          to_display_rgb)
 from wacv23_tsnet_tpu_torch.infer import metrics as im
 from wacv23_tsnet_tpu_torch.models import (TSNet, TSNetModules,
                                            tsnet_forward, tsnet_forward_clip)
 from wacv23_tsnet_tpu_torch.models.tsnet import (decode_with_sources,
-                                                 encode_sources)
+                                                 encode_sources,
+                                                 label_features, propagate)
 from wacv23_tsnet_tpu_torch.nn import fuse_clip
 from wacv23_tsnet_tpu_torch.ops import conv_kernels as ck
 from wacv23_tsnet_tpu_torch.ops import cuda_build
@@ -171,10 +195,7 @@ from wacv23_tsnet_tpu_torch.ops import warp_kernels as wk
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
 from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
 from wacv23_tsnet_tpu_torch.ops.precision import tf32
-from wacv23_tsnet_tpu_torch.ops.resize import resize_nearest
-from wacv23_tsnet_tpu_torch.ops.similarity import (
-    transformation_warp, transformation_warp_clip,
-    transformation_warp_clip_mean)
+from wacv23_tsnet_tpu_torch.ops.similarity import transformation_warp
 from wacv23_tsnet_tpu_torch.ops.warp import space_to_depth
 from wacv23_tsnet_tpu_torch.train import (GEN_SUBNETS, create_train_state,
                                           find_latest_checkpoint,
@@ -269,6 +290,19 @@ LOOP_PRINT_FREQ = 7
 FAST_TIER = dict(precision="high", bwd_precision="default", fast_tail=True)
 GRAD_COS_FLOOR = 0.99
 TIER_STEPS = 10
+# the demo phase: a synthetic face test set (a subject and a driving clip
+# of DEMO_FRAMES PNG frames at LOOP_HW^2, faces DEMO_FACE_R apart in size)
+# through cli.demo_face in two chunks of CHUNK frames, the second padded by
+# wrapping; its tiers, each held against the plain path at the 0.01
+# mean-L1 budget of QUIRKS.md "Numerics decisions" ("high" is one of the
+# fast tiers there), and the kernels each launches a chunk
+DEMO_FRAMES = 40
+DEMO_FACE_R = {"subject": 70, "driving": 52}
+DEMO_TIERS = {"default": ([], "transform_warp_pairs_nf"),
+              "fast-tail": (["--fast-tail"], "transform_warp_pairs_mean")}
+DEMO_TOL = 0.01
+# profile_stages' SUM of stages against [fps]'s clip in the same tier
+STAGE_SUM_TOL = 0.15
 
 
 def check(cond: bool, msg: str) -> None:
@@ -592,18 +626,10 @@ def stage_ms(mods, src, tar_lbl, tar_bbox, fused: bool = False) -> dict:
         mark("start")
         pack = encode_sources(mods, *src)
         mark("encode_sources")
-        tar_fea = mods.lbl_enc(tar_lbl.to(mods.dtype))
-        tar_fea_n = l2_normalize(tar_fea.float())
-        h, w = tar_fea.shape[1:3]
-        tar_mask = resize_nearest(tar_bbox[..., None], (h, w))[..., 0]
+        tar_fea, tar_fea_n, tar_mask = label_features(mods, tar_lbl,
+                                                      tar_bbox)
         mark("lbl_enc")
-        warp_in = (pack["fea"].float(), pack["fea_n"], pack["mask"],
-                   tar_fea_n, tar_mask)
-        if mods.dec.dtype == torch.bfloat16:
-            prop = transformation_warp_clip_mean(*warp_in,
-                                                 out_dtype=torch.bfloat16)
-        else:
-            prop = transformation_warp_clip(*warp_in).mean(dim=0)
+        prop = propagate(mods, pack, tar_fea_n, tar_mask)
         mark("transformation")
         syn = fuse_clip(mods.fuse_net, pack["fea"].float(), tar_fea.float())
         mark("fuse_clip")
@@ -1723,7 +1749,7 @@ def clip_inference_check(line: str, gen_tree: dict, lbl_root: str,
     return report
 
 
-def loop_phase(line: str) -> dict:
+def loop_phase(line: str, tmp: str) -> dict:
     """Training from files on disk through `cli.train_face.main` at the
     full width of face_config(), bit-parity tier, batch 15: a synthetic
     dataset written with the port's PNG writer, LOOP_STEPS steps (launch
@@ -1734,97 +1760,313 @@ def loop_phase(line: str) -> dict:
     resume from the final snapshot (`--restore-from --set-start`),
     checked equal to the saved state and stepped once under the profiler;
     the fast train tier (`train_tiers`) and `ClipInference`
-    (`clip_inference_check`)."""
+    (`clip_inference_check`). Its files go to `tmp`: the dataset to
+    `data/`, the run and its snapshots to `run/`."""
     report = {}
-    root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_",
-                                     dir=root) as tmp:
-        t0 = time.perf_counter()
-        lbl_root, img_root = write_face_dataset(os.path.join(tmp, "data"))
-        report["dataset_write_s"] = time.perf_counter() - t0
-        run_root = os.path.join(tmp, "run")
-        args = ["--label-path", lbl_root, "--image-path", img_root,
-                "--root-dir", run_root, "--batch-size", str(TRAIN_BATCH),
-                "--n-frame-total", str(LOOP_FRAMES), "--n-source", "3",
-                "--num-videos", str(LOOP_VIDEOS),
-                "--print-freq", str(LOOP_PRINT_FREQ)]
+    t0 = time.perf_counter()
+    lbl_root, img_root = write_face_dataset(os.path.join(tmp, "data"))
+    report["dataset_write_s"] = time.perf_counter() - t0
+    run_root = os.path.join(tmp, "run")
+    args = ["--label-path", lbl_root, "--image-path", img_root,
+            "--root-dir", run_root, "--batch-size", str(TRAIN_BATCH),
+            "--n-frame-total", str(LOOP_FRAMES), "--n-source", "3",
+            "--num-videos", str(LOOP_VIDEOS),
+            "--print-freq", str(LOOP_PRINT_FREQ)]
 
-        # steps 2..LOOP_STEPS timed between two synchronized stamps
-        stamps = {}
-        inner = TSNet.optimize_parameters_on
+    # steps 2..LOOP_STEPS timed between two synchronized stamps
+    stamps = {}
+    inner = TSNet.optimize_parameters_on
 
-        def stamped(self, batch):
-            inner(self, batch)
-            if self.state.step in (1, LOOP_STEPS):
-                torch.cuda.synchronize()
-                stamps[self.state.step] = time.perf_counter()
-
-        TSNet.optimize_parameters_on = stamped
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            cuda_build.reset_launches()
-            t0 = time.perf_counter()
-            model, timer = train_face.main(
-                args + ["--final-step", str(LOOP_STEPS)])
+    def stamped(self, batch):
+        inner(self, batch)
+        if self.state.step in (1, LOOP_STEPS):
             torch.cuda.synchronize()
-            report["main_s"] = time.perf_counter() - t0
-            launches = dict(cuda_build.LAUNCHES)
-        finally:
-            TSNet.optimize_parameters_on = inner
-        per_step = {k: v / LOOP_STEPS for k, v in launches.items() if v}
-        check(model.state.step == LOOP_STEPS,
-              f"loop: trained to step {model.state.step}")
-        check(per_step == {k: 1 for k in TRAIN_KERNELS},
-              f"loop: launches per step {per_step}")
-        losses = model.get_current_losses()
-        check(all(np.isfinite(v) for v in losses.values()),
-              f"loop: non-finite loss {losses}")
-        report.update({
-            "ms_per_step_2_to_last": 1e3 * (stamps[LOOP_STEPS] - stamps[1])
-            / (LOOP_STEPS - 1),
-            "data_wait_s": timer.data.sum, "clip_batches_s": timer.batch.sum,
-            "data_wait_share": timer.data.sum / timer.batch.sum,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches_per_step": per_step, "last_losses": losses})
-        snaps = os.path.join(run_root, "snapshots")
-        snap = find_latest_checkpoint(snaps)
-        check(os.path.basename(snap) == f"TSNet_S{LOOP_STEPS:06d}.msgpack",
-              f"loop: snapshot {snap}")
-        history = open(os.path.join(run_root, "history.csv")).read()
-        check(len(history.splitlines()) == 1 + LOOP_STEPS // LOOP_PRINT_FREQ,
-              f"loop: history.csv {history!r}")
-        print(f"[loop] {LOOP_STEPS} steps through cli.train_face at batch "
-              f"{TRAIN_BATCH}: {json.dumps(report)} | {line}", flush=True)
+            stamps[self.state.step] = time.perf_counter()
 
-        # resume: the snapshot restores to the exact state, then one step
-        fresh = create_train_state(face_config(), device="cuda", seed=7)
-        restore_checkpoint(snap, fresh)
-        bad = _train_state_equal(model.state, fresh)
-        check(not bad, f"loop: restored state differs: {bad[:8]}")
-        gen_tree = export_flax_params(model.mods)
-        del fresh, model
-        torch.cuda.empty_cache()
+    TSNet.optimize_parameters_on = stamped
+    try:
+        torch.cuda.reset_peak_memory_stats()
         cuda_build.reset_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]):
-            resumed, _ = train_face.main(
-                args + ["--final-step", str(LOOP_STEPS + 1), "--set-start",
-                        "--restore-from", snap])
-            torch.cuda.synchronize()
-        launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
-        check(resumed.state.step == LOOP_STEPS + 1,
-              f"loop: resumed to step {resumed.state.step}")
-        check(launches == {k: 1 for k in TRAIN_KERNELS},
-              f"loop: the resumed step's launches (profiled) {launches}")
-        report["resume"] = {"step": resumed.state.step,
-                            "launches_profiled_step": launches}
-        del resumed
+        t0 = time.perf_counter()
+        model, timer = train_face.main(
+            args + ["--final-step", str(LOOP_STEPS)])
+        torch.cuda.synchronize()
+        report["main_s"] = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+    finally:
+        TSNet.optimize_parameters_on = inner
+    per_step = {k: v / LOOP_STEPS for k, v in launches.items() if v}
+    check(model.state.step == LOOP_STEPS,
+          f"loop: trained to step {model.state.step}")
+    check(per_step == {k: 1 for k in TRAIN_KERNELS},
+          f"loop: launches per step {per_step}")
+    losses = model.get_current_losses()
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"loop: non-finite loss {losses}")
+    report.update({
+        "ms_per_step_2_to_last": 1e3 * (stamps[LOOP_STEPS] - stamps[1])
+        / (LOOP_STEPS - 1),
+        "data_wait_s": timer.data.sum, "clip_batches_s": timer.batch.sum,
+        "data_wait_share": timer.data.sum / timer.batch.sum,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_step": per_step, "last_losses": losses})
+    snaps = os.path.join(run_root, "snapshots")
+    snap = find_latest_checkpoint(snaps)
+    check(os.path.basename(snap) == f"TSNet_S{LOOP_STEPS:06d}.msgpack",
+          f"loop: snapshot {snap}")
+    history = open(os.path.join(run_root, "history.csv")).read()
+    check(len(history.splitlines()) == 1 + LOOP_STEPS // LOOP_PRINT_FREQ,
+          f"loop: history.csv {history!r}")
+    print(f"[loop] {LOOP_STEPS} steps through cli.train_face at batch "
+          f"{TRAIN_BATCH}: {json.dumps(report)} | {line}", flush=True)
+
+    # resume: the snapshot restores to the exact state, then one step
+    fresh = create_train_state(face_config(), device="cuda", seed=7)
+    restore_checkpoint(snap, fresh)
+    bad = _train_state_equal(model.state, fresh)
+    check(not bad, f"loop: restored state differs: {bad[:8]}")
+    gen_tree = export_flax_params(model.mods)
+    del fresh, model
+    torch.cuda.empty_cache()
+    cuda_build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]):
+        resumed, _ = train_face.main(
+            args + ["--final-step", str(LOOP_STEPS + 1), "--set-start",
+                    "--restore-from", snap])
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    check(resumed.state.step == LOOP_STEPS + 1,
+          f"loop: resumed to step {resumed.state.step}")
+    check(launches == {k: 1 for k in TRAIN_KERNELS},
+          f"loop: the resumed step's launches (profiled) {launches}")
+    report["resume"] = {"step": resumed.state.step,
+                        "launches_profiled_step": launches}
+    del resumed
+    torch.cuda.empty_cache()
+    print(f"[loop] resume from {os.path.basename(snap)}: "
+          f"{json.dumps(report['resume'])} | {line}", flush=True)
+    report["tiers"] = train_tiers(line)
+    report["clip_inference"] = clip_inference_check(
+        line, gen_tree, lbl_root, img_root)
+    return report
+
+
+def write_face_pair(root: str, seed: int = 1) -> None:
+    """A subject and a driving clip under root/{images,labels}/<clip>/:
+    DEMO_FRAMES PNG frames at LOOP_HW^2 each (a colour ramp with seeded
+    noise, written by the port's PNG writer) and a landmark file each,
+    the two faces of different sizes."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:LOOP_HW, :LOOP_HW]
+    for clip, r in DEMO_FACE_R.items():
+        os.makedirs(os.path.join(root, "labels", clip))
+        os.makedirs(os.path.join(root, "images", clip))
+        for f in range(DEMO_FRAMES):
+            kp = _face_landmarks(rng, 160 + f % 7, 170 - f % 5, r + f % 3)
+            np.savetxt(os.path.join(root, "labels", clip, f"{f:05d}.txt"),
+                       kp, delimiter=",")
+            ramp = np.stack([xx // 2 + 3 * f, yy // 2 + r, (xx + yy) // 3],
+                            axis=-1)
+            img = (ramp + rng.integers(0, 32, ramp.shape)) % 256
+            write_png(os.path.join(root, "images", clip, f"{f:05d}.png"),
+                      img.astype(np.uint8))
+
+
+def gif_frames(data: bytes) -> tuple[tuple[int, int], list[int]]:
+    """The (width, height) of a GIF and each frame's delay (centiseconds),
+    walking its blocks (Pillow is not on every machine this runs on)."""
+    check(data[:6] == b"GIF89a", f"demo: GIF header {data[:6]!r}")
+    size = (data[6] | data[7] << 8, data[8] | data[9] << 8)
+    flags = data[10]
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    delays, pending = [], None
+
+    def skip_sub_blocks(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:                         # extension
+            if data[pos + 1] == 0xF9:
+                pending = data[pos + 4] | data[pos + 5] << 8
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x2C:                       # image
+            packed = data[pos + 9]
+            pos += 10 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)            # after the code size
+            delays.append(pending)
+            pending = None
+        else:
+            raise RuntimeError(f"chip_smoke: demo: GIF block {data[pos]:#x}")
+    return size, delays
+
+
+def demo_tier(line: str, tier: str, root: str, base_args: list,
+              sample: dict) -> dict:
+    """One tier of `cli.demo_face.main` (see `demo_phase`)."""
+    extra, warp_kernel = DEMO_TIERS[tier]
+    out_dir = os.path.join(root, f"out_{tier}")
+    cuda_build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = demo_face.main(base_args + extra + ["--out-dir", out_dir])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    chunks = -(-DEMO_FRAMES // CHUNK)
+    check(launches == {warp_kernel: chunks, "instance_norm_mean": chunks},
+          f"demo {tier}: launches {launches}")
+
+    # the reconstruction against the plain path on the same sample and
+    # weights (the CLI's random init, seed 0)
+    rec = res["rec"]
+    cfg = dataclasses.replace(face_config(), precision="high",
+                              fast_tail=bool(extra))
+    hw = cfg.image_size
+    check(rec.shape == (DEMO_FRAMES, 3, hw, hw) and np.isfinite(rec).all(),
+          f"demo {tier}: reconstruction")
+    src, tar, idx = sample["src"], sample["tar"], res["ref_idx"]
+    plain = ClipInference(cfg, TSNetModules(cfg, seed=0), use_kernels=False)
+    want = plain.run_renormalized(src["img"][idx], src["lbl"][idx],
+                                  src["bbox"][idx], tar["lbl"], tar["bbox"])
+    del plain
+    err = np.abs(rec - want)
+    report = {"launches": launches, "main_s": main_s,
+              "frames_per_s": res["frames_per_s"],
+              "montage_pngs_s": res["montage_s"],
+              "gif_encode_ms": 1e3 * res["gif_s"],
+              "vs_plain_mean_abs": float(err.mean()),
+              "vs_plain_max_abs": float(err.max()),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    check(report["vs_plain_mean_abs"] <= DEMO_TOL,
+          f"demo {tier}: kernel path vs plain path {report}")
+
+    # each montage PNG, decoded by the port, against the frames it holds
+    mean = face_config().img_mean_array()
+    for i, name in enumerate(res["names"]):
+        want_row = np.concatenate([
+            to_display_rgb(src["img"][i] / 255.0, mean),
+            to_display_rgb(tar["img"][i] / 255.0, mean),
+            to_display_rgb(rec[i], mean)], axis=1)
+        check(np.array_equal(read_png(os.path.join(out_dir, name)),
+                             want_row), f"demo {tier}: montage {name}")
+    with open(res["gif"], "rb") as f:
+        data = f.read()
+    size, delays = gif_frames(data)
+    check(size == (3 * hw, hw) and delays == [10] * DEMO_FRAMES,
+          f"demo {tier}: GIF of {size} with delays {delays}")
+    report["gif_bytes"] = len(data)
+    print(f"[demo] {tier}: {json.dumps(report)} | {line}", flush=True)
+    return report
+
+
+def demo_phase(line: str, root: str, snapshot_dir: str,
+               fps: dict) -> dict:
+    """The face test-time workflow at the full width of face_config():
+    `cli.demo_face.main` on a synthetic subject/driving pair
+    (`write_face_pair`) in its default tier (K3-nf) and with
+    `--fast-tail` (K1), launch counts zeroed just before each and read
+    just after (one warp kernel and one K2 a chunk, nothing else), its
+    reconstruction against the plain path, each montage PNG against its
+    frames, the GIF's size, frame count and delays; `cli.eval_snapshots`
+    over [loop]'s snapshots; one `cli.quick_start` step at batch 4 under
+    torch.profiler (one K3-flow, K4 and K2); `cli.profile_stages` on a
+    64-frame clip in the bit-parity tier (its SUM of stages held within
+    STAGE_SUM_TOL of [fps]'s clip) and its default tier, and the train
+    stages at batch 15. Files go to `root`."""
+    report = {}
+    data_root = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    write_face_pair(data_root)
+    report["dataset_write_s"] = time.perf_counter() - t0
+    base_args = ["--data-root", data_root, "--subject", "subject",
+                 "--driving", "driving", "--max-frames", str(DEMO_FRAMES),
+                 "--chunk", str(CHUNK)]
+    paths = [os.path.join(data_root, kind, clip)
+             for clip in DEMO_FACE_R for kind in ("images", "labels")]
+    t0 = time.perf_counter()
+    hw = face_config().image_size
+    sample = FaceDatasetTest(*paths, img_size=(hw, hw),
+                             max_frame_num=DEMO_FRAMES)[0]
+    report["test_set_load_s"] = time.perf_counter() - t0
+    for tier in DEMO_TIERS:
+        report[tier] = demo_tier(line, tier, root, base_args, sample)
         torch.cuda.empty_cache()
-        print(f"[loop] resume from {os.path.basename(snap)}: "
-              f"{json.dumps(report['resume'])} | {line}", flush=True)
-        report["tiers"] = train_tiers(line)
-        report["clip_inference"] = clip_inference_check(
-            line, gen_tree, lbl_root, img_root)
+
+    # eval_snapshots over the loop's snapshots, the subject clip as data
+    snaps = sorted(f for f in os.listdir(snapshot_dir)
+                   if f.endswith(".msgpack"))
+    t0 = time.perf_counter()
+    rows = eval_snapshots.main(["--snapshot-dir", snapshot_dir,
+                                "--data-root", data_root, "--subject",
+                                "subject", "--out-dir",
+                                os.path.join(root, "eval")])
+    report["eval"] = {"snapshots": snaps, "rows": rows,
+                      "main_s": time.perf_counter() - t0}
+    check(len(rows) == len(snaps) >= 1
+          and all(np.isfinite([r[k] for k in ("l1", "psnr", "ssim")]).all()
+                  for r in rows), f"demo: eval_snapshots rows {rows}")
+    csv = open(os.path.join(root, "eval", "eval_metrics.csv")).read()
+    check(len(csv.splitlines()) == 1 + len(snaps),
+          f"demo: eval_metrics.csv {csv!r}")
+    print(f"[demo] eval_snapshots: {json.dumps(report['eval'])} | {line}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # quick_start: one step at batch 4, 256^2, under the profiler
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        model = quick_start.main([])
+        torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    losses = model.get_current_losses()
+    check(launches == {k: 1 for k in TRAIN_KERNELS},
+          f"demo: quick_start launches {launches}")
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"demo: quick_start losses {losses}")
+    model.optimize_parameters()                    # one more, timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.optimize_parameters()
+    torch.cuda.synchronize()
+    report["quick_start"] = {
+        "launches_profiled": launches, "main_s": main_s,
+        "ms_per_step": 1e3 * (time.perf_counter() - t0),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses}
+    del model
+    torch.cuda.empty_cache()
+    print(f"[demo] quick_start: {json.dumps(report['quick_start'])} | "
+          f"{line}", flush=True)
+
+    # profile_stages: the clip in the bit-parity tier against [fps]'s
+    # clip, the CLI's default tier, and the train stages
+    stages = {}
+    for name, argv in (("bit-parity", ["--precision", "highest",
+                                       "--no-fast-tail"]),
+                       ("default", [])):
+        print(f"[demo] profile_stages {name}:", flush=True)
+        stages[name] = profile_stages.main(
+            ["--frames", str(CLIP_FRAMES)] + argv)
+        torch.cuda.empty_cache()
+    ratio = stages["bit-parity"]["sum_ms"] / fps["bit-parity"]["clip_ms"]
+    stages["bit-parity"]["sum_over_fps_clip"] = ratio
+    stages["default"]["sum_over_bench_fps_clip"] = (
+        stages["default"]["sum_ms"] / fps["bench"]["clip_ms"])
+    check(abs(ratio - 1.0) <= STAGE_SUM_TOL,
+          f"demo: profile_stages SUM {stages['bit-parity']['sum_ms']:.2f} ms "
+          f"against [fps]'s bit-parity clip {fps['bit-parity']['clip_ms']:.2f}")
+    print("[demo] profile_stages --train:", flush=True)
+    stages["train"] = profile_stages.main(["--train", "--batch-size",
+                                           str(TRAIN_BATCH)])
+    torch.cuda.empty_cache()
+    report["profile_stages"] = stages
+    print(f"[demo] profile_stages: {json.dumps(stages)} | {line}", flush=True)
     return report
 
 
@@ -2185,13 +2427,25 @@ def main() -> int:
     print(f"[serve] phase {time.perf_counter() - t0:.1f} s", flush=True)
     del state
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    report["loop"] = loop_phase(line)
-    print(f"[loop] phase {time.perf_counter() - t0:.1f} s; ms/step over "
-          f"steps 2-{LOOP_STEPS} from disk "
-          f"{report['loop']['ms_per_step_2_to_last']:.2f} against [train]'s "
-          f"fixed batch {report['train']['ms_per_step']:.2f} | {line}",
-          flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_",
+                                     dir=root) as tmp:
+        t0 = time.perf_counter()
+        report["loop"] = loop_phase(line, tmp)
+        print(f"[loop] phase {time.perf_counter() - t0:.1f} s; ms/step "
+              f"over steps 2-{LOOP_STEPS} from disk "
+              f"{report['loop']['ms_per_step_2_to_last']:.2f} against "
+              f"[train]'s fixed batch {report['train']['ms_per_step']:.2f} | "
+              f"{line}", flush=True)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_",
+                                         dir=root) as demo_root:
+            t0 = time.perf_counter()
+            report["demo"] = demo_phase(
+                line, demo_root, os.path.join(tmp, "run", "snapshots"),
+                {tier: report[tier] for tier in ("bit-parity", "bench")})
+            print(f"[demo] phase {time.perf_counter() - t0:.1f} s | {line}",
+                  flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     flow = flow_phase(line)

@@ -785,3 +785,65 @@ def test_instance_norm_fused_refuses_a_tensor_that_requires_grad(dev):
     assert cuda_build.LAUNCHES["instance_norm_fused"] == 0
     with torch.no_grad():
         _assert_close(instance_norm_fused(x), instance_norm_fused_plain(x))
+
+
+def _write_face_pair(root, frames, hw=96, seed=3):
+    """A toy subject/driving pair: ramp-plus-noise PNG frames and
+    68-landmark files, the two faces of different sizes."""
+    import os
+
+    from wacv23_tsnet_tpu_torch.data.image_io import write_png
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:hw, :hw]
+    t = np.linspace(np.pi * 0.1, np.pi * 0.9, 17)
+    for clip, r in (("subject", 22.0), ("driving", 16.0)):
+        os.makedirs(os.path.join(root, "labels", clip))
+        os.makedirs(os.path.join(root, "images", clip))
+        for f in range(frames):
+            cx, cy = 48 + f % 3, 50 - f % 2
+            jaw = np.stack([cx + r * np.cos(t + np.pi / 2) * 1.2,
+                            cy + r * np.sin(t)], 1)
+            rest = rng.uniform(-r / 2, r / 2, (51, 2)) + [cx, cy - r / 5]
+            np.savetxt(os.path.join(root, "labels", clip, f"{f:05d}.txt"),
+                       np.concatenate([jaw, rest]), delimiter=",")
+            img = np.stack([xx + 2 * f, yy + int(r), xx + yy], -1)
+            img = (img + rng.integers(0, 32, img.shape)) % 256
+            write_png(os.path.join(root, "images", clip, f"{f:05d}.png"),
+                      img.astype(np.uint8))
+
+
+@pytest.mark.parametrize("tier", ["default", "fast-tail"])
+def test_demo_face_toy_on_the_card(dev, tmp_path, tier):
+    """`cli.demo_face.main` at the toy config on the card: 40 frames in
+    two 32-frame chunks launch one warp kernel (K3-nf, or K1 with
+    --fast-tail) and one K2 a chunk, as chip_smoke.py's [demo] does; the
+    reconstruction within the 0.01 mean-L1 budget of the same run on the
+    CPU, and the GIF byte for byte what the writer makes of its montage
+    PNGs."""
+    import os
+
+    from wacv23_tsnet_tpu_torch.cli import demo_face
+    from wacv23_tsnet_tpu_torch.data.gif import encode_gif
+    from wacv23_tsnet_tpu_torch.data.image_io import read_png
+    root = str(tmp_path / "data")
+    _write_face_pair(root, 40)
+    args = ["--data-root", root, "--subject", "subject", "--driving",
+            "driving", "--max-frames", "40", "--chunk", "32",
+            "--n-source", "2"] + (["--fast-tail"] if tier == "fast-tail"
+                                  else [])
+    warp = {"default": "transform_warp_pairs_nf",
+            "fast-tail": "transform_warp_pairs_mean"}[tier]
+    cuda_build.reset_launches()
+    res = demo_face.main(args + ["--out-dir", str(tmp_path / "card")],
+                         base_config=toy_config())
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    assert launches == {warp: 2, "instance_norm_mean": 2}
+    cpu = demo_face.main(args + ["--out-dir", str(tmp_path / "cpu")],
+                         base_config=toy_config(), device="cpu")
+    assert cpu["names"] == res["names"] and cpu["ref_idx"] == res["ref_idx"]
+    assert np.abs(res["rec"] - cpu["rec"]).mean() <= 0.01
+    frames = [read_png(os.path.join(tmp_path / "card", name))
+              for name in res["names"]]
+    with open(res["gif"], "rb") as f:
+        assert f.read() == encode_gif(frames)

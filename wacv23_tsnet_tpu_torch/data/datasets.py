@@ -1,13 +1,15 @@
-"""Face training dataset (counterpart of the JAX package's
-`data/datasets.py:FaceDatasetTrain`), on the port's own PNG codec and
-resizes (`data.image_io`) instead of Pillow and OpenCV.
+"""Face datasets (counterparts of the JAX package's
+`data/datasets.py:FaceDatasetTrain` and `FaceDatasetTest`), on the port's
+own PNG codec and resizes (`data.image_io`) instead of Pillow and OpenCV.
 
-Each sample is one clip of `n_frame_total` frames of one video: images
-BGR float32 minus the mean, (T, 3, H, W); labels the face-edge class map
-(T, H, W) uint8 0/1; bboxes the landmark-extent masks (T, H, W) uint8 0/1;
-and the label files' names. The random draws (clip start, crop jitter,
-colour jitter, mirror coin) are the JAX package's, in its order, from the
-`rng` given, so one `random.Random(seed)` gives the same clips.
+A training sample is one clip of `n_frame_total` frames of one video:
+images BGR float32 minus the mean, (T, 3, H, W); labels the face-edge
+class map (T, H, W) uint8 0/1; bboxes the landmark-extent masks
+(T, H, W) uint8 0/1; and the label files' names. The random draws (clip
+start, crop jitter, colour jitter, mirror coin) are the JAX package's, in
+its order, from the `rng` given, so one `random.Random(seed)` gives the
+same clips. A test sample is a subject clip and a driving clip in the
+same layout, the driving landmarks retargeted onto the subject's face.
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ from typing import Optional
 import numpy as np
 
 from .augment import apply_jitter, sample_jitter_factors
-from .face import (face_bbox_mask, face_crop_coords, render_face_edges,
-                   shift_keypoints)
+from .face import (FaceRetargeter, face_bbox_mask, face_crop_coords,
+                   render_face_edges, shift_keypoints)
 from .image_io import crop, mirror, read_rgb, resize_frame, resize_mask
+from .smoothing import smooth_keypoint_track
 
 IMG_MEAN = np.array((101.84807705937696, 112.10832843463207,
                      111.65973036298041), dtype=np.float32)
@@ -29,6 +32,12 @@ IMG_MEAN = np.array((101.84807705937696, 112.10832843463207,
 
 def _listdir_sorted(path):
     return sorted(os.listdir(path))
+
+
+def _bgr_mean_sub(frames, mean) -> np.ndarray:
+    """(T, H, W, 3) uint8 RGB -> (T, 3, H, W) float32 BGR minus `mean`."""
+    bgr = np.stack(frames)[..., ::-1].astype(np.float32) - mean
+    return np.ascontiguousarray(bgr.transpose(0, 3, 1, 2))
 
 
 class FaceDatasetTrain:
@@ -98,10 +107,73 @@ class FaceDatasetTrain:
             labels = [mirror(lbl) for lbl in labels]
             bboxes = [mirror(bb) for bb in bboxes]
 
-        bgr = np.stack(frames)[..., ::-1].astype(np.float32) - self.mean
         return {
-            "img": np.ascontiguousarray(bgr.transpose(0, 3, 1, 2)),
+            "img": _bgr_mean_sub(frames, self.mean),
             "lbl": np.stack(labels),
             "bbox": np.stack(bboxes),
             "names": out_names,
         }
+
+
+class FaceDatasetTest:
+    """One subject clip and one driving clip, each a directory of
+    68-landmark files (`*.txt`) beside a directory of PNG frames of the
+    same names. Each clip is cropped once, from its frame 0's landmarks;
+    the subject's landmarks fit a `FaceRetargeter`, and the driving
+    landmarks are retargeted onto them, then smoothed over 5 frames.
+    `ds[0]` is {"src": clip, "tar": clip}, each clip as a training sample
+    (`img`, `lbl`, `bbox`, `names`: the image files' names)."""
+
+    def __init__(self, sub_images_path, sub_labels_path, dri_images_path,
+                 dri_labels_path, mean=IMG_MEAN, img_size=(256, 256),
+                 max_frame_num: Optional[int] = None,
+                 image_ext: str = ".png"):
+        if image_ext != ".png":
+            raise ValueError(
+                f"image_ext {image_ext!r}: the port reads .png frames only; "
+                "the JPEG decoder comes with the port of the pose variant")
+        self.paths = (sub_images_path, sub_labels_path,
+                      dri_images_path, dri_labels_path)
+        self.mean = np.asarray(mean, np.float32)
+        self.img_size = tuple(img_size)
+        self.max_frame_num = max_frame_num
+        self.image_ext = image_ext
+
+    def __len__(self):
+        return 1
+
+    def _load_clip(self, images_path, labels_path, retargeter, is_ref):
+        ky_names = _listdir_sorted(labels_path)
+        if self.max_frame_num is not None:
+            ky_names = ky_names[:self.max_frame_num]
+        kys = [np.loadtxt(os.path.join(labels_path, n), delimiter=",")
+               for n in ky_names]
+        coords, _ = face_crop_coords(kys[0], jitter=False)
+        bw = max(1, (coords[1] - coords[0]) // 256)
+        size = (coords[3] - coords[2], coords[1] - coords[0])   # (w, h)
+        kys = [shift_keypoints(k, coords) for k in kys]
+        if is_ref:
+            retargeter.fit_reference(kys)
+        else:
+            kys = list(smooth_keypoint_track(np.stack(
+                retargeter.retarget(kys))))
+
+        imgs, lbls, boxes, names = [], [], [], []
+        for name, ky in zip(ky_names, kys):
+            img_name = name.replace(".txt", self.image_ext)
+            img = crop(read_rgb(os.path.join(images_path, img_name)), coords)
+            imgs.append(resize_frame(img, self.img_size))
+            lbls.append(resize_mask(render_face_edges(ky, size, bw=bw),
+                                    self.img_size))
+            boxes.append(resize_mask(face_bbox_mask(ky, size),
+                                     self.img_size))
+            names.append(img_name)
+        return {"img": _bgr_mean_sub(imgs, self.mean), "lbl": np.stack(lbls),
+                "bbox": np.stack(boxes), "names": names}
+
+    def __getitem__(self, index: int) -> dict:
+        sub_img, sub_lbl, dri_img, dri_lbl = self.paths
+        retargeter = FaceRetargeter()
+        src = self._load_clip(sub_img, sub_lbl, retargeter, is_ref=True)
+        tar = self._load_clip(dri_img, dri_lbl, retargeter, is_ref=False)
+        return {"src": src, "tar": tar}

@@ -1,7 +1,8 @@
 """68-landmark face geometry (the port's own copy of the JAX package's
-`data/face.py`): the part list, the edge-map rasterizer of the training
-labels, the landmark-extent bbox, the face-anchored crop box and the
-shift into crop coordinates."""
+`data/face.py`): the part list, the edge-map rasterizer of the labels,
+the landmark-extent bbox, the face-anchored crop box, the shift into
+crop coordinates, and the cross-identity retargeter of the test set
+(`FaceRetargeter`)."""
 
 from __future__ import annotations
 
@@ -23,6 +24,19 @@ FACE_PART_LIST = [
     [list(range(48, 55)), [54, 55, 56, 57, 58, 59, 48],
      list(range(60, 65)), [64, 65, 66, 67, 60]],             # mouth + tongue
 ]
+
+# per-part landmark groups for proportion retargeting
+# (reference dataset_video_face.py:425-431)
+RETARGET_PART_LIST = [
+    [0, 16], [1, 15], [2, 14], [3, 13], [4, 12], [5, 11], [6, 10], [7, 9, 8],
+    [17, 26], [18, 25], [19, 24], [20, 23], [21, 22],
+    [27], [28], [29], [30], [31, 35], [32, 34], [33],
+    [36, 45], [37, 44], [38, 43], [39, 42], [40, 47], [41, 46],
+    [48, 54], [49, 53], [50, 52], [51], [55, 59], [56, 58], [57],
+    [60, 64], [61, 63], [62], [65, 67], [66],
+]
+
+CENTRAL_KEYPOINT = 8  # the chin centre anchors the face coordinate frame
 
 
 def render_face_edges(keypoints: np.ndarray, size, bw: int = 1) -> np.ndarray:
@@ -89,3 +103,70 @@ def shift_keypoints(keypoints: np.ndarray, crop_coords) -> np.ndarray:
     out[:, 0] -= crop_coords[2]
     out[:, 1] -= crop_coords[0]
     return out
+
+
+class FaceRetargeter:
+    """Rescale driving-face part distances to the subject's proportions.
+
+    `fit_reference(subject_frames)` measures the subject's per-part mean
+    distances; `retarget(driving_frames)` computes per-part scale factors
+    from the driving clip's own statistics and remaps every frame:
+    pts' = (pts - part_centre) * sx + (part_centre - face_centre) * sy
+    + face_centre (reference normalize_faces, dataset_video_face.py
+    :411-454). Float64, with the JAX package's order of sums, so the
+    results are equal to its.
+    """
+
+    def __init__(self):
+        self.ref_dist_x = None
+        self.ref_dist_y = None
+        self.img_scale = None
+
+    @staticmethod
+    def _part_stats(frames, part):
+        dists_x, dists_y = [], []
+        for kp in frames:
+            pts = kp[part]
+            pts_cen = pts.mean(axis=0)
+            face_cen = kp[[CENTRAL_KEYPOINT]].mean(axis=0)
+            for pt in pts:
+                dists_x.append(np.linalg.norm(pt - pts_cen))
+                dists_y.append(np.linalg.norm(pts_cen - face_cen))
+        return (sum(dists_x) / len(dists_x) + 1e-3,
+                sum(dists_y) / len(dists_y) + 1e-3)
+
+    def fit_reference(self, frames: Sequence[np.ndarray]) -> None:
+        n = len(RETARGET_PART_LIST)
+        self.ref_dist_x = [0.0] * n
+        self.ref_dist_y = [0.0] * n
+        for i, part in enumerate(RETARGET_PART_LIST):
+            self.ref_dist_x[i], self.ref_dist_y[i] = self._part_stats(
+                frames, part)
+        self.img_scale = frames[0][:, 0].max() - frames[0][:, 0].min()
+
+    def retarget(self, frames: Sequence[np.ndarray]) -> list[np.ndarray]:
+        if self.img_scale is None:
+            raise RuntimeError("call fit_reference before retarget")
+        frames = [np.array(f, np.float64, copy=True) for f in frames]
+        rel_scale = self.img_scale / (frames[0][:, 0].max()
+                                      - frames[0][:, 0].min())
+        face_centers = [kp[[CENTRAL_KEYPOINT]].mean(axis=0) for kp in frames]
+        for i, part in enumerate(RETARGET_PART_LIST):
+            mean_x, mean_y = self._part_stats(frames, part)
+            sx = self.ref_dist_x[i] / mean_x / rel_scale
+            sy = self.ref_dist_y[i] / mean_y / rel_scale
+            for k, kp in enumerate(frames):
+                pts = kp[part]
+                pts_cen = pts.mean(axis=0)
+                kp[part] = ((pts - pts_cen) * sx
+                            + (pts_cen - face_centers[k]) * sy
+                            + face_centers[k])
+        return frames
+
+
+def retarget_face_keypoints(subject_frames, driving_frames):
+    """The driving frames retargeted onto the subject's proportions (one
+    `FaceRetargeter` fitted and applied)."""
+    r = FaceRetargeter()
+    r.fit_reference(subject_frames)
+    return r.retarget(driving_frames)

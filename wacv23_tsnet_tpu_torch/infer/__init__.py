@@ -1,5 +1,5 @@
-from .pipeline import ClipInference, montage_row, to_display_rgb
+from .pipeline import ClipInference, montage_row, save_gif, to_display_rgb
 from .streaming import RetargetSession
 
-__all__ = ["ClipInference", "RetargetSession", "montage_row",
+__all__ = ["ClipInference", "RetargetSession", "montage_row", "save_gif",
            "to_display_rgb"]

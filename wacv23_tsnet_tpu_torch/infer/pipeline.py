@@ -8,7 +8,8 @@ K3-nf + K2 in the bit-parity tier, K1 + K2 in the bench tier (`fast_tail`).
 `run_renormalized` also renormalizes each frame to the first reference's
 mean and unbiased std on the device (reference demo/demo_face.py:178-198).
 `to_display_rgb` and `montage_row` make the uint8 frames that
-`data.image_io.write_png` writes.
+`data.image_io.write_png` writes, and `save_gif` animates them
+(`data.gif`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from ..compat.flax_params import load_flax_params
 from ..configs import TSNetConfig
+from ..data.gif import write_gif
 from ..device import resolve_device
 from ..models.tsnet import GEN_SUBNETS, TSNetModules, tsnet_forward_clip
 
@@ -30,14 +32,22 @@ class ClipInference:
 
     `params` is a generator tree in the JAX package's layout (what
     `train.restore_generator_params(path)` returns; a trainer snapshot's
-    tree also works, its other entries are ignored)."""
+    tree also works, its other entries are ignored), or generator modules
+    of `cfg` on `device` (`TSNetModules`), which the engine then runs as
+    they are: weights loaded into them later are the engine's."""
 
-    def __init__(self, cfg: TSNetConfig, params: Mapping,
+    def __init__(self, cfg: TSNetConfig, params: Mapping | TSNetModules,
                  use_kernels: bool = True, chunk: int = 32, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.mods = TSNetModules(cfg, device=self.device)
-        load_flax_params(self.mods, {k: params[k] for k in GEN_SUBNETS})
+        if isinstance(params, TSNetModules):
+            if params.cfg != cfg or params.device != self.device:
+                raise ValueError("the modules were built for another "
+                                 "config or device")
+            self.mods = params
+        else:
+            self.mods = TSNetModules(cfg, device=self.device)
+            load_flax_params(self.mods, {k: params[k] for k in GEN_SUBNETS})
         self.use_kernels = use_kernels
         self.chunk = chunk
 
@@ -109,3 +119,10 @@ def to_display_rgb(img_chw: np.ndarray, mean) -> np.ndarray:
 def montage_row(images: Sequence[np.ndarray]) -> np.ndarray:
     """Equally sized (H, W, 3) uint8 images side by side."""
     return np.concatenate([np.asarray(i, np.uint8) for i in images], axis=1)
+
+
+def save_gif(path: str, frames: Sequence[np.ndarray],
+             duration_ms: int = 100) -> None:
+    """(H, W, 3) uint8 RGB frames as a looping GIF, each shown for
+    `duration_ms` (the GIF's delays are in centiseconds)."""
+    write_gif(path, frames, duration_ms=duration_ms)

@@ -207,11 +207,43 @@ def encode_sources(mods: TSNetModules, src_img: torch.Tensor,
         }
 
 
+def label_features(mods: TSNetModules, tar_lbl: torch.Tensor,
+                   tar_bbox: torch.Tensor):
+    """The label encoder's stage of `decode_with_sources`: the driving
+    frames' label features (F, h, w, C) in the encoders' dtype, their
+    f32 L2-normalised form, and the bbox masks at (h, w)."""
+    tar_fea = mods.lbl_enc(tar_lbl.to(mods.dtype))
+    h, w = tar_fea.shape[1:3]
+    return (tar_fea, l2_normalize(tar_fea.float()),
+            resize_nearest(tar_bbox[..., None].float(), (h, w))[..., 0])
+
+
+def propagate(mods: TSNetModules, src_pack: dict, tar_fea_n: torch.Tensor,
+              tar_mask: torch.Tensor,
+              use_kernels: bool = True) -> torch.Tensor:
+    """The transformation stage of `decode_with_sources`: the source
+    features warped to each driving frame and averaged over the sources,
+    (F, h, w, C) in the decoder's dtype."""
+    src_fea = src_pack["fea"].float()
+    temp = mods.cfg.softmax_temp
+    if mods.dec.dtype == torch.bfloat16:
+        # fast tail: K1 folds the mean over sources in and writes bf16
+        return transformation_warp_clip_mean(
+            src_fea, src_pack["fea_n"], src_pack["mask"], tar_fea_n,
+            tar_mask, temp=temp, out_dtype=torch.bfloat16,
+            use_kernels=use_kernels)
+    warped = transformation_warp_clip(
+        src_fea, src_pack["fea_n"], src_pack["mask"], tar_fea_n, tar_mask,
+        temp=temp, use_kernels=use_kernels)
+    return warped.mean(dim=0).to(mods.dtype)
+
+
 def decode_with_sources(mods: TSNetModules, src_pack: dict,
                         tar_lbl: torch.Tensor, tar_bbox: torch.Tensor,
                         use_kernels: bool = True,
                         fused_blocks: bool = False) -> torch.Tensor:
-    """Run F driving frames against a source pack -> (F, H, W, 3) f32.
+    """Run F driving frames against a source pack -> (F, H, W, 3) f32:
+    `label_features`, `propagate`, `fuse_clip` and the decoder.
 
     `use_kernels=False` runs every kernel's plain PyTorch version instead
     (the reference the kernels are held against, as `use_pallas=False`
@@ -219,26 +251,13 @@ def decode_with_sources(mods: TSNetModules, src_pack: dict,
     `fused_blocks=True` runs a bf16 decoder's ResNet blocks through K7
     (the JAX package hard-codes False here).
     """
-    cfg = mods.cfg
     with torch.inference_mode():
-        src_fea = src_pack["fea"].float()
-        tar_fea = mods.lbl_enc(tar_lbl.to(mods.dtype))       # (F, h, w, C)
-        h, w = tar_fea.shape[1:3]
-        tar_fea_n = l2_normalize(tar_fea.float())
-        tar_mask = resize_nearest(tar_bbox[..., None].float(), (h, w))[..., 0]
-        if mods.dec.dtype == torch.bfloat16:
-            # fast tail: K1 folds the mean over sources in and writes bf16
-            prop_fea = transformation_warp_clip_mean(
-                src_fea, src_pack["fea_n"], src_pack["mask"], tar_fea_n,
-                tar_mask, temp=cfg.softmax_temp, out_dtype=torch.bfloat16,
-                use_kernels=use_kernels)
-        else:
-            warped = transformation_warp_clip(
-                src_fea, src_pack["fea_n"], src_pack["mask"], tar_fea_n,
-                tar_mask, temp=cfg.softmax_temp, use_kernels=use_kernels)
-            prop_fea = warped.mean(dim=0).to(mods.dtype)
-        syn_fea = fuse_clip(mods.fuse_net, src_fea, tar_fea.float(),
-                            use_kernels=use_kernels)
+        tar_fea, tar_fea_n, tar_mask = label_features(mods, tar_lbl,
+                                                      tar_bbox)
+        prop_fea = propagate(mods, src_pack, tar_fea_n, tar_mask,
+                             use_kernels=use_kernels)
+        syn_fea = fuse_clip(mods.fuse_net, src_pack["fea"].float(),
+                            tar_fea.float(), use_kernels=use_kernels)
         return mods.dec(prop_fea, syn_fea, fused_blocks=fused_blocks,
                         use_kernels=use_kernels).float()
 
