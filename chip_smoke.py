@@ -124,7 +124,32 @@ non-zero, printing no result, where CUDA or the package is missing.
    forced, with its launches timed apart; the phase identity with
    `space_to_depth`; `F.instance_norm` on the NCHW or the (B, C/G, N*G)
    view as a yardstick).
-11. Prints one `kernels` JSON line, the card line again, and last
+11. Drives the pose variant (`[pose]`, after `[serve]` has freed the
+   train phase's state) at the full width of `pose_config()` (256²,
+   label_nc=25, 3 sources, netD and netDF) with seeded random weights
+   and seeded one-hot pose label maps (body regions; in each batch a
+   face blob, head classes only, neither, and a face at the border):
+   K3-flow and K4 at G=10 and K2 at (3, 10, 32, 32, 1024) in f32 and
+   bf16 against their plain versions; a 64-frame clip in the bit-parity
+   tier (K3-nf + K2) and the JAX package's pose inference tier ("high" +
+   fast_tail + fast_trunk: K1 + K2), launches counted, against the plain
+   path (1e-3 max abs / 0.01 mean L1), the background columns equal to
+   the mean colour exactly, frames/s, stage split and peak memory, and a
+   32-frame `RetargetSession.push_labels` against `decode_with_sources`;
+   `crop_faces` under `torch.cuda.set_sync_debug_mode("error")`; the
+   first train step at batch 10 through the kernels, the plain versions
+   and the plain versions on nudged inputs (the 16 metrics, netD and
+   netDF gradients, each generator subnet's); 20 steps (one K3-flow, K4
+   and K2 a step; ms/step over steps 2-20, stage split, peak memory);
+   the trained state saved and restored bit for bit (netDF and its Adam
+   moments); the fast train tier's ms/step, and the cosines of its
+   generator gradient (the G-phase loss at the seeded discriminators, as
+   the JAX package measured its tiers) against "high" at temp 100 and
+   the bit-parity tier at temp 10 (each >= 0.9), and against the
+   bit-parity tier at temp 100, printed.
+12. Prints one `kernels` JSON line (with each kernel's launches on the
+   pose path, `pose_launches`, and for K3-flow, K4 and K2 its check at
+   the pose train shape, `pose`), the card line again, and last
    `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --parts
@@ -139,11 +164,16 @@ only the median of ten 32-frame session requests in the bit-parity and
 bench tiers (the main run times one request, after its kernel checks);
 both through entry points that every version of the port has, so that
 loaded beside an earlier tree's package they read that tree the same way.
+
+    python3 chip_smoke.py --pose
+
+builds the kernels and runs only the pose phase (step 11).
 """
 
 from __future__ import annotations
 
 import base64
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -172,7 +202,7 @@ from wacv23_tsnet_tpu_torch.cli.demo_face import load_params
 from wacv23_tsnet_tpu_torch.cli.serve import Server, make_handler
 from wacv23_tsnet_tpu_torch.compat import (export_flax_params,
                                            save_reference_checkpoint)
-from wacv23_tsnet_tpu_torch.configs import face_config
+from wacv23_tsnet_tpu_torch.configs import face_config, pose_config
 from wacv23_tsnet_tpu_torch.data.datasets import (FaceDatasetTest,
                                                   FaceDatasetTrain)
 from wacv23_tsnet_tpu_torch.data.image_io import read_png, write_png
@@ -180,10 +210,14 @@ from wacv23_tsnet_tpu_torch.data.rasterize_device import rasterize_face_clip
 from wacv23_tsnet_tpu_torch.infer import (ClipInference, RetargetSession,
                                           to_display_rgb)
 from wacv23_tsnet_tpu_torch.infer import metrics as im
+from wacv23_tsnet_tpu_torch.losses import (feature_matching_loss,
+                                           lsgan_loss, vgg_perceptual_loss)
 from wacv23_tsnet_tpu_torch.models import (TSNet, TSNetModules,
                                            tsnet_forward, tsnet_forward_clip)
-from wacv23_tsnet_tpu_torch.models.tsnet import (decode_with_sources,
+from wacv23_tsnet_tpu_torch.models.tsnet import (crop_faces,
+                                                 decode_with_sources,
                                                  encode_sources,
+                                                 get_face_bbox,
                                                  label_features, propagate)
 from wacv23_tsnet_tpu_torch.nn import fuse_clip
 from wacv23_tsnet_tpu_torch.ops import conv_kernels as ck
@@ -303,6 +337,52 @@ DEMO_TIERS = {"default": ([], "transform_warp_pairs_nf"),
 DEMO_TOL = 0.01
 # profile_stages' SUM of stages against [fps]'s clip in the same tier
 STAGE_SUM_TOL = 0.15
+# the pose phase: pose_config() at full width; the reference's train
+# batch (train_pose.py: 10); the clip tiers with the warp kernel each
+# launches and the one it must not; the fast train tier's generator-
+# gradient cosine against the bit-parity tier: a sanity floor on random
+# weights (the JAX package measured 0.974 between its tiers, printed as
+# a reference)
+POSE_BATCH = 10
+POSE_STEPS = 20
+POSE_TIERS = {
+    "bit-parity": ({}, "transform_warp_pairs_nf",
+                   "transform_warp_pairs_mean"),
+    "pose-fast": (dict(precision="high", fast_tail=True, fast_trunk=True),
+                  "transform_warp_pairs_mean", "transform_warp_pairs_nf"),
+}
+POSE_COS_FLOOR = 0.9
+POSE_JAX_COSINE = 0.974
+# the JAX package compared its fast tier with "high", which on the TPU is
+# three bf16 passes, near fp32; the port's "high" is TF32, whose forward
+# alone turns the generator's gradient by a cosine of ~0.78 at temp 100
+# with random weights (~0.99 at temp 10). So the floor holds the fast
+# tier against "high" at the config's temp, as the JAX package measured
+# it, and against the bit-parity tier at temp 10; the fast tier against
+# the bit-parity tier at temp 100 is printed
+POSE_COS_CASES = (("fast_vs_high", 100.0, True),
+                  ("fast_vs_bit_parity", 10.0, True),
+                  ("fast_vs_bit_parity", 100.0, False),
+                  ("high_vs_bit_parity", 100.0, False))
+POSE_SUBNETS = GEN_SUBNETS + ("netD", "netDF")
+# the G-phase metrics read through the discriminators after their first
+# Adam step, which moves each weight by about its lr whatever the size
+# of its gradient: where the kernel path's netDF gradient has the other
+# sign from the plain path's (their relative L2 differs by ~1e-3 on the
+# 64^2 crops), the weight lands 2 lr away. These metrics are held as the
+# gradients are: within STEP_METRIC_RTOL or NUDGE_MARGIN times the
+# plain path's own difference under the input nudges. One nudge is one
+# sample of that spread: the pose phase takes two, POSE_NUDGES, as the
+# CPU train-step tests do, and holds each quantity against the larger
+POSE_D_READ_METRICS = ("G_GAN", "G_FML", "G", "GF_GAN", "GF_FML", "GF")
+POSE_NUDGES = (1e-6, 1e-5)
+# crop_faces on the card against its CPU run: the card's `arange / 63`
+# differs from the CPU's in the last bit of 30 of 64 values, so a sample
+# position below 256 may move by its ulp, 2^-16, which the bilinear
+# weights multiply by the difference of two neighbouring pixels (below 1
+# for these unit-uniform images)
+CROP_TOL = 1e-4
+POSE_CASES = ("face", "head", "neither", "border")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -453,7 +533,12 @@ def kernel_checks(line: str) -> dict:
         (torch.randn(s, 8, 64, 64, 2 * c, generator=g) * 2 + 1).to(dev),
         IN_TOL["f32"])
     cases.update(fused_tail_cases(g))
+    return check_cases(cases, line)
 
+
+def check_cases(cases: dict, line: str) -> dict:
+    """Each case's kernel against its plain version, and both timed;
+    prints a `[kernel]` line each."""
     results = {}
     for name, case in cases.items():
         got = case["kernel"]()
@@ -902,11 +987,12 @@ def flow_cells(flow, h: int, w: int) -> torch.Tensor:
                         torch.floor(((flow[..., 1] + 1) * h - 1) / 2)], -1)
 
 
-def train_kernel_checks(line: str) -> dict:
-    """K3-flow and K4 against their plain versions at the train shape."""
+def train_kernel_checks(line: str, g: int = TRAIN_BATCH) -> dict:
+    """K3-flow and K4 against their plain versions at the train shape of
+    batch g."""
     dev = torch.device("cuda")
-    g, ns, nf, h, w, c = TRAIN_BATCH, 3, 1, 32, 32, 512
-    t, pairs = h * w, TRAIN_BATCH * 3
+    ns, nf, h, w, c = 3, 1, 32, 32, 512
+    t, pairs = h * w, g * 3
     gen = torch.Generator().manual_seed(1)
     src = torch.randn(g, ns, t, c, generator=gen)
     args = tuple(x.to(dev).contiguous() for x in (
@@ -935,7 +1021,8 @@ def train_kernel_checks(line: str) -> dict:
     res.update(replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:262",
                source="wacv23_tsnet_tpu_torch/csrc/transform_warp.cu")
     results["transform_warp_pairs"] = res
-    print(f"[kernel] transform_warp_pairs (K3-flow, warped + flow, temp 100):"
+    print(f"[kernel] transform_warp_pairs (K3-flow, warped + flow, temp 100, "
+          f"G={g}):"
           f" max_abs_err={res['max_abs_err']:.3e} "
           f"mean_abs_err={res['mean_abs_err']:.3e} (atol, rtol)="
           f"{TOL['f32']} kernel_ms={res['ms']:.4f} "
@@ -984,8 +1071,9 @@ def train_kernel_checks(line: str) -> dict:
                "kernel_vs_float64": rel_err(got, exact),
                "plain_vs_float64": rel_err(want, exact),
                "rows_in_another_cell_than_float64": moved, "rows": g * ns * t}
-        print(f"[kernel] transform_warp_pairs_bwd (K4) temp {temp}: error "
-              f"over max(1, max|reference|) per cotangent {json.dumps(rel)}",
+        print(f"[kernel] transform_warp_pairs_bwd (K4) temp {temp}, G={g}: "
+              f"error over max(1, max|reference|) per cotangent "
+              f"{json.dumps(rel)}",
               flush=True)
         check(max(rel["kernel_on_plain_flow_vs_plain"].values()) <= BWD_RTOL,
               f"transform_warp_pairs_bwd disagrees with its plain version "
@@ -1019,7 +1107,7 @@ def train_kernel_checks(line: str) -> dict:
     res.update(replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:824",
                source="wacv23_tsnet_tpu_torch/csrc/transform_warp_bwd.cu")
     results["transform_warp_pairs_bwd"] = res
-    print(f"[kernel] transform_warp_pairs_bwd (K4, six cotangents): "
+    print(f"[kernel] transform_warp_pairs_bwd (K4, six cotangents, G={g}): "
           f"max_abs_err={res['max_abs_err']:.3e} (temp 10, rtol "
           f"{BWD_RTOL} of max(1, max|plain|)) kernel_ms={res['ms']:.4f} "
           f"plain_ms={res['plain_ms']:.4f} library_ms=none "
@@ -1519,6 +1607,415 @@ def serve_tier(line: str, tier: str, snap: str, payload: dict,
     del mods, server
     torch.cuda.empty_cache()
     return res
+
+
+def pose_labels(rng, n: int, hw: int, nl: int) -> torch.Tensor:
+    """n one-hot pose label maps (n, hw, hw, nl) f32 on the card: body
+    regions of the classes 5..nl-2 on background 0, and by sample i % 4
+    a face blob (class nl-1) in a head (classes 1-4), head classes only,
+    neither, or a face at the image's top-left corner (where the crop
+    box's clamps bind)."""
+    cls = np.zeros((n, hw, hw), np.int64)
+    u = hw // 16
+    for i in range(n):
+        for _ in range(3):
+            y, x = rng.integers(4 * u, 12 * u, 2)
+            cls[i, y:y + 3 * u, x:x + 2 * u] = rng.integers(5, nl - 1)
+        case = POSE_CASES[i % 4]
+        y, x = rng.integers(u, 6 * u), rng.integers(5 * u, 10 * u)
+        if case in ("face", "head"):
+            cls[i, y:y + 3 * u, x:x + 3 * u] = rng.integers(1, 5)
+        if case == "face":
+            cls[i, y + u // 2:y + 5 * u // 2, x + u // 2:x + 5 * u // 2] = (
+                nl - 1)
+        if case == "border":
+            cls[i, :2 * u, :3 * u] = nl - 1
+    return F.one_hot(torch.as_tensor(cls, device="cuda"), nl).float()
+
+
+def pose_batch(cfg, bs: int, seed: int) -> dict:
+    """A pose train batch made from a numpy seed, on the card."""
+    rng = np.random.default_rng(seed)
+    s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
+    dev = torch.device("cuda")
+    rand = lambda *shape: torch.as_tensor(  # noqa: E731
+        rng.random(shape, np.float32), device=dev)
+    bits = lambda *shape: torch.as_tensor(  # noqa: E731
+        rng.integers(0, 2, shape).astype(np.float32), device=dev)
+    return {"src_img": rand(bs, s, hw, hw, 3),
+            "src_lbl": pose_labels(rng, bs * s, hw, nl).reshape(
+                bs, s, hw, hw, nl),
+            "src_bbox": bits(bs, s, hw, hw), "tar_img": rand(bs, hw, hw, 3),
+            "tar_lbl": pose_labels(rng, bs, hw, nl),
+            "tar_bbox": bits(bs, hw, hw)}
+
+
+def pose_clip_tier(line: str, tier: str, cfg, src, tar_lbl, tar_bbox,
+                   launched: collections.Counter) -> dict:
+    """One tier of the pose clip (see `pose_phase`); adds its launches
+    to `launched`."""
+    over, warp_kernel, other_kernel = POSE_TIERS[tier]
+    mods = TSNetModules(dataclasses.replace(cfg, **over), seed=0)
+    forward = lambda use_kernels=True: tsnet_forward_clip(  # noqa: E731
+        mods, *src, tar_lbl, tar_bbox, use_kernels=use_kernels)
+    forward()                                        # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    out = forward()
+    sess = RetargetSession(mods, *src, chunk=CHUNK)
+    pushed = torch.as_tensor(sess.push_labels(tar_lbl[:CHUNK],
+                                              tar_bbox[:CHUNK]))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    launched.update(launches)
+    hw = cfg.image_size
+    check(tuple(out.shape) == (CLIP_FRAMES, hw, hw, 3)
+          and bool(torch.isfinite(out).all()), f"pose {tier}: clip output")
+    check(launches[warp_kernel] == 2 and launches["instance_norm_mean"] == 2
+          and sum(launches.values()) == 4,
+          f"pose {tier}: launches of a clip and a session request "
+          f"(one {warp_kernel} and one K2 each): {launches}")
+    plain = forward(use_kernels=False)
+    diff = (out - plain).abs()
+    with torch.inference_mode():
+        want = decode_with_sources(mods, sess.src_pack, tar_lbl[:CHUNK],
+                                   tar_bbox[:CHUNK]).cpu()
+    sess_diff = (pushed - want).abs()
+    bg = torch.as_tensor(-cfg.img_mean_array() / 255.0, device="cuda")
+    res = {"launches": launches,
+           "vs_plain_max_abs": diff.max().item(),
+           "vs_plain_mean_abs": diff.mean().item(),
+           "session_vs_decode_max_abs": sess_diff.max().item(),
+           "session_vs_decode_mean_abs": sess_diff.mean().item(),
+           "background_exact": bool((out[:, :, :hw // 4] == bg).all()
+                                    and (out[:, :, 3 * hw // 4:] == bg).all()
+                                    and (plain[:, :, :hw // 4] == bg).all())}
+    key, tol = (("max_abs", 1e-3) if tier == "bit-parity"
+                else ("mean_abs", 0.01))
+    check(res[f"vs_plain_{key}"] <= tol,
+          f"pose {tier}: kernel path vs plain path: {res}")
+    check(res[f"session_vs_decode_{key}"] <= tol,
+          f"pose {tier}: session vs decode_with_sources: {res}")
+    check(res["background_exact"], f"pose {tier}: background columns")
+    del plain, diff, sess, pushed, want
+
+    iters = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        forward()
+    torch.cuda.synchronize()
+    res["clip_ms"] = 1e3 * (time.perf_counter() - t0) / iters
+    res["fps"] = CLIP_FRAMES / (res["clip_ms"] / 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    forward()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["stage_ms"] = stage_ms(mods, src, tar_lbl, tar_bbox)
+    print(f"[pose] clip {tier}: {json.dumps(res)} | {line}", flush=True)
+    print(f"[fps] pose {tier}: {res['fps']:.2f} frames/s ({CLIP_FRAMES}-frame "
+          f"clip, {res['clip_ms']:.2f} ms) on {line}", flush=True)
+    del mods, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def pose_first_step(cfg, batch: dict, launched: collections.Counter):
+    """The first pose train step from one seeded state through the
+    kernels, the plain versions and the plain versions on input images
+    moved by INPUT_NUDGE, at temp 10 and at the config's 100, held by
+    [train]'s rules, with netDF beside netD; returns the temp-100 kernel
+    path's state and step."""
+    gen = torch.Generator().manual_seed(9)
+    paths = [("plain", False, batch)]
+    for eps in POSE_NUDGES:
+        nudged = dict(batch)
+        for k in ("src_img", "tar_img"):
+            nudged[k] = batch[k] * (1 + eps * torch.randn(
+                batch[k].shape, generator=gen).to(batch[k].device))
+        paths.append((f"nudged_{eps:g}", False, nudged))
+    paths.append(("kernel", True, batch))
+    nudges = [name for name, _, _ in paths[1:-1]]
+    for temp in (10.0, cfg.softmax_temp):
+        tcfg = dataclasses.replace(cfg, softmax_temp=temp)
+        runs = {}
+        for name, use_kernels, data in paths:
+            state = create_train_state(tcfg, device="cuda", seed=0)
+            step = make_train_step(state, use_kernels=use_kernels)
+            cuda_build.reset_launches()
+            _, metrics, _ = step(state, data, TRAIN_LR)
+            torch.cuda.synchronize()
+            launches = dict(cuda_build.LAUNCHES)
+            check(all(launches[k] == int(use_kernels) for k in TRAIN_KERNELS)
+                  and sum(launches.values()) == 3 * int(use_kernels),
+                  f"pose: first step's launches on the {name} path: "
+                  f"{launches}")
+            if use_kernels:
+                launched.update(launches)
+            runs[name] = {"metrics": {k: v.item()
+                                      for k, v in metrics.items()},
+                          "grads": grads_of(state, POSE_SUBNETS)}
+            if not (use_kernels and temp == cfg.softmax_temp):
+                del state, step
+                torch.cuda.empty_cache()
+        mp, gp = runs["plain"]["metrics"], runs["plain"]["grads"]
+        err = {}
+        for name in ["kernel"] + nudges:
+            err[f"{name}_metrics"] = {
+                k: abs(v - mp[k]) / max(1.0, abs(mp[k]))
+                for k, v in runs[name]["metrics"].items()}
+            err[f"{name}_grads"] = {
+                k: ((v - gp[k]).norm() / gp[k].norm()).item()
+                for k, v in runs[name]["grads"].items()}
+        for kind in ("metrics", "grads"):
+            err[f"nudged_{kind}"] = {k: max(err[f"{n}_{kind}"][k]
+                                            for n in nudges)
+                                     for k in err[f"kernel_{kind}"]}
+        print(f"[pose] first step at temp {temp}, batch {POSE_BATCH}, kernel "
+              f"path and nudged plain path vs plain path (gradients "
+              f"relative L2): {json.dumps(err)}", flush=True)
+        bad = {k: v for k, v in err["kernel_metrics"].items()
+               if v > (max(STEP_METRIC_RTOL,
+                           NUDGE_MARGIN * err["nudged_metrics"][k])
+                       if k in POSE_D_READ_METRICS else STEP_METRIC_RTOL)}
+        check(len(err["kernel_metrics"]) == 16 and not bad,
+              f"pose: first-step metrics at temp {temp}: {bad}")
+        check(err["kernel_grads"]["netD"] <= STEP_GRAD_RTOL,
+              f"pose: first-step netD gradient at temp {temp}: "
+              f"{err['kernel_grads']}")
+        # netDF, on 64^2 crops, moves by a few 1e-3 under the nudge (the
+        # kernel path's reconstruction differs from the plain path's by
+        # rounding): it is held as the generator's subnets are
+        worst = {k: v for k, v in err["kernel_grads"].items()
+                 if k != "netD" and v > max(
+                     STEP_GRAD_RTOL, NUDGE_MARGIN * err["nudged_grads"][k])}
+        check(not worst, f"pose: first-step gradients at temp {temp} beyond "
+              f"the nudged path's spread: {worst}")
+    return state, step
+
+
+def pose_g_grad(cfg, batch: dict) -> torch.Tensor:
+    """The generator's gradient of the G-phase loss at the seeded initial
+    discriminators, as the JAX package measured its pose tiers (its
+    artifacts/round5/pose_train_tier.py: GAN, feature-matching and VGG
+    terms of netD and of netDF on the face crops, and the warp loss), as
+    one float64 vector."""
+    state = create_train_state(cfg, device="cuda", seed=0)
+    mods, vgg = state.mods, state.vgg
+    for d in (mods.netD, mods.netDF):
+        d.requires_grad_(False)
+    out = tsnet_forward(mods, *(batch[k] for k in FORWARD_KEYS),
+                        tar_img=batch["tar_img"], train=True)
+    rec, tar, lbl = out["rec_img"], batch["tar_img"], batch["tar_lbl"]
+    total = out["loss_warp"]
+    face, face_real = crop_faces(rec, lbl), crop_faces(tar, lbl)
+    for d, fake, real, d_fake, d_real in (
+            (mods.netD, rec, tar, torch.cat([lbl, rec], -1),
+             torch.cat([lbl, tar], -1)),
+            (mods.netDF, face, face_real, face, face_real)):
+        pf = d(d_fake)
+        with torch.no_grad():
+            pr = d(d_real)
+        total = (total + lsgan_loss(pf[-1], True)
+                 + feature_matching_loss(pf, pr, cfg.lambda_fml)
+                 + cfg.lambda_vgg * vgg_perceptual_loss(vgg, fake, real))
+    total.backward()
+    grad = torch.cat([p.grad.flatten() for name in GEN_SUBNETS
+                      for p in getattr(mods, name).parameters()
+                      if p.grad is not None]).double()
+    del state, mods, vgg, out
+    torch.cuda.empty_cache()
+    return grad
+
+
+def pose_phase(line: str) -> dict:
+    """The pose variant at the full width of pose_config() (see the
+    module docstring, step 11). Returns its report, with the launches of
+    its clip, session and train runs by kernel under "launches"."""
+    cfg = pose_config()
+    s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
+    launched = collections.Counter()
+    report = {"kernels": train_kernel_checks(line, POSE_BATCH)}
+    g = torch.Generator().manual_seed(11)
+    x = (torch.randn(3, POSE_BATCH, 32, 32, 2 * cfg.feat_ch, generator=g)
+         * 2 + 1).to("cuda")
+    report["kernels"].update(check_cases({
+        "instance_norm_mean_pose_f32": k2_case(x, IN_TOL["f32"]),
+        "instance_norm_mean_pose_bf16": k2_case(x.to(torch.bfloat16),
+                                                IN_TOL["bf16"])}, line))
+    del x
+
+    # 1. the clip, 64 frames against 3 sources, in both inference tiers
+    rng = np.random.default_rng(7)
+    src = (torch.as_tensor(rng.random((s, hw, hw, 3), np.float32),
+                           device="cuda"),
+           pose_labels(rng, s, hw, nl),
+           torch.as_tensor(rng.integers(0, 2, (s, hw, hw)).astype(
+               np.float32), device="cuda"))
+    tar_lbl = pose_labels(rng, CLIP_FRAMES, hw, nl)
+    tar_bbox = torch.as_tensor(rng.integers(0, 2, (CLIP_FRAMES, hw, hw))
+                               .astype(np.float32), device="cuda")
+    for tier in POSE_TIERS:
+        report[f"clip {tier}"] = pose_clip_tier(line, tier, cfg, src, tar_lbl,
+                                                tar_bbox, launched)
+    del src, tar_lbl, tar_bbox
+    torch.cuda.empty_cache()
+
+    # 2. the bit-parity train step at batch 10: crop_faces with no host
+    # sync, the first step on three paths, then POSE_STEPS steps
+    batch = pose_batch(cfg, POSE_BATCH, seed=8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        faces = crop_faces(batch["tar_img"], batch["tar_lbl"])
+        boxes = get_face_bbox(batch["tar_lbl"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = crop_faces(batch["tar_img"].cpu(), batch["tar_lbl"].cpu())
+    crop = {"shape": list(faces.shape),
+            "vs_cpu_max_abs": (faces.cpu() - want).abs().max().item(),
+            "boxes_yc_xc_side": [b.tolist() for b in boxes]}
+    check(tuple(faces.shape) == (POSE_BATCH, hw // 4, hw // 4, 3)
+          and crop["vs_cpu_max_abs"] <= CROP_TOL,
+          f"pose: crop_faces on the card: {crop}")
+    print(f"[pose] crop_faces under sync debug mode 'error' (no host sync): "
+          f"{json.dumps(crop)}", flush=True)
+    del faces, want
+
+    state, step = pose_first_step(cfg, batch, launched)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    history, step_ms = [], []
+    for _ in range(POSE_STEPS):
+        t0 = time.perf_counter()
+        _, metrics, rec = step(state, batch, TRAIN_LR)
+        history.append({k: v.item() for k, v in metrics.items()})
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    launched.update(launches)
+    per_step = {k: v / POSE_STEPS for k, v in launches.items() if v}
+    check(per_step == {k: 1 for k in TRAIN_KERNELS},
+          f"pose: launches per step {per_step}")
+    check(all(np.isfinite(v) for h in history for v in h.values()),
+          "pose: non-finite metric")
+    bg = torch.as_tensor(-cfg.img_mean_array() / 255.0, device="cuda")
+    check(bool((rec[:, :, :hw // 4] == bg).all()),
+          "pose: train reconstruction's background columns")
+    vgg = [h["G_VGG"] for h in history]
+    check(np.mean(vgg[-5:]) < np.mean(vgg[:5]),
+          f"pose: G_VGG did not fall: {vgg}")
+    train = {"ms_per_step": float(np.mean(step_ms[1:])),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches_per_step": per_step,
+             "g_vgg_first5": float(np.mean(vgg[:5])),
+             "g_vgg_last5": float(np.mean(vgg[-5:])),
+             "gf_vgg_first5": float(np.mean([h["GF_VGG"]
+                                             for h in history[:5]])),
+             "gf_vgg_last5": float(np.mean([h["GF_VGG"]
+                                            for h in history[-5:]]))}
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    timed = make_train_step(state, mark=mark)
+    mark("start")
+    timed(state, batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    train["stage_ms"] = {name: marks[i - 1][1].elapsed_time(ev)
+                         for i, (name, ev) in enumerate(marks) if i}
+    print(f"[pose] {POSE_STEPS} bit-parity steps at batch {POSE_BATCH}: "
+          f"{json.dumps(train)}; metrics of the last step "
+          f"{json.dumps(history[-1])} | {line}", flush=True)
+    report["train"] = train
+
+    # 3. the trained state saved and restored, netDF and its moments too
+    # (before the fast tier, so that the two states are not held at once)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pose_",
+                                     dir=root) as tmp:
+        snap = os.path.join(tmp, f"TSNet_S{state.step:06d}.msgpack")
+        t0 = time.perf_counter()
+        save_checkpoint(snap, state)
+        snapshot = {"save_s": time.perf_counter() - t0,
+                    "bytes": os.path.getsize(snap)}
+        del step, timed
+        torch.cuda.empty_cache()
+        fresh = create_train_state(cfg, device="cuda", seed=1)
+        t0 = time.perf_counter()
+        restore_checkpoint(snap, fresh)
+        torch.cuda.synchronize()
+        snapshot["restore_s"] = time.perf_counter() - t0
+    bad = _train_state_equal(state, fresh)
+    groups = [grp["name"] for grp in fresh.disc_opt.param_groups]
+    df_moments = all("exp_avg" in fresh.disc_opt.state[p]
+                     for p in fresh.mods.netDF.parameters())
+    check(not bad and groups == ["netD", "netDF"] and df_moments,
+          f"pose: restored state differs: {bad[:8]}, groups {groups}, "
+          f"netDF moments {df_moments}")
+    print(f"[pose] snapshot: {json.dumps(snapshot)}, restored bit for bit "
+          f"with netDF and its Adam moments | {line}", flush=True)
+    report["snapshot"] = snapshot
+    del state, fresh
+    torch.cuda.empty_cache()
+
+    # 4. the fast pose train tier on the same batch
+    fast = create_train_state(dataclasses.replace(cfg, **FAST_TIER),
+                              device="cuda", seed=0)
+    fstep = make_train_step(fast)
+    cuda_build.reset_launches()
+    _, metrics, _ = fstep(fast, batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    check(all(launches[k] == 1 for k in TRAIN_KERNELS)
+          and sum(launches.values()) == 3,
+          f"pose: fast tier's launches {launches}")
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+          "pose: fast tier metric")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TIER_STEPS):
+        fstep(fast, batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    report["fast_train"] = {
+        "ms_per_step": 1e3 * (time.perf_counter() - t0) / TIER_STEPS,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    launched.update(cuda_build.LAUNCHES)
+    del fast, fstep
+    torch.cuda.empty_cache()
+    tiers = {"bit_parity": {}, "high": dict(precision="high"),
+             "fast": FAST_TIER}
+    cos = {}
+    for temp in (100.0, 10.0):
+        grads = {name: pose_g_grad(dataclasses.replace(
+            cfg, softmax_temp=temp, **over), batch)
+            for name, over in tiers.items()
+            if any(t == temp and name in case
+                   for case, t, _ in POSE_COS_CASES)}
+        for case, t, _ in POSE_COS_CASES:
+            if t == temp:
+                a, b = case.split("_vs_")
+                cos[f"{case}_temp{t:g}"] = cosine(grads[a], grads[b])
+        del grads
+    report["fast_train"].update(grad_cosines=cos,
+                                jax_package_fast_vs_high=POSE_JAX_COSINE)
+    print(f"[pose] fast train tier (precision high, bwd_precision default, "
+          f"fast_tail) at batch {POSE_BATCH}: {json.dumps(report['fast_train'])}"
+          f" against bit-parity {train['ms_per_step']:.2f} ms/step | {line}",
+          flush=True)
+    low = {k: v for k, v in cos.items() if not np.isfinite(v) or any(
+        held and k == f"{case}_temp{t:g}" and v < POSE_COS_FLOOR
+        for case, t, held in POSE_COS_CASES)}
+    check(not low, f"pose: generator-gradient cosines below "
+          f"{POSE_COS_FLOOR}: {low}")
+    del batch
+    torch.cuda.empty_cache()
+    report["launches"] = dict(launched)
+    return report
 
 
 def _face_landmarks(rng, cx, cy, r) -> np.ndarray:
@@ -2398,6 +2895,11 @@ def main() -> int:
     per_source = cuda_build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s wall, per source "
           f"{json.dumps(per_source)}", flush=True)
+    if sys.argv[1:] == ["--pose"]:
+        t0 = time.perf_counter()
+        pose_phase(line)
+        print(f"[pose] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        return 0
     for name in cuda_build.SOURCES:
         log = cuda_build.library_path(name).with_suffix(".log").read_text()
         for text in log.splitlines():
@@ -2426,6 +2928,11 @@ def main() -> int:
     report["serve"] = serve_phase(line, state)
     print(f"[serve] phase {time.perf_counter() - t0:.1f} s", flush=True)
     del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["pose"] = pose_phase(line)
+    print(f"[pose] phase {time.perf_counter() - t0:.1f} s | {line}",
+          flush=True)
     torch.cuda.empty_cache()
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_",
@@ -2462,21 +2969,32 @@ def main() -> int:
         kernels[name] = dict(k, tier="train")
     kernels.update(standalone)
     kernels["instance_norm_fused_g4"] = norm_g4  # K8 at phase_groups=4
+    # each kernel's check at the pose train shape (G=10; K2 f32 at
+    # (3, 10, 32, 32, 1024))
+    pose_rows = {"transform_warp_pairs": "transform_warp_pairs",
+                 "transform_warp_pairs_bwd": "transform_warp_pairs_bwd",
+                 "instance_norm_mean_f32": "instance_norm_mean_pose_f32"}
     for name, k in kernels.items():
         # K2 is one kernel: its row is the f32 form, on the bit-parity
         # clip path (the bf16 form is checked and printed above); K7's row
         # is its relu form (the skip form is checked and printed above)
         if k.get("tier") is None or name == "instance_norm_mean_bf16":
             continue
-        rows.append({
+        launch = ("instance_norm_mean" if name.startswith("instance_norm_mean")
+                  else k.get("launch", name))
+        row = {
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
-            "launches": report[k["tier"]]["launches"][
-                "instance_norm_mean" if name.startswith("instance_norm_mean")
-                else k.get("launch", name)],
+            "launches": report[k["tier"]]["launches"][launch],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
+            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+            "pose_launches": report["pose"]["launches"].get(launch, 0)}
+        if name in pose_rows:
+            at = report["pose"]["kernels"][pose_rows[name]]
+            row["pose"] = {key: at[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(line)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,10 @@ that fill a cluster of 16 blocks, N ragged across a cluster's blocks and a
 unit past the cluster, on both its paths, its phase identity at 2 and 4
 groups, and its cluster path as one kernel that gives the same bits),
 and the train shape of the backward, with its own ragged edges and a
-check that two calls give the same bits; chip_smoke.py checks the main
-path's shapes.
+check that two calls give the same bits; the pose train step's shapes
+(K3-flow and K4 at G=10, K2 at (3, 10, 32, 32, 1024)), `crop_faces` with
+no host sync, and the toy pose step's kernel path; chip_smoke.py checks
+the main paths' shapes.
 """
 
 import dataclasses
@@ -160,6 +162,19 @@ def test_instance_norm_mean_kernel(dev, shape, in_dtype, out_dtype):
     _assert_close(got, instance_norm_mean_plain(x, out_dtype=torch.float32))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_mean_at_the_pose_train_shape(dev, dtype):
+    """K2 at the pose train step's (S, B, 32, 32, 2C) = (3, 10, 32, 32,
+    1024): f32 in the bit-parity tier, bf16 in the fast tier."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = (torch.randn(3, 10, 32, 32, 1024, generator=g) * 2 + 1).to(dev, dtype)
+    cuda_build.reset_launches()
+    got = instance_norm_mean(x)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["instance_norm_mean"] == 1
+    _assert_close(got, instance_norm_mean_plain(x, out_dtype=torch.float32))
+
+
 def test_instance_norm_mean_degenerate_channel_is_finite(dev):
     x = 300.0 + torch.randn(1, 2, 8, 8, 16) * 1e-3
     assert torch.isfinite(instance_norm_mean(x.to(dev))).all()
@@ -225,7 +240,7 @@ def _pairs_inputs(dev, g, ns, nf, h, w, c, seed=3):
 # T = 130 with C = 5, and the train step's width at two groups
 PAIRS = [(2, 2, 1, 16, 16, 64), (1, 3, 2, 10, 10, 40), (2, 1, 2, 9, 7, 600)]
 FWD_PAIRS = PAIRS + [(2, 3, 1, 9, 15, 36), (1, 2, 1, 10, 13, 5),
-                     (2, 3, 1, 32, 32, 512)]
+                     (2, 3, 1, 32, 32, 512), (10, 3, 1, 32, 32, 512)]
 
 
 @pytest.mark.parametrize("shape", FWD_PAIRS)
@@ -262,8 +277,9 @@ def _assert_cotangents_close(got, want, rtol=2e-4):
 # version's too) moves by 1e-4 to 5e-4 of its largest under a last-bit
 # change of the logits (measured with the logits summed in another
 # order): no 2e-4 check there says anything about the kernel.
-BWD_SHAPES = dict(zip(("small", "ragged", "wide", "train"),
-                      PAIRS + [(15, 3, 1, 32, 32, 512)]))
+BWD_SHAPES = dict(zip(("small", "ragged", "wide", "train", "pose_train"),
+                      PAIRS + [(15, 3, 1, 32, 32, 512),
+                               (10, 3, 1, 32, 32, 512)]))
 BWD_EDGES = {"t135_c37": (1, 2, 3, 9, 15, 37), "t130_c5": (2, 3, 2, 10, 13, 5)}
 BWD_CASES = ([pytest.param(shape, temp, id=f"{name}-{temp}")
               for temp in (10.0, 100.0) for name, shape in BWD_SHAPES.items()]
@@ -414,6 +430,88 @@ def test_toy_train_step_kernel_path_matches_plain_path(dev):
         else:
             assert set(launches.values()) == {0}
     (mk, gk), (mp, gp) = results
+    for k in mk:
+        assert abs(mk[k] - mp[k]) <= 1e-4 * max(1.0, abs(mp[k])), k
+    for name in gk:
+        rel = ((gk[name] - gp[name]).norm() / gp[name].norm()).item()
+        assert rel <= 1e-3, (name, rel)
+
+
+def _pose_labels(n, hw, nl, seed=0):
+    """One-hot pose label maps: body blocks of class 5 and, by sample
+    i % 4, a face (class nl-1) in a head (class 2), a head only, neither,
+    or a face in the top-left corner."""
+    rng = np.random.default_rng(seed)
+    cls = np.zeros((n, hw, hw), np.int64)
+    u = hw // 16
+    for i in range(n):
+        y, x = rng.integers(u, 6 * u, 2)
+        cls[i, 8 * u:14 * u, 6 * u:10 * u] = 5
+        if i % 4 in (0, 1):
+            cls[i, y:y + 3 * u, x:x + 3 * u] = 2
+        if i % 4 == 0:
+            cls[i, y + u:y + 2 * u, x + u:x + 2 * u] = nl - 1
+        if i % 4 == 3:
+            cls[i, :2 * u, :3 * u] = nl - 1
+    return np.eye(nl, dtype=np.float32)[cls]
+
+
+def test_crop_faces_on_the_card_makes_no_host_sync(dev):
+    """`crop_faces` (the face box, the separable bilinear sampling and its
+    gradient) runs on the card with the sync debug mode raising on any
+    synchronizing call, and equals its CPU run within the rounding of its
+    sample positions: the card's `arange / 63` differs from the CPU's in
+    the last bit of some values, so a position below 256 may move by its
+    ulp, 2^-16, which the bilinear weights multiply by the difference of
+    two neighbouring pixels (up to ~10 for these unit normals)."""
+    from wacv23_tsnet_tpu_torch.models.tsnet import crop_faces
+    lbl = torch.from_numpy(_pose_labels(8, 256, 25))
+    img = torch.randn(8, 256, 256, 3, generator=torch.Generator(
+        device="cpu").manual_seed(8))
+    want = crop_faces(img, lbl)
+    lbl_d, img_d = lbl.to(dev), img.to(dev).requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = crop_faces(img_d, lbl_d)
+        got.square().sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.shape == (8, 64, 64, 3)
+    assert (got.detach().cpu() - want).abs().max().item() <= 2e-4
+    assert bool(torch.isfinite(img_d.grad).all())
+
+
+def test_toy_pose_train_step_kernel_path_matches_plain_path(dev):
+    """The pose variant's step (netDF on the face crops, compositing) at
+    toy width with `d_n_layers=3` on 128^2 (32^2 crops): kernel path
+    against plain path, netD and netDF gradients included."""
+    from wacv23_tsnet_tpu_torch.configs import toy_pose_config
+    from wacv23_tsnet_tpu_torch.train import (create_train_state,
+                                              make_train_step)
+    cfg = dataclasses.replace(toy_pose_config(), image_size=128,
+                              d_n_layers=3)
+    batch = _toy_batch(cfg)
+    batch["tar_lbl"] = _pose_labels(2, 128, cfg.label_nc, seed=1)
+    batch["src_lbl"] = _pose_labels(4, 128, cfg.label_nc, seed=2).reshape(
+        2, 2, 128, 128, cfg.label_nc)
+    results = []
+    for use_kernels in (True, False):
+        state = create_train_state(cfg, device="cuda", seed=0)
+        step = make_train_step(state, use_kernels=use_kernels)
+        cuda_build.reset_launches()
+        _, metrics, _ = step(state, batch, 2e-4)
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.LAUNCHES)
+        grads = {name: torch.cat([p.grad.flatten() for p in
+                                  getattr(state.mods, name).parameters()
+                                  if p.grad is not None])
+                 for name in ("img_enc", "lbl_enc", "fuse_net", "dec", "netD",
+                              "netDF")}
+        results.append(({k: v.item() for k, v in metrics.items()}, grads))
+        assert sum(launches.values()) == 3 * int(use_kernels), launches
+    (mk, gk), (mp, gp) = results
+    assert len(mk) == 16
     for k in mk:
         assert abs(mk[k] - mp[k]) <= 1e-4 * max(1.0, abs(mp[k])), k
     for name in gk:

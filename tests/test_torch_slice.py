@@ -139,6 +139,7 @@ def test_session_takes_class_map_labels(clip):
 
 
 @pytest.mark.parametrize("name", ["face_config", "toy_config",
+                                  "pose_config", "toy_pose_config",
                                   "TrainConfig"])
 def test_config_copy_matches_the_jax_package(name):
     from wacv23_tsnet_tpu import configs as jax_configs
@@ -160,11 +161,37 @@ def test_config_copy_matches_the_jax_package(name):
         assert np.array_equal(ours.img_mean_array(), theirs.img_mean_array())
 
 
-@pytest.mark.parametrize("knob", ["ring_pad", "use_fg_mask", "use_face_d"])
+@pytest.mark.parametrize("knob", ["ring_pad"])
 def test_unported_knobs_are_refused(knob):
     cfg = dataclasses.replace(toy_config(), **{knob: True})
     with pytest.raises(NotImplementedError):
         TSNetModules(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("knob", ["use_fg_mask", "use_face_d"])
+def test_pose_knobs_build_and_run_a_toy_forward(knob):
+    """Each pose knob alone on the face toy config builds the train
+    modules and runs a train-mode forward: `use_face_d` adds netDF,
+    `use_fg_mask` paints the background columns of the reconstruction
+    and of the warped sources with the mean colour."""
+    from wacv23_tsnet_tpu_torch.models import tsnet_forward
+    cfg = dataclasses.replace(toy_config(), **{knob: True})
+    mods = TSNetModules(cfg, device="cpu", train=True)
+    assert hasattr(mods, "netDF") == (knob == "use_face_d")
+    rng = np.random.default_rng(0)
+    s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
+    b = [torch.from_numpy(x.astype(np.float32)) for x in (
+        rng.random((1, s, hw, hw, 3)), rng.integers(0, 2, (1, s, hw, hw, nl)),
+        rng.integers(0, 2, (1, s, hw, hw)), rng.integers(0, 2, (1, hw, hw, nl)),
+        rng.integers(0, 2, (1, hw, hw)), rng.random((1, hw, hw, 3)))]
+    with torch.no_grad():
+        out = tsnet_forward(mods, *b[:5], tar_img=b[5], train=True)
+    rec, warp = out["rec_img"], out["warp_imgs"]
+    assert rec.shape == (1, hw, hw, 3) and bool(torch.isfinite(rec).all())
+    bg = torch.from_numpy(-cfg.img_mean_array() / 255.0)
+    painted = bool((rec[:, :, :hw // 4] == bg).all()
+                   and (warp[..., 3 * hw // 4:, :] == bg).all())
+    assert painted == (knob == "use_fg_mask")
 
 
 def _train_grads(cfg):

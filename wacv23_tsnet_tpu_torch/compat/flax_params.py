@@ -12,7 +12,8 @@ discriminator (`PatchDiscriminator`: `stage{i}`) and the perceptual
 network (`VGG19Features`: `conv{i}`).
 
 For training, `load_train_state` carries a JAX train state's trees
-(generator `{img_enc, lbl_enc, dec, fuse_net}`, discriminator `{netD}`,
+(generator `{img_enc, lbl_enc, dec, fuse_net}`, discriminator `{netD}`, or
+`{netD, netDF}` in the pose variant,
 VGG `{"params": {conv{i}}}`, and optax `scale_by_adam`'s state `{count,
 mu, nu}` of each optimizer, and the step) into a port `TrainState`, and
 `export_train_state` / `export_opt_states` give them back;
@@ -128,11 +129,17 @@ def _opt_state(opt: torch.optim.Adam, params: Mapping) -> dict:
             "mu": state_dict_to_flax(mu), "nu": state_dict_to_flax(nu)}
 
 
+# the discriminators' names in the flax trees and reference checkpoints
+# (netDF: the pose variant's face discriminator)
+DISC_SUBNETS = ("netD", "netDF")
+
+
 def _split_params(state) -> tuple[dict, dict]:
-    """The generator's and netD's parameters by state-dict name."""
+    """The generator's and the discriminators' (netD, netDF) parameters by
+    state-dict name."""
     gen, disc = {}, {}
     for name, p in state.mods.named_parameters():
-        (disc if name.startswith("netD.") else gen)[name] = p
+        (disc if name.split(".")[0] in DISC_SUBNETS else gen)[name] = p
     return gen, disc
 
 
@@ -161,9 +168,10 @@ def load_train_state(state, gen_params: Mapping, disc_params: Mapping,
 
 def export_train_state(state) -> tuple[dict, dict, dict]:
     """(gen_params, disc_params, vgg_params) of a port `TrainState` in the
-    JAX package's layout, numpy leaves."""
+    JAX package's layout, numpy leaves; disc_params is `{netD}` or, in
+    the pose variant, `{netD, netDF}`."""
     tree = export_flax_params(state.mods)
-    disc = {"netD": tree.pop("netD")}
+    disc = {name: tree.pop(name) for name in DISC_SUBNETS if name in tree}
     return tree, disc, {"params": export_flax_params(state.vgg)}
 
 

@@ -2,7 +2,7 @@
 own copy of the JAX package's `compat/torch_export.py`).
 
 The inverse of `torch_import`: the flat `{example, img_enc, lbl_enc, dec,
-fuse_net[, netD]}` dict of positional-`Sequential` state dicts that the
+fuse_net[, netD][, netDF]}` dict of positional-`Sequential` state dicts that the
 reference trainers save, so weights held by the port load into the
 PyTorch reference, and into the JAX package, unchanged.
 """
@@ -13,6 +13,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from .flax_params import DISC_SUBNETS
 
 
 def _conv_sd(out: dict, key: str, conv: Mapping) -> None:
@@ -67,7 +69,7 @@ def discriminator_state_dict(params: Mapping, n_layers: int = 3) -> dict:
 def reference_checkpoint(gen_params: Mapping, cfg, example: int = 0,
                          disc_params: Mapping | None = None) -> dict:
     """The reference-format dict (numpy leaves) of a generator tree and,
-    where given, `{netD: …}`."""
+    where given, `{netD: …, netDF: …}` (either may be left out)."""
     ckpt = {
         "example": int(example),
         "img_enc": encoder_state_dict(gen_params["img_enc"],
@@ -78,9 +80,10 @@ def reference_checkpoint(gen_params: Mapping, cfg, example: int = 0,
                                   cfg.dec_n_blocks),
         "fuse_net": fusenet_state_dict(gen_params["fuse_net"]),
     }
-    if disc_params and "netD" in disc_params:
-        ckpt["netD"] = discriminator_state_dict(disc_params["netD"],
-                                                cfg.d_n_layers)
+    for name in DISC_SUBNETS:
+        if disc_params and name in disc_params:
+            ckpt[name] = discriminator_state_dict(disc_params[name],
+                                                  cfg.d_n_layers)
     return ckpt
 
 

@@ -2,7 +2,8 @@
 own copy of the JAX package's `compat/torch_import.py`).
 
 The reference trainers save a flat dict of per-subnet state dicts
-(`{example, img_enc, lbl_enc, dec, fuse_net[, netD]}`) whose keys are
+(`{example, img_enc, lbl_enc, dec, fuse_net[, netD][, netDF]}`; netDF is
+the pose variant's face discriminator) whose keys are
 positional `Sequential` indices. The position tables below map them onto
 the named flax tree, which `compat.flax_params.load_flax_params` then
 maps onto the port's named modules:
@@ -21,6 +22,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from .flax_params import DISC_SUBNETS
 
 
 def _np(t) -> np.ndarray:
@@ -90,11 +93,14 @@ def generator_params_from_checkpoint(ckpt: Mapping, cfg) -> dict:
 def load_reference_checkpoint(path: str, cfg,
                               include_discriminators: bool = False
                               ) -> tuple[dict, int]:
-    """(generator tree[, with `netD`], example count) of a reference
-    `.pth`; loads tensors only (`weights_only=True`)."""
+    """(generator tree[, with `netD` and `netDF` where the file has
+    them], example count) of a reference `.pth`; loads tensors only
+    (`weights_only=True`)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     params = generator_params_from_checkpoint(ckpt, cfg)
-    if include_discriminators and "netD" in ckpt:
-        params["netD"] = discriminator_params_from_torch(
-            ckpt["netD"], cfg.d_n_layers)
+    if include_discriminators:
+        for name in DISC_SUBNETS:
+            if name in ckpt:
+                params[name] = discriminator_params_from_torch(
+                    ckpt[name], cfg.d_n_layers)
     return params, int(ckpt.get("example", 0))

@@ -1,7 +1,8 @@
 """Model configuration of the PyTorch port of TS-Net.
 
-An own copy of `TSNetConfig`, `face_config` and `toy_config` from the JAX
-package's `configs/base.py` (the port imports nothing of that package).
+An own copy of `TSNetConfig`, `face_config`, `pose_config`, `toy_config`
+and `toy_pose_config` from the JAX package's `configs/base.py` (the port
+imports nothing of that package).
 Field names, defaults and meanings are the same, so one config describes
 one model in both packages.
 
@@ -23,8 +24,10 @@ Training knobs: `bwd_precision` sets the tier of the two backward convs
 of every conv (`ops.dpconv.conv2d_dp`), and `remat=True` recomputes the
 encoders', the decoder's and the discriminator's activations in the
 backward pass (`TSNetModules.run`). `ring_pad` (a TPU layout rewrite)
-and the pose variant's `use_fg_mask` and `use_face_d` are refused where
-the model is built.
+is refused where the model is built. The pose variant's `use_face_d`
+adds the face-crop discriminator netDF to training and `use_fg_mask`
+paints the background columns with the mean colour
+(`models.tsnet.composite_foreground`).
 
 `TrainConfig` is the optimisation schedule of the JAX package's
 `configs/base.py`, field for field.
@@ -138,6 +141,19 @@ def face_config() -> TSNetConfig:
     return TSNetConfig(task="face", label_nc=2, use_align_loss=True)
 
 
+def pose_config() -> TSNetConfig:
+    """The shipped Youtube-dance config: 256², 25 label classes, the
+    face-crop discriminator, fixed foreground compositing, no align
+    loss."""
+    return TSNetConfig(
+        task="pose",
+        label_nc=25,
+        use_face_d=True,
+        use_fg_mask=True,
+        use_align_loss=False,
+    )
+
+
 def toy_config() -> TSNetConfig:
     """Tiny config for fast unit tests (64², thin trunk)."""
     return TSNetConfig(
@@ -149,4 +165,26 @@ def toy_config() -> TSNetConfig:
         enc_n_blocks=2,
         dec_n_blocks=1,
         n_source=2,
+    )
+
+
+def toy_pose_config() -> TSNetConfig:
+    """Tiny pose config for fast unit tests: `toy_config`'s trunk with the
+    pose switches on. label_nc=8 is the smallest width with the head
+    channels 1..4 and the face channel -1 that `get_face_bbox` reads;
+    d_n_layers=2 because a 3-layer PatchGAN on the toy's 16² face crops
+    reaches zero-variance instance norms."""
+    return TSNetConfig(
+        task="pose",
+        label_nc=8,
+        d_n_layers=2,
+        image_size=64,
+        ngf=8,
+        n_downsampling=2,
+        enc_n_blocks=2,
+        dec_n_blocks=1,
+        n_source=2,
+        use_face_d=True,
+        use_fg_mask=True,
+        use_align_loss=False,
     )

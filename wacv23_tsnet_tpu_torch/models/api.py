@@ -25,6 +25,10 @@ from .tsnet import GEN_SUBNETS, TSNetModules, tsnet_forward
 
 LOSS_NAMES = ("G", "G_GAN", "G_FML", "G_VGG", "D", "D_real", "D_fake",
               "grad_G", "warp", "align")
+# the pose variant's, with the face discriminator's terms and no align
+POSE_LOSS_NAMES = ("G", "G_GAN", "G_FML", "G_VGG", "GF", "GF_GAN", "GF_FML",
+                   "GF_VGG", "D", "D_real", "D_fake", "DF", "DF_real",
+                   "DF_fake", "grad_G", "warp")
 
 
 def _nhwc(x) -> np.ndarray:
@@ -66,7 +70,8 @@ class TSNet:
         self.device = self.mods.device
         self._current_lr = lr
         self._batch = None
-        self.loss_names = list(LOSS_NAMES)
+        self.loss_names = list(POSE_LOSS_NAMES if cfg.use_face_d
+                               else LOSS_NAMES)
         self._losses = {k: 0.0 for k in self.loss_names}
         self._rec_dev = None
         self._rec_cache = None

@@ -23,6 +23,12 @@ JAX package's `tsnet_forward(train=True)`): per-sample sources, the
 transformation branch through `transformation_warp_sources` (K3-flow
 forward, K4 backward), the image-space warp loss, `fuse_train` (K2) and
 the align loss, all differentiable.
+
+The pose variant (`use_fg_mask`, `use_face_d`): `composite_foreground`
+paints the columns outside the middle half with the mean colour, on the
+warped sources before the warp loss and on every reconstruction;
+`crop_faces` cuts the face of each sample out of its label map's extent,
+on the device with no host sync, for the face discriminator netDF.
 """
 
 from __future__ import annotations
@@ -38,13 +44,18 @@ from ..nn import (Decoder, Encoder, FuseNet, PatchDiscriminator, fuse_clip,
                   fuse_train)
 from ..nn.blocks import Conv2d
 from ..ops.norms import l2_normalize
-from ..ops.resize import resize_nearest
+from ..ops.resize import resize_nearest, sample_separable
 from ..ops.similarity import (transformation_warp_clip,
                               transformation_warp_clip_mean,
                               transformation_warp_sources)
 from ..ops.warp import patch_warp
 
 GEN_SUBNETS = ("img_enc", "lbl_enc", "fuse_net", "dec")
+
+
+def disc_subnets(cfg: TSNetConfig) -> tuple[str, ...]:
+    """The discriminators a train state of `cfg` holds."""
+    return ("netD", "netDF") if cfg.use_face_d else ("netD",)
 
 
 class TSNetModules(nn.Module):
@@ -58,13 +69,16 @@ class TSNetModules(nn.Module):
 
     `train=False` (inference) builds the generator only, with gradients
     off. `train=True` also builds the PatchGAN discriminator `netD`
-    (initialised from `seed + 1`) and keeps gradients on.
+    (initialised from `seed + 1`) and, with `cfg.use_face_d`, the face
+    discriminator `netDF` on 3-channel face crops (initialised from
+    `seed + 3`; `seed + 2` is the train state's random VGG19), and keeps
+    gradients on.
 
-    Every conv of the encoders, FuseNet, the decoder and netD runs its
-    backward at `cfg.bwd_precision` (`ops.dpconv`). With `cfg.remat`,
-    `run` recomputes the activations of the subnets the JAX package
-    rematerializes (the encoders, the decoder, netD) in the backward
-    pass instead of keeping them.
+    Every conv of the encoders, FuseNet, the decoder and the
+    discriminators runs its backward at `cfg.bwd_precision`
+    (`ops.dpconv`). With `cfg.remat`, `run` recomputes the activations
+    of the subnets the JAX package rematerializes (the encoders, the
+    decoder, netD, netDF) in the backward pass instead of keeping them.
     """
 
     def __init__(self, cfg: TSNetConfig, device="cuda", seed: int = 0,
@@ -73,9 +87,6 @@ class TSNetModules(nn.Module):
         if cfg.ring_pad:
             raise NotImplementedError("ring_pad is a TPU training knob; the "
                                       "port does not implement it")
-        if cfg.use_fg_mask or cfg.use_face_d:
-            raise NotImplementedError("the pose variant (use_fg_mask, "
-                                      "use_face_d) is not ported yet")
         dev = resolve_device(device)
         self.cfg = cfg
         dt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -105,6 +116,12 @@ class TSNetModules(nn.Module):
                                            n_layers=cfg.d_n_layers, dtype=dt,
                                            precision=prec, bwd_precision=bwd)
             self.netD.reset_parameters(torch.Generator().manual_seed(seed + 1))
+            if cfg.use_face_d:
+                self.netDF = PatchDiscriminator(
+                    3, ndf=cfg.ndf, n_layers=cfg.d_n_layers, dtype=dt,
+                    precision=prec, bwd_precision=bwd)
+                self.netDF.reset_parameters(
+                    torch.Generator().manual_seed(seed + 3))
         self.requires_grad_(train)
         self.to(dev)
         self.device = dev
@@ -127,6 +144,81 @@ class TSNetModules(nn.Module):
             for mod in sub.modules():
                 if isinstance(mod, Conv2d):
                     mod.reset_parameters(gen)
+
+
+def get_face_bbox(lbl: torch.Tensor):
+    """The face crop box of each pose label map lbl (B, H, W, L): its
+    centre (yc, xc) and side, three (B,) int32 tensors.
+
+    The reference's rule with static shapes: the extent of the face class
+    (channel -1), else of the head classes (channels 1-4), else a fixed
+    box; centre at the extent's middle column and 2/5 down its rows, side
+    2.5 times its width within [32, W], and the box held inside the
+    image. Masked min/max and `torch.where` instead of the reference's
+    `.nonzero()`, `.item()` and branches, so the box stays on the device
+    and the host never waits for it. Integer division floors, as `//`
+    does in the JAX package."""
+    _, h, w, _ = lbl.shape
+    dev = lbl.device
+    face = lbl[..., -1] > 0
+    head = (lbl[..., 1] + lbl[..., 2] + lbl[..., 3] + lbl[..., 4]) > 0
+    rows = torch.arange(h, dtype=torch.int32, device=dev)[None, :, None]
+    cols = torch.arange(w, dtype=torch.int32, device=dev)[None, None, :]
+    big = 1 << 20
+
+    def div(a, n):
+        return torch.div(a, n, rounding_mode="floor")
+
+    def centre(mask):
+        ys = torch.where(mask, rows, big).amin(dim=(1, 2))
+        ye = torch.where(mask, rows, -big).amax(dim=(1, 2))
+        xs = torch.where(mask, cols, big).amin(dim=(1, 2))
+        xe = torch.where(mask, cols, -big).amax(dim=(1, 2))
+        xc = div(xs + xe, 2)
+        yc = div(ys * 3 + ye * 2, 5)
+        ln = div((xe - xs) * 5, 2).clamp(32, None).clamp(None, w)
+        half = div(ln, 2)
+        yc = torch.maximum(half, torch.minimum(h - 1 - half, yc))
+        xc = torch.maximum(half, torch.minimum(w - 1 - half, xc))
+        return yc, xc, ln
+
+    has_face = face.any(dim=2).any(dim=1)
+    has_head = head.any(dim=2).any(dim=1)
+    default = (h // 4, w // 2, h // 32 * 8)
+    return tuple(torch.where(has_face, f, torch.where(has_head, hd, d))
+                 for f, hd, d in zip(centre(face), centre(head), default))
+
+
+def crop_faces(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The face of each image (B, H, W, 3), boxed by `get_face_bbox` of
+    its label map, resized to (H//32*8)² with align_corners=True bilinear
+    sampling -> (B, H//32*8, H//32*8, 3) f32. The reference crops rows
+    [c - side//2, c + side//2) and interpolates; here the crop's sample
+    positions are taken straight from the image (`sample_separable`),
+    the same arithmetic. Differentiable in the images; makes no host
+    sync."""
+    _, h, _, _ = images.shape
+    face_size = h // 32 * 8
+    yc, xc, ln = get_face_bbox(labels)
+    half = torch.div(ln, 2, rounding_mode="floor")
+    span = (2 * half).float() - 1.0
+    t = (torch.arange(face_size, dtype=torch.float32, device=images.device)
+         / (face_size - 1))[None, :]
+    ys = (yc - half).float()[:, None] + t * span[:, None]
+    xs = (xc - half).float()[:, None] + t * span[:, None]
+    return sample_separable(images.float(), ys, xs)
+
+
+def composite_foreground(img: torch.Tensor, cfg: TSNetConfig) -> torch.Tensor:
+    """The pose variant's fixed foreground: columns [W/4, 3W/4) of img
+    (..., H, W, 3) kept, the others painted with the model-space mean
+    colour -img_mean/255 exactly."""
+    w = img.shape[-2]
+    cols = torch.arange(w, device=img.device)
+    fore = ((cols >= w // 4) & (cols < 3 * w // 4)).to(img.dtype)[:, None]
+    bg = torch.as_tensor(-cfg.img_mean_array() / 255.0, dtype=img.dtype,
+                         device=img.device)
+    return img * fore + bg * (1.0 - fore)
 
 
 def tsnet_forward(mods: TSNetModules, src_img, src_lbl, src_bbox, tar_lbl,
@@ -176,6 +268,8 @@ def tsnet_forward(mods: TSNetModules, src_img, src_lbl, src_bbox, tar_lbl,
             renorm_to_reference(patch_warp(src_img[:, i].float(),
                                            flows[:, i].float()), ref)
             for i in range(s)], dim=1)                        # (B, S, H, W, 3)
+        if cfg.use_fg_mask:
+            warp_imgs = composite_foreground(warp_imgs, cfg)
         out["warp_imgs"] = warp_imgs
         out["loss_warp"] = 10.0 * sum(l1_loss(warp_imgs[:, i], ref)
                                       for i in range(s))
@@ -185,7 +279,10 @@ def tsnet_forward(mods: TSNetModules, src_img, src_lbl, src_bbox, tar_lbl,
                          use_kernels=use_kernels)
     if train and cfg.use_align_loss:
         out["loss_align"] = cosine_align_loss(prop_fea, syn_fea)
-    out["rec_img"] = mods.run(mods.dec, prop_fea, syn_fea).float()
+    rec_img = mods.run(mods.dec, prop_fea, syn_fea).float()
+    if cfg.use_fg_mask:
+        rec_img = composite_foreground(rec_img, cfg)
+    out["rec_img"] = rec_img
     out["prop_fea"] = prop_fea
     out["syn_fea"] = syn_fea
     return out
@@ -258,8 +355,11 @@ def decode_with_sources(mods: TSNetModules, src_pack: dict,
                              use_kernels=use_kernels)
         syn_fea = fuse_clip(mods.fuse_net, src_pack["fea"].float(),
                             tar_fea.float(), use_kernels=use_kernels)
-        return mods.dec(prop_fea, syn_fea, fused_blocks=fused_blocks,
-                        use_kernels=use_kernels).float()
+        rec = mods.dec(prop_fea, syn_fea, fused_blocks=fused_blocks,
+                       use_kernels=use_kernels).float()
+        if mods.cfg.use_fg_mask:
+            rec = composite_foreground(rec, mods.cfg)
+        return rec
 
 
 def tsnet_forward_clip(mods: TSNetModules, src_img, src_lbl, src_bbox,

@@ -8,7 +8,7 @@ from .grid_sample import grid_sample
 from .norm_kernels import (instance_norm_fused, instance_norm_fused_plain,
                            instance_norm_mean, instance_norm_mean_plain)
 from .norms import instance_norm, instance_norm_phase, l2_normalize
-from .resize import resize_nearest, upsample_bilinear_2x
+from .resize import resize_nearest, sample_separable, upsample_bilinear_2x
 from .similarity import (transformation_warp, transformation_warp_clip,
                          transformation_warp_clip_mean)
 
@@ -16,7 +16,8 @@ __all__ = [
     "coord_channels", "normalized_grid", "grid_sample", "instance_norm",
     "instance_norm_phase", "l2_normalize", "instance_norm_mean",
     "instance_norm_mean_plain", "instance_norm_fused",
-    "instance_norm_fused_plain", "resize_nearest", "upsample_bilinear_2x",
+    "instance_norm_fused_plain", "resize_nearest", "sample_separable",
+    "upsample_bilinear_2x",
     "masked_attention_flow", "masked_attention_flow_fused",
     "transformation_warp", "transformation_warp_clip",
     "transformation_warp_clip_mean", "fuse_pair_conv2",
