@@ -147,9 +147,34 @@ non-zero, printing no result, where CUDA or the package is missing.
    the JAX package measured its tiers) against "high" at temp 100 and
    the bit-parity tier at temp 10 (each >= 0.9), and against the
    bit-parity tier at temp 100, printed.
-12. Prints one `kernels` JSON line (with each kernel's launches on the
-   pose path, `pose_launches`, and for K3-flow, K4 and K2 its check at
-   the pose train shape, `pose`), the card line again, and last
+12. Drives the pose variant from files on disk (`[pose_data]`, after
+   `[pose]`) at the full width of `pose_config()`: each committed JPEG
+   fixture (tests/torch_fixtures/jpeg/) decoded by the port and held to
+   the sha256 of Pillow's decode in its manifest (no Pillow needed),
+   with its decode ms; a synthetic dance set (10 videos x 40
+   frames, copies of the fixtures, with OpenPose JSONs of a moving
+   figure, one video with two people and one with undetected points,
+   the video dicts, and the driving videos smoothed by
+   `cli.smooth_keypoints`) in a temporary directory of the checkout;
+   `cli.train_pose.main` (bit-parity, batch 10, frames 4 apart, 8
+   workers, 14 steps, launches: one K3-flow, K4 and K2 a step; ms/step
+   2-14 beside [pose]'s fixed batch; data-wait share; peak memory; the
+   image shot's label column in the pose palette; the snapshot restored
+   bit for bit); `cli.eval_snapshots --task pose` over its snapshots;
+   `cli.demo_pose.main` on a pair of one build and a pair of two (the
+   retargeted skeleton), 30 frames in one chunk, default tier (K3-nf)
+   and `--fast-tail` (K1), one warp kernel and one K2 a chunk, against
+   `ClipInference(use_kernels=False)` (0.01 mean L1), its last montage
+   PNG and its GIF's size, frame count and delays; `rasterize_pose_clip`
+   on the card bit-equal to its CPU run on a 32-frame chunk (time, CUDA
+   launches, peak memory); and `cli.serve.Server` on `pose_config()` in
+   bench and bit-parity: a 64-frame (F, 137, 2) request (one warp kernel
+   and one K2 a chunk), frames within 1 LSB of in-process
+   `push_keypoints`, the server ms of five 32-frame requests.
+13. Prints one `kernels` JSON line (with each kernel's launches on the
+   pose path, `pose_launches`, and on the pose data path,
+   `pose_data_launches`, and for K3-flow, K4 and K2 its check at the
+   pose train shape, `pose`), the card line again, and last
    `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --parts
@@ -167,7 +192,7 @@ loaded beside an earlier tree's package they read that tree the same way.
 
     python3 chip_smoke.py --pose
 
-builds the kernels and runs only the pose phase (step 11).
+builds the kernels and runs only the pose phases (steps 11 and 12).
 """
 
 from __future__ import annotations
@@ -195,18 +220,25 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 from torch.profiler import ProfilerActivity, profile
 
-from wacv23_tsnet_tpu_torch.cli import (demo_face, eval_snapshots,
-                                        profile_stages, quick_start,
-                                        train_face)
+from wacv23_tsnet_tpu_torch.cli import (demo_face, demo_pose,
+                                        eval_snapshots, profile_stages,
+                                        quick_start, smooth_keypoints,
+                                        train_face, train_pose)
 from wacv23_tsnet_tpu_torch.cli.demo_face import load_params
 from wacv23_tsnet_tpu_torch.cli.serve import Server, make_handler
 from wacv23_tsnet_tpu_torch.compat import (export_flax_params,
                                            save_reference_checkpoint)
 from wacv23_tsnet_tpu_torch.configs import face_config, pose_config
+from wacv23_tsnet_tpu_torch.data import datasets as pose_datasets
+from wacv23_tsnet_tpu_torch.data.codecs import POSE_PALETTE, labels_to_image
 from wacv23_tsnet_tpu_torch.data.datasets import (FaceDatasetTest,
-                                                  FaceDatasetTrain)
-from wacv23_tsnet_tpu_torch.data.image_io import read_png, write_png
-from wacv23_tsnet_tpu_torch.data.rasterize_device import rasterize_face_clip
+                                                  FaceDatasetTrain,
+                                                  PoseDatasetTest,
+                                                  PoseDatasetTrain)
+from wacv23_tsnet_tpu_torch.data.image_io import read_png, read_rgb, write_png
+from wacv23_tsnet_tpu_torch.data.rasterize import valid_keypoints
+from wacv23_tsnet_tpu_torch.data.rasterize_device import (rasterize_face_clip,
+                                                          rasterize_pose_clip)
 from wacv23_tsnet_tpu_torch.infer import (ClipInference, RetargetSession,
                                           to_display_rgb)
 from wacv23_tsnet_tpu_torch.infer import metrics as im
@@ -236,6 +268,7 @@ from wacv23_tsnet_tpu_torch.train import (GEN_SUBNETS, create_train_state,
                                           make_train_step,
                                           restore_checkpoint,
                                           save_checkpoint)
+from wacv23_tsnet_tpu_torch.utils import StepTimer
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -383,6 +416,26 @@ POSE_NUDGES = (1e-6, 1e-5)
 # for these unit-uniform images)
 CROP_TOL = 1e-4
 POSE_CASES = ("face", "head", "neither", "border")
+# the pose data phase: a synthetic dance set of POSE_DATA_VIDEOS videos
+# (ids on both sides of the datasets' female rule, id <= 91) of
+# POSE_DATA_FRAMES JPEG frames (copies of the committed fixtures, which
+# hold Pillow's decode in their manifest), trained through cli.train_pose
+# for POSE_DATA_STEPS steps (two clip batches of 7) from step
+# POSE_DATA_START, so that the loop's image shot (every 100 steps) fires;
+# cli.demo_pose on a pair of one build and a pair of two (driving
+# POSE_DATA_UNSEEN, smoothed by cli.smooth_keypoints), POSE_DEMO_FRAMES
+# frames in one chunk, in DEMO_TIERS
+JPEG_FIXTURES = os.path.join("tests", "torch_fixtures", "jpeg")
+POSE_DATA_VIDEOS = (10, 20, 30, 40, 50, 100, 110, 120, 130, 140)
+POSE_DATA_FRAMES = 40
+POSE_DATA_TWO_PEOPLE = 30
+POSE_DATA_LOW_CONF = 120
+POSE_DATA_UNSEEN = (50, 140)
+POSE_DATA_PAIRS = {"same-build": "10 50", "cross-build": "110 50"}
+POSE_DATA_SEX = {"same-build": "", "cross-build": "mf"}
+POSE_DATA_STEPS = 14
+POSE_DATA_START = 86
+POSE_DEMO_FRAMES = 30
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2567,6 +2620,517 @@ def demo_phase(line: str, root: str, snapshot_dir: str,
     return report
 
 
+def dance_person(cx: float, cy: float, scale: float, t: float,
+                 conf: float = 0.9) -> dict:
+    """OpenPose keypoint lists of a standing figure, arms and legs swung
+    by phase t, with a 70-point face ring and two 21-point hands
+    (tests/test_pose_train_data.py's layout)."""
+    sw = 0.15 * np.sin(t)
+    layout = [(0, -1.6), (0, -1.2), (-0.4, -1.2), (-0.5 - sw, -0.6),
+              (-0.55 - 2 * sw, 0.0), (0.4, -1.2), (0.5 + sw, -0.6),
+              (0.55 + 2 * sw, 0.0), (0, 0.0), (-0.2, 0.0),
+              (-0.25 + sw, 0.8), (-0.25 + sw, 1.6), (0.2, 0.0),
+              (0.25 - sw, 0.8), (0.25 - sw, 1.6), (-0.1, -1.7), (0.1, -1.7),
+              (-0.2, -1.65), (0.2, -1.65), (0.3 - sw, 1.7),
+              (0.35 - sw, 1.7), (0.2 - sw, 1.72), (-0.3 + sw, 1.7),
+              (-0.35 + sw, 1.7), (-0.2 + sw, 1.72)]
+
+    def pts(offsets):
+        return [v for dx, dy in offsets
+                for v in (cx + dx * scale, cy + dy * scale, conf)]
+
+    ring = np.linspace(0, 2 * np.pi, 70, endpoint=False)
+    face = [(0.12 * np.cos(a), -1.6 + 0.14 * np.sin(a) + 0.01 * (i % 3))
+            for i, a in enumerate(ring)]
+
+    def hand(wx, wy, side):
+        return [(wx, wy)] + [(wx + side * (0.02 * f - 0.04 + 0.01 * j),
+                              wy + 0.03 * j + 0.005 * f)
+                             for f in range(5) for j in range(1, 5)]
+
+    return {"pose_keypoints_2d": pts(layout), "face_keypoints_2d": pts(face),
+            "hand_left_keypoints_2d": pts(hand(*layout[7], 1)),
+            "hand_right_keypoints_2d": pts(hand(*layout[4], -1))}
+
+
+def write_dance_set(root: str) -> dict:
+    """POSE_DATA_VIDEOS dance videos of POSE_DATA_FRAMES frames under
+    root/{images,labels}/<%05d id>/: each frame a copy of one of the
+    committed JPEG fixtures (the script writes no JPEG itself), each
+    OpenPose JSON a moving figure with face and hands; video
+    POSE_DATA_TWO_PEOPLE holds a second, smaller person, video
+    POSE_DATA_LOW_CONF points below the detection thresholds. The video
+    dicts: clean_video_dict.json (every video: the train set and the
+    subjects), clean_unseen_video_dict.json (the driving videos), and
+    smooth_openpose/ by `cli.smooth_keypoints`. Returns the fixtures'
+    manifest."""
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            JPEG_FIXTURES)
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)
+    names = sorted(manifest["files"])
+    for v, vid in enumerate(POSE_DATA_VIDEOS):
+        fixture = names[v % len(names)]
+        with open(os.path.join(fixtures, fixture), "rb") as f:
+            jpeg = f.read()
+        w, h = manifest["files"][fixture]["size"]
+        scale = 0.18 * h if vid <= 91 else 0.2 * h
+        for kind in ("images", "labels"):
+            os.makedirs(os.path.join(root, kind, "%05d" % vid))
+        for f in range(POSE_DATA_FRAMES):
+            name = f"frame{f:06d}"
+            with open(os.path.join(root, "images", "%05d" % vid,
+                                   name + ".jpg"), "wb") as fh:
+                fh.write(jpeg)
+            people = [dance_person(w / 2 + 8 * np.sin(0.2 * f + v),
+                                   h / 2 + 4, scale, 0.5 * f + v)]
+            if vid == POSE_DATA_TWO_PEOPLE:
+                people.append(dance_person(w / 4, 0.6 * h, 0.08 * h, f))
+            if vid == POSE_DATA_LOW_CONF:
+                p = people[0]
+                p["hand_left_keypoints_2d"][3 * 6 + 2] = 0.005   # a finger
+                p["face_keypoints_2d"][3 * 40 + 2] = 0.05        # a segment
+                p["pose_keypoints_2d"][3 * 13 + 2] = 0.0         # a knee
+            with open(os.path.join(root, "labels", "%05d" % vid,
+                                   name + "_keypoints.json"), "w") as fh:
+                json.dump({"version": 1.3, "people": people}, fh)
+    frames = [f"frame{f:06d}.jpg" for f in range(POSE_DATA_FRAMES)]
+    for name, vids in (("clean_video_dict.json", POSE_DATA_VIDEOS),
+                       ("clean_unseen_video_dict.json", POSE_DATA_UNSEEN)):
+        with open(os.path.join(root, name), "w") as fh:
+            json.dump({str(v): frames for v in vids}, fh)
+    smooth_keypoints.main([
+        "--video-dict", os.path.join(root, "clean_unseen_video_dict.json"),
+        "--label-dir", os.path.join(root, "labels"),
+        "--out-dir", os.path.join(root, "smooth_openpose")])
+    return manifest
+
+
+def jpeg_fixture_check(line: str, manifest: dict) -> dict:
+    """Each committed JPEG fixture decoded by the port, its RGB bytes
+    held to the sha256 of Pillow's decode in the manifest; the decode's
+    ms a frame (best of 3, this process's one host thread)."""
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            JPEG_FIXTURES)
+    report = {}
+    for name, entry in manifest["files"].items():
+        path = os.path.join(fixtures, name)
+        img = read_rgb(path)
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        check(digest == entry["sha256_rgb"],
+              f"pose_data: {name} decodes to {digest}, Pillow "
+              f"{manifest['pillow']} to {entry['sha256_rgb']}")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            read_rgb(path)
+            times.append(1e3 * (time.perf_counter() - t0))
+        report[name] = {"decode_ms": min(times), "bytes": entry["bytes"],
+                        "shape": list(img.shape)}
+    print(f"[pose_data] JPEG fixtures bit-equal to Pillow {manifest['pillow']}"
+          f" (libjpeg-turbo {manifest['libjpeg_turbo']}); decode ms a frame "
+          f"on one host thread: {json.dumps(report)} | {line}", flush=True)
+    return report
+
+
+def pose_train_from_disk(line: str, data: str, run_root: str,
+                         launched: collections.Counter) -> dict:
+    """`cli.train_pose.main` at the full width of pose_config(),
+    bit-parity, batch 10, frames 4 apart, 8 workers, POSE_DATA_STEPS
+    steps from step POSE_DATA_START (so that the loop's image shot fires
+    at its last step): the launches over the steps (zeroed just before,
+    read at the last step's end: one K3-flow, K4 and K2 a step, nothing
+    else), ms/step over steps 2-POSE_DATA_STEPS, the data-wait share,
+    peak memory, the image shot's label column in the pose palette, and
+    the final snapshot restored equal to the trained state."""
+    report = {}
+    final = POSE_DATA_START + POSE_DATA_STEPS
+    args = ["--json-path", os.path.join(data, "clean_video_dict.json"),
+            "--label-path", os.path.join(data, "labels"),
+            "--image-path", os.path.join(data, "images"),
+            "--root-dir", run_root, "--batch-size", str(POSE_BATCH),
+            "--num-videos", str(len(POSE_DATA_VIDEOS)),
+            "--print-freq", str(LOOP_PRINT_FREQ),
+            "--start-step", str(POSE_DATA_START), "--final-step", str(final)]
+    stamps, at_last, waits = {}, {}, []
+    inner = TSNet.optimize_parameters_on
+    inner_mark = StepTimer.mark_data
+
+    def stamped(self, batch):
+        inner(self, batch)
+        if self.state.step in (1, POSE_DATA_STEPS):
+            torch.cuda.synchronize()
+            stamps[self.state.step] = time.perf_counter()
+        if self.state.step == POSE_DATA_STEPS:
+            at_last.update(cuda_build.LAUNCHES)
+
+    def mark_data(self):
+        now = inner_mark(self)
+        waits.append(self.data.val)
+        return now
+
+    TSNet.optimize_parameters_on = stamped
+    StepTimer.mark_data = mark_data
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        model, timer = train_pose.main(args)
+        torch.cuda.synchronize()
+        report["main_s"] = time.perf_counter() - t0
+        after = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    finally:
+        TSNet.optimize_parameters_on = inner
+        StepTimer.mark_data = inner_mark
+    launched.update(at_last)
+    per_step = {k: v / POSE_DATA_STEPS for k, v in at_last.items() if v}
+    check(model.state.step == POSE_DATA_STEPS,
+          f"pose_data: trained to step {model.state.step}")
+    check(per_step == {k: 1 for k in TRAIN_KERNELS},
+          f"pose_data: launches per step {per_step}")
+    losses = model.get_current_losses()
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"pose_data: non-finite loss {losses}")
+    report.update({
+        "ms_per_step_2_to_last": 1e3 * (stamps[POSE_DATA_STEPS] - stamps[1])
+        / (POSE_DATA_STEPS - 1),
+        "data_wait_s": timer.data.sum, "clip_batches_s": timer.batch.sum,
+        "data_wait_share": timer.data.sum / timer.batch.sum,
+        "data_wait_per_batch_s": waits,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_step": per_step,
+        "image_shot_launches": {k: v - at_last.get(k, 0)
+                                for k, v in after.items()},
+        "last_losses": losses})
+
+    # the image shot, read back: its label column in the pose palette
+    shot = read_png(os.path.join(run_root, "imgshots",
+                                 f"step_{final:06d}.png"))
+    hw = shot.shape[0]
+    colors = {tuple(c) for c in np.unique(
+        shot[:, hw:2 * hw].reshape(-1, 3), axis=0)}
+    palette = {tuple(c) for c in POSE_PALETTE.tolist()} | {(0, 0, 0)}
+    report["image_shot"] = {"shape": list(shot.shape),
+                            "label_colours": len(colors)}
+    check(shot.shape == (hw, 5 * hw, 3) and colors <= palette
+          and len(colors) > 5,
+          f"pose_data: image shot {shot.shape}, label colours {colors}")
+
+    snaps = os.path.join(run_root, "snapshots")
+    snap = find_latest_checkpoint(snaps)
+    check(os.path.basename(snap) == f"TSNet_S{final:06d}.msgpack",
+          f"pose_data: snapshot {snap}")
+    fresh = create_train_state(model.mods.cfg, device="cuda", seed=7)
+    restore_checkpoint(snap, fresh)
+    bad = _train_state_equal(model.state, fresh)
+    check(not bad, f"pose_data: restored state differs: {bad[:8]}")
+    report["snapshot"] = os.path.basename(snap)
+    del fresh, model
+    torch.cuda.empty_cache()
+    print(f"[pose_data] {POSE_DATA_STEPS} steps through cli.train_pose at "
+          f"batch {POSE_BATCH}: {json.dumps(report)} | {line}", flush=True)
+    report["clip_build"] = clip_build_breakdown(line, data)
+    return report
+
+
+def clip_build_breakdown(line: str, data: str, clips: int = 3) -> dict:
+    """Host ms of one training clip (`PoseDatasetTrain[i]` as the CLI
+    builds it: 10 frames 4 apart, jitter and mirror) by stage, in this
+    process on one thread: each function the dataset calls, timed by a
+    wrapper in `data.datasets`' namespace, over `clips` clips; and the
+    host's cores, which the loader's 8 workers and the loop share."""
+    ds = PoseDatasetTrain(os.path.join(data, "clean_video_dict.json"),
+                          os.path.join(data, "labels"),
+                          os.path.join(data, "images"), n_frame_total=10,
+                          interval=4, rng=random.Random(0))
+    stages = ("read_rgb", "render_openpose", "image_to_labels",
+              "resize_frame", "resize_nearest", "apply_jitter", "crop",
+              "pad_square")
+    spent = collections.Counter()
+    saved = {name: getattr(pose_datasets, name) for name in stages}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    for name, fn in saved.items():
+        setattr(pose_datasets, name, timed(name, fn))
+    try:
+        t0 = time.perf_counter()
+        for i in range(clips):
+            ds[i]
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(pose_datasets, name, fn)
+    report = {"clip_ms": 1e3 * total / clips,
+              "stage_ms_per_clip": {k: 1e3 * v / clips
+                                    for k, v in spent.most_common()},
+              "host_cores": len(os.sched_getaffinity(0))}
+    report["jpeg_share"] = report["stage_ms_per_clip"]["read_rgb"] / \
+        report["clip_ms"]
+    print(f"[pose_data] one training clip's host time by stage: "
+          f"{json.dumps(report)} | {line}", flush=True)
+    return report
+
+
+def pose_demo_tier(line: str, pair: str, tier: str, data: str, out: str,
+                   sample: dict, launched: collections.Counter) -> dict:
+    """One `cli.demo_pose.main` run (see `pose_data_phase`)."""
+    extra, warp_kernel = DEMO_TIERS[tier]
+    args = ["--data-root", data, "--json-root", data, "--pair", pair,
+            "--max-frames", str(POSE_DEMO_FRAMES), "--chunk", str(CHUNK),
+            "--out-dir", out] + extra
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    res = demo_pose.main(args)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    launched.update(launches)
+    chunks = -(-POSE_DEMO_FRAMES // CHUNK)
+    check(launches == {warp_kernel: chunks, "instance_norm_mean": chunks},
+          f"pose_data demo {pair} {tier}: launches {launches}")
+
+    cfg = dataclasses.replace(pose_config(), precision="high",
+                              fast_tail=bool(extra))
+    hw = cfg.image_size
+    rec = res["rec"]
+    check(rec.shape == (POSE_DEMO_FRAMES, 3, hw, hw)
+          and np.isfinite(rec).all(), f"pose_data demo {tier}: output")
+    src, tar, idx = sample["src"], sample["tar"], res["ref_idx"]
+    plain = ClipInference(cfg, TSNetModules(cfg, seed=0), use_kernels=False)
+    want = plain.run_renormalized(src["img"][idx], src["lbl"][idx],
+                                  src["bbox"][idx], tar["lbl"], tar["bbox"])
+    del plain
+    err = np.abs(rec - want)
+    report = {"diff_sex": res["diff_sex"], "launches": launches,
+              "main_s": main_s, "frames_per_s": res["frames_per_s"],
+              "montage_pngs_s": res["montage_s"],
+              "gif_encode_ms": 1e3 * res["gif_s"],
+              "vs_plain_mean_abs": float(err.mean()),
+              "vs_plain_max_abs": float(err.max())}
+    check(report["vs_plain_mean_abs"] <= DEMO_TOL,
+          f"pose_data demo {pair} {tier}: kernel path vs plain {report}")
+    mean = cfg.img_mean_array()
+    check(len(res["names"]) == POSE_DEMO_FRAMES, "pose_data: montages")
+    last = POSE_DEMO_FRAMES - 1
+    want_row = np.concatenate([
+        to_display_rgb(src["img"][min(last, len(src["img"]) - 1)] / 255.0,
+                       mean),
+        labels_to_image(tar["lbl"][last], "pose"),
+        to_display_rgb(tar["img"][last] / 255.0, mean),
+        to_display_rgb(rec[last], mean)], axis=1)
+    check(np.array_equal(read_png(os.path.join(out, res["names"][-1])),
+                         want_row), f"pose_data demo {tier}: last montage")
+    with open(res["gif"], "rb") as f:
+        gif = f.read()
+    size, delays = gif_frames(gif)
+    check(size == (4 * hw, hw) and delays == [10] * POSE_DEMO_FRAMES,
+          f"pose_data demo {tier}: GIF of {size} with delays {delays}")
+    report["gif_bytes"] = len(gif)
+    print(f"[pose_data] demo_pose {pair!r} {tier}: {json.dumps(report)} | "
+          f"{line}", flush=True)
+    return report
+
+
+def dance_keypoints(n: int, hw: int) -> np.ndarray:
+    """n frames of crop-local validated keypoints (n, 137, 2) of the
+    dancing figure in an hw^2 crop, every fifth frame's left hand and
+    face ring undetected."""
+    frames = []
+    for f in range(n):
+        p = dance_person(hw / 2, hw / 2, hw / 4, 0.4 * f)
+        parts = [np.asarray(p[k], np.float64).reshape(-1, 3) for k in (
+            "pose_keypoints_2d", "face_keypoints_2d",
+            "hand_left_keypoints_2d", "hand_right_keypoints_2d")]
+        if f % 5 == 0:
+            parts[1][:, 2] = parts[2][:, 2] = 0.0
+        frames.append(np.concatenate([valid_keypoints(x) for x in parts]))
+    return np.stack(frames).astype(np.float32)
+
+
+def pose_serve(line: str, snap: str, launched: collections.Counter) -> dict:
+    """Pose serving: `rasterize_pose_clip` on the card against its CPU run
+    (a 32-frame chunk: bit-equal; its time, CUDA launches and peak
+    memory), then per tier (bench, bit-parity) `cli.serve.Server` on
+    pose_config() with the trained snapshot, on 127.0.0.1 from a thread:
+    a 64-frame (F, 137, 2) base64 request (launches zeroed just before
+    and read just after: one warp kernel and one K2 a chunk), frames
+    within 1 LSB of an in-process `push_keypoints`, and the server ms of
+    SERVE_REPEATS 32-frame requests."""
+    base = pose_config()
+    hw = base.image_size
+    kp = dance_keypoints(SERVE_FRAMES, hw)
+    report = {}
+
+    def parts(k, device):
+        bw = torch.ones(len(k), device=device)
+        return (k[:, :25], k[:, 25:95], k[:, 95:116], k[:, 116:137], bw,
+                torch.clamp(bw / 3.0, min=1.0))
+
+    k_dev = torch.as_tensor(kp[:CHUNK], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    lbl_dev = rasterize_pose_clip(*parts(k_dev, "cuda"), hw, hw).cpu()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    lbl_cpu = rasterize_pose_clip(*parts(torch.as_tensor(kp[:CHUNK]), "cpu"),
+                                  hw, hw)
+    rast = {"pixels_differing_from_cpu": int((lbl_dev != lbl_cpu).sum()),
+            "classes": len(torch.unique(lbl_cpu)),
+            "ms_per_chunk": time_ms(lambda: rasterize_pose_clip(
+                *parts(k_dev, "cuda"), hw, hw), iters=5),
+            "peak_mem_gb": peak,
+            "profile": device_breakdown(lambda: rasterize_pose_clip(
+                *parts(k_dev, "cuda"), hw, hw), "pose rasterizer", top=0)}
+    report["rasterizer"] = rast
+    print(f"[pose_data] rasterize_pose_clip, {CHUNK} frames at {hw}^2: "
+          f"{json.dumps(rast)} | {line}", flush=True)
+    check(rast["pixels_differing_from_cpu"] == 0 and rast["classes"] > 10,
+          "pose_data: pose rasterizer on the card vs its CPU run")
+
+    rng = np.random.default_rng(4)
+    s = base.n_source
+    payload = {"src_img": rng.integers(0, 256, (s, hw, hw, 3)).tolist(),
+               "src_lbl": rng.integers(0, base.label_nc, (s, hw, hw)).tolist(),
+               "src_bbox": rng.integers(0, 2, (s, hw, hw)).tolist()}
+    for tier in ("bench", "bit-parity"):
+        cfg = (dataclasses.replace(base, precision="high", fast_tail=True,
+                                   fast_trunk=True)
+               if tier == "bench" else base)
+        mods = load_params(snap, cfg, device="cuda")
+        server = Server(cfg, mods, chunk=CHUNK)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        res = {}
+        try:
+            sid = _http(url + "/session", payload)["session"]
+            torch.cuda.synchronize()
+            cuda_build.reset_launches()
+            body = _http(url + "/frames", {"session": sid,
+                                           "keypoints": kp.tolist(),
+                                           "encoding": "base64"})
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+            launched.update(launches)
+            frames = _frames(body)
+            chunks = -(-SERVE_FRAMES // CHUNK)
+            res["launches"] = launches
+            check(launches == {SERVE_KERNELS[tier]: chunks,
+                               "instance_norm_mean": chunks},
+                  f"pose_data serve {tier}: launches {launches}")
+            check(frames.shape == (SERVE_FRAMES, hw, hw, 3),
+                  f"pose_data serve {tier}: frames {frames.shape}")
+            one = {"session": sid, "keypoints": kp[:CHUNK].tolist(),
+                   "encoding": "base64"}
+            torch.cuda.reset_peak_memory_stats()
+            server_ms, wall = [], []
+            for _ in range(SERVE_REPEATS):
+                t0 = time.perf_counter()
+                reply = _http(url + "/frames", one)
+                _frames(reply)
+                wall.append(1e3 * (time.perf_counter() - t0))
+                server_ms.append(reply["ms"])
+            res.update(request_server_ms=float(np.median(server_ms)),
+                       request_server_ms_all=server_ms,
+                       request_wall_ms=float(np.median(wall)),
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            inproc = server.sessions[sid].push_keypoints(kp)[..., ::-1]
+            res["http_vs_inprocess_max_levels"] = int(np.abs(
+                frames.astype(np.int16) - inproc).max())
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=60)
+        check(not thread.is_alive(),
+              f"pose_data serve {tier}: server thread still alive")
+        check(res["http_vs_inprocess_max_levels"] <= 1,
+              f"pose_data serve {tier}: served vs in-process frames")
+        print(f"[pose_data] serve {tier}: {json.dumps(res)} | {line}",
+              flush=True)
+        report[tier] = res
+        del mods, server
+        torch.cuda.empty_cache()
+    return report
+
+
+def pose_data_phase(line: str) -> dict:
+    """The pose variant from files on disk at the full width of
+    pose_config() (see the module docstring, step 12): the JPEG fixtures
+    against their manifest, a synthetic dance set, `cli.train_pose`,
+    `cli.eval_snapshots --task pose`, `cli.demo_pose` on a same-build and
+    a cross-build pair in two tiers, and pose serving. Its files go to a
+    git-ignored `chip_smoke_pose_data_*` directory of the checkout.
+    Returns its report, with the launches of its counted runs by kernel
+    under "launches"."""
+    launched = collections.Counter()
+    report = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pose_data_",
+                                     dir=root) as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        manifest = write_dance_set(data)
+        report["dataset_write_s"] = time.perf_counter() - t0
+        report["jpeg"] = jpeg_fixture_check(line, manifest)
+
+        run_root = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        report["train"] = pose_train_from_disk(line, data, run_root, launched)
+        report["train"]["phase_s"] = time.perf_counter() - t0
+        snaps = os.path.join(run_root, "snapshots")
+
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        rows = eval_snapshots.main([
+            "--snapshot-dir", snaps, "--task", "pose", "--data-root", data,
+            "--subject", "%05d" % POSE_DATA_VIDEOS[0],
+            "--out-dir", os.path.join(tmp, "eval")])
+        torch.cuda.synchronize()
+        launched.update(cuda_build.LAUNCHES)
+        n_snaps = len([f for f in os.listdir(snaps) if f.endswith(".msgpack")])
+        report["eval"] = {"rows": rows, "main_s": time.perf_counter() - t0,
+                          "launches": {k: v for k, v in
+                                       cuda_build.LAUNCHES.items() if v}}
+        check(len(rows) == n_snaps >= 1 and all(np.isfinite(
+            [r[k] for k in ("l1", "psnr", "ssim")]).all() for r in rows),
+              f"pose_data: eval_snapshots rows {rows}")
+        print(f"[pose_data] eval_snapshots --task pose: "
+              f"{json.dumps(report['eval'])} | {line}", flush=True)
+        torch.cuda.empty_cache()
+
+        for name, pair in POSE_DATA_PAIRS.items():
+            t0 = time.perf_counter()
+            sample = PoseDatasetTest(
+                [pair], os.path.join(data, "clean_video_dict.json"),
+                os.path.join(data, "clean_unseen_video_dict.json"),
+                os.path.join(data, "labels"),
+                os.path.join(data, "smooth_openpose"),
+                os.path.join(data, "images"),
+                n_frame_total=POSE_DEMO_FRAMES)[0]
+            load_s = time.perf_counter() - t0
+            check(sample["diff_sex"] == POSE_DATA_SEX[name],
+                  f"pose_data: pair {pair} is {sample['diff_sex']!r}")
+            for tier in DEMO_TIERS:
+                report[f"demo {name} {tier}"] = pose_demo_tier(
+                    line, pair, tier, data, os.path.join(
+                        tmp, f"demo_{name}_{tier}"), sample, launched)
+                report[f"demo {name} {tier}"]["test_set_load_s"] = load_s
+                torch.cuda.empty_cache()
+        report["serve"] = pose_serve(line, find_latest_checkpoint(snaps),
+                                     launched)
+    report["launches"] = dict(launched)
+    return report
+
+
 def one_launch(name: str, call):
     """Run `call` with the launch counts zeroed just before and read just
     after; it must launch kernel `name` once and nothing else."""
@@ -2874,6 +3438,19 @@ def requests_phase(line: str, repeats: int = 10) -> None:
         torch.cuda.empty_cache()
 
 
+def run_pose_data(line: str, pose: dict) -> dict:
+    """`pose_data_phase`, timed, its loop's ms/step beside [pose]'s
+    fixed-batch step."""
+    t0 = time.perf_counter()
+    report = pose_data_phase(line)
+    print(f"[pose_data] phase {time.perf_counter() - t0:.1f} s; ms/step "
+          f"over steps 2-{POSE_DATA_STEPS} from disk "
+          f"{report['train']['ms_per_step_2_to_last']:.2f} against [pose]'s "
+          f"fixed batch {pose['train']['ms_per_step']:.2f}, data-wait share "
+          f"{report['train']['data_wait_share']:.3f} | {line}", flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -2897,8 +3474,10 @@ def main() -> int:
           f"{json.dumps(per_source)}", flush=True)
     if sys.argv[1:] == ["--pose"]:
         t0 = time.perf_counter()
-        pose_phase(line)
+        pose = pose_phase(line)
         print(f"[pose] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        run_pose_data(line, pose)
         return 0
     for name in cuda_build.SOURCES:
         log = cuda_build.library_path(name).with_suffix(".log").read_text()
@@ -2933,6 +3512,8 @@ def main() -> int:
     report["pose"] = pose_phase(line)
     print(f"[pose] phase {time.perf_counter() - t0:.1f} s | {line}",
           flush=True)
+    torch.cuda.empty_cache()
+    report["pose_data"] = run_pose_data(line, report["pose"])
     torch.cuda.empty_cache()
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_",
@@ -2989,7 +3570,9 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
-            "pose_launches": report["pose"]["launches"].get(launch, 0)}
+            "pose_launches": report["pose"]["launches"].get(launch, 0),
+            "pose_data_launches": report["pose_data"]["launches"].get(
+                launch, 0)}
         if name in pose_rows:
             at = report["pose"]["kernels"][pose_rows[name]]
             row["pose"] = {key: at[key] for key in (

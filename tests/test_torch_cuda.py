@@ -25,8 +25,10 @@ groups, and its cluster path as one kernel that gives the same bits),
 and the train shape of the backward, with its own ragged edges and a
 check that two calls give the same bits; the pose train step's shapes
 (K3-flow and K4 at G=10, K2 at (3, 10, 32, 32, 1024)), `crop_faces` with
-no host sync, and the toy pose step's kernel path; chip_smoke.py checks
-the main paths' shapes.
+no host sync, and the toy pose step's kernel path; the pose keypoint
+rasterizer on the card against the CPU, and pose `push_keypoints` through
+the kernels against the plain path; chip_smoke.py checks the main paths'
+shapes.
 """
 
 import dataclasses
@@ -945,3 +947,70 @@ def test_demo_face_toy_on_the_card(dev, tmp_path, tier):
               for name in res["names"]]
     with open(res["gif"], "rb") as f:
         assert f.read() == encode_gif(frames)
+
+
+def _pose_keypoints(f, hw, seed=4):
+    """f frames of (137, 2) OpenPose points in an hw^2 crop (pose 25 |
+    face 70 | hand_l 21 | hand_r 21), a tenth of them undetected (0)."""
+    rng = np.random.default_rng(seed)
+    kp = rng.uniform(hw * 0.1, hw * 0.9, (f, 137, 2)).astype(np.float32)
+    kp[rng.random((f, 137)) < 0.1] = 0.0
+    return kp
+
+
+def test_rasterize_pose_clip_on_the_card(dev):
+    """The pose rasterizer's torch ops on the card give the CPU's label
+    maps at 256^2 (chip_smoke.py [pose_data] holds a 32-frame chunk)."""
+    from wacv23_tsnet_tpu_torch.data.rasterize_device import (
+        rasterize_pose_clip)
+    kp = torch.from_numpy(_pose_keypoints(6, 256))
+    bw = torch.tensor([1.0, 2.0, 3.0, 1.0, 4.0, 2.0])
+    hbw = torch.clamp(bw / 3.0, min=1.0)
+
+    def parts(k, a, b):
+        return (k[:, :25], k[:, 25:95], k[:, 95:116], k[:, 116:137], a, b)
+
+    want = rasterize_pose_clip(*parts(kp, bw, hbw))
+    got = rasterize_pose_clip(*(x.to(dev) for x in parts(kp, bw, hbw)))
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    assert len(torch.unique(want)) > 10
+
+
+@pytest.mark.parametrize("fast_tail", [False, True], ids=["nf", "mean"])
+def test_pose_push_keypoints_kernels_match_plain(dev, fast_tail):
+    """Pose `push_keypoints` at the toy pose config (25 classes) on the
+    card: 40 frames in chunks of 32 launch one warp kernel (K3-nf, or K1
+    with fast_tail) and one K2 a chunk, and the frames agree with the
+    plain path's (1e-3 max abs in model space; 0.01 mean L1 with the
+    bf16 tail)."""
+    from wacv23_tsnet_tpu_torch.configs import toy_pose_config
+    from wacv23_tsnet_tpu_torch.infer import RetargetSession
+    from wacv23_tsnet_tpu_torch.models import TSNetModules
+    cfg = dataclasses.replace(toy_pose_config(), label_nc=25,
+                              fast_tail=fast_tail)
+    mods = TSNetModules(cfg, device=dev, seed=2)
+    hw, s = cfg.image_size, cfg.n_source
+    rng = np.random.default_rng(1)
+    src = (rng.random((s, hw, hw, 3)).astype(np.float32),
+           np.eye(25, dtype=np.float32)[rng.integers(0, 25, (s, hw, hw))],
+           rng.integers(0, 2, (s, hw, hw)).astype(np.float32))
+    kp = _pose_keypoints(40, hw)
+    frames = {}
+    for use_kernels in (True, False):
+        sess = RetargetSession(mods, *src, chunk=32, device=dev,
+                               use_kernels=use_kernels)
+        cuda_build.reset_launches()
+        frames[use_kernels] = sess.push_keypoints(kp)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        warp = ("transform_warp_pairs_mean" if fast_tail
+                else "transform_warp_pairs_nf")
+        assert launches == ({warp: 2, "instance_norm_mean": 2}
+                            if use_kernels else {})
+    err = np.abs(frames[True] - frames[False])
+    assert frames[True].shape == (40, hw, hw, 3)
+    if fast_tail:
+        assert err.mean() <= 0.01
+    else:
+        assert err.max() <= 1e-3

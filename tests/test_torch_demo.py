@@ -16,6 +16,7 @@ import functools
 import io
 import os
 import re
+import shutil
 
 import imageio
 import jax
@@ -41,7 +42,7 @@ from wacv23_tsnet_tpu.train.state import (
     create_train_state as j_create_train_state)
 from wacv23_tsnet_tpu_torch.cli import (demo_face, eval_snapshots,
                                         profile_stages, quick_start)
-from wacv23_tsnet_tpu_torch.configs import toy_config
+from wacv23_tsnet_tpu_torch.configs import toy_config, toy_pose_config
 from wacv23_tsnet_tpu_torch.data import gif
 from wacv23_tsnet_tpu_torch.data.datasets import FaceDatasetTest
 from wacv23_tsnet_tpu_torch.data.face import (FaceRetargeter,
@@ -169,9 +170,31 @@ def test_face_dataset_test_matches_jax(face_pair, jax_numpy_tier, max_frames):
     assert got["tar"]["lbl"].any() and got["tar"]["bbox"].any()
 
 
-def test_face_dataset_test_refuses_jpeg(face_pair):
-    with pytest.raises(ValueError, match="JPEG decoder"):
-        FaceDatasetTest(*_clip_paths(face_pair), image_ext=".jpg")
+def test_face_dataset_test_refuses_jpeg(face_pair, jax_numpy_tier,
+                                       tmp_path):
+    """`image_ext=".jpg"` reads JPEG frames (the port's decoder, bit-equal
+    to Pillow's) as the JAX test set does; a frame that is neither PNG
+    nor JPEG is refused."""
+    root = tmp_path / "jpeg"
+    shutil.copytree(os.path.join(face_pair, "labels"), root / "labels")
+    for clip in ("subject", "driving"):
+        os.makedirs(root / "images" / clip)
+        for name in sorted(os.listdir(os.path.join(face_pair, "images",
+                                                   clip))):
+            Image.open(os.path.join(face_pair, "images", clip, name)).save(
+                root / "images" / clip / name.replace(".png", ".jpg"),
+                quality=85)
+    paths = _clip_paths(str(root))
+    got = FaceDatasetTest(*paths, max_frame_num=4, image_ext=".jpg")[0]
+    want = JFaceDatasetTest(*paths, max_frame_num=4, image_ext=".jpg")[0]
+    for part in ("src", "tar"):
+        for key in ("img", "lbl", "bbox"):
+            np.testing.assert_array_equal(got[part][key], want[part][key])
+        assert got[part]["names"] == want[part]["names"]
+    assert got["src"]["names"][0].endswith(".jpg")
+    (root / "images" / "subject" / "00000.jpg").write_bytes(b"GIF89a")
+    with pytest.raises(ValueError, match="neither PNG nor JPEG"):
+        FaceDatasetTest(*paths, max_frame_num=4, image_ext=".jpg")[0]
 
 
 # ---------------------------------------------------------------- GIF
@@ -369,9 +392,18 @@ def test_eval_snapshots_matches_jax(face_pair, snapshot_dir, tmp_path,
 
 
 def test_eval_snapshots_refuses_pose(snapshot_dir, tmp_path):
-    with pytest.raises(SystemExit, match="pose"):
+    """`--task pose` evaluates pose snapshots on a dance video
+    (tests/test_torch_pose_cli.py); the face model's snapshots it
+    refuses, their encoders being of another width."""
+    from torch_pose_dance import write_dance_set
+    dance = write_dance_set(str(tmp_path / "dance"), n_frames=4)
+    pose_cfg = dataclasses.replace(toy_pose_config(), label_nc=25)
+    with pytest.raises(RuntimeError, match="size mismatch"):
         eval_snapshots.main(["--snapshot-dir", snapshot_dir, "--task", "pose",
-                             "--out-dir", str(tmp_path)], device="cpu")
+                             "--data-root", dance, "--subject", "00005",
+                             "--n-source", "2", "--max-frames", "4",
+                             "--out-dir", str(tmp_path / "out")],
+                            base_config=pose_cfg, device="cpu")
 
 
 def test_quick_start_matches_jax_draws(monkeypatch):

@@ -249,10 +249,12 @@ def test_push_keypoints_matches_jax(weights, output):
 
 
 def test_push_keypoints_refuses_the_pose_task():
+    """A pose session takes (F, 137, 2) OpenPose points
+    (tests/test_torch_pose_serve.py): it refuses face landmarks."""
     mods = TSNetModules(dataclasses.replace(CFG, task="pose"), device="cpu")
     rng = np.random.default_rng(0)
     sess = RetargetSession(mods, *_sources(rng), device="cpu")
-    with pytest.raises(NotImplementedError, match="pose"):
+    with pytest.raises(ValueError, match=r"\(F, 137, 2\)"):
         sess.push_keypoints(_keypoints(rng, 2))
 
 

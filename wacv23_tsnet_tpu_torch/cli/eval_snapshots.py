@@ -1,12 +1,15 @@
 """Evaluate training snapshots: reconstruction metrics over checkpoints
-(counterpart of the JAX package's `cli/eval_snapshots.py`, face task).
+(counterpart of the JAX package's `cli/eval_snapshots.py`).
 
 For every `*.msgpack` snapshot of `--snapshot-dir` (what `cli.train_face`
-writes) it runs whole-clip self-reconstruction (sources: the first
-`n_source` frames of the subject clip; driving labels: the remaining
-frames; ground truth: those frames) and reports L1 / PSNR / SSIM in
-display space to `eval_metrics.csv`, with one source|target|
-reconstruction montage a snapshot. Runs on the GPU.
+or `cli.train_pose` writes) it runs whole-clip self-reconstruction
+(sources: the first `n_source` frames of the subject clip; driving
+labels: the remaining frames; ground truth: those frames) and reports
+L1 / PSNR / SSIM in display space to `eval_metrics.csv`, with one
+source|target|reconstruction montage a snapshot. `--task pose` reads one
+dance video (`--data-root/{images,labels}/<--subject>/`, JPEG frames and
+OpenPose JSONs) through the pose test set's subject pipeline
+(`load_pose_self_clip`). Runs on the GPU.
 
     python -m wacv23_tsnet_tpu_torch.cli.eval_snapshots \\
         --snapshot-dir runs/face/snapshots --out-dir eval_out
@@ -24,9 +27,11 @@ import time
 import numpy as np
 import torch
 
-from ..configs import TSNetConfig, face_config
-from ..data.datasets import FaceDatasetTest
-from ..data.image_io import write_png
+from ..configs import TSNetConfig, face_config, pose_config
+from ..data.datasets import (FaceDatasetTest, _person_crop_coords,
+                             _pose_arrays, _pose_frame)
+from ..data.image_io import read_rgb, write_png
+from ..data.rasterize import render_openpose
 from ..device import resolve_device
 from ..infer.metrics import l1, psnr, ssim
 from ..infer.pipeline import ClipInference, montage_row, to_display_rgb
@@ -40,12 +45,40 @@ def display_clip(imgs_chw: np.ndarray, mean) -> np.ndarray:
     return out.astype(np.float32) / 255.0
 
 
+def load_pose_self_clip(data_root: str, vdir: str, max_frames: int, mean):
+    """One dance video as a deterministic self-reconstruction clip: the
+    pose test set's subject pipeline (test-time labels, the person crop
+    of frame 0, 128x256 resize and square pad) on its first `max_frames`
+    frames. Returns (imgs (F, 3, H, W) BGR minus the mean, class maps
+    (F, H, W) int32, bboxes (F, H, W) uint8)."""
+    images = os.path.join(data_root, "images", vdir)
+    labels = os.path.join(data_root, "labels", vdir)
+    parts = ([], [], [])
+    coords = None
+    for frame in sorted(os.listdir(images))[:max_frames]:
+        img = read_rgb(os.path.join(images, frame))
+        size = img.shape[1::-1]
+        lbl, pose_pts, _ = render_openpose(
+            os.path.join(labels, frame[:-4] + "_keypoints.json"), size,
+            train=False)
+        if coords is None:
+            coords, _ = _person_crop_coords(pose_pts, size, train=False,
+                                            rng=None)
+        xs, ys, xe, ye = coords
+        for acc, v in zip(parts, _pose_frame(img, lbl[ys:ye, xs:xe],
+                                             coords)):
+            acc.append(v)
+    clip = _pose_arrays(*parts, mean, False, False)
+    return clip["img"], clip["lbl"].astype(np.int32), clip["bbox"]
+
+
 def main(argv=None, base_config: TSNetConfig | None = None, device="cuda"):
-    """Parse `argv` and evaluate. `base_config` (default `face_config()`)
-    is the model the flags are applied to, and `device` where it runs:
-    the command line always takes the face model on the GPU. Returns one
-    dict a snapshot: step, l1, psnr, ssim, and the seconds its restore
-    (`restore_s`) and its inference and metrics (`infer_s`) took."""
+    """Parse `argv` and evaluate. `base_config` (default `face_config()`,
+    or `pose_config()` with `--task pose`) is the model the flags are
+    applied to, and `device` where it runs: the command line always
+    takes the shipped models on the GPU. Returns one dict a snapshot:
+    step, l1, psnr, ssim, and the seconds its restore (`restore_s`) and
+    its inference and metrics (`infer_s`) took."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--snapshot-dir", required=True)
     p.add_argument("--task", default="face", choices=["face", "pose"])
@@ -58,29 +91,34 @@ def main(argv=None, base_config: TSNetConfig | None = None, device="cuda"):
                    choices=["highest", "high", "default"])
     args = p.parse_args(argv)
     device = resolve_device(device)
-    if args.task != "face":
-        raise SystemExit("--task pose: its self-reconstruction clip comes "
-                         "with the port of the pose variant")
 
     os.makedirs(args.out_dir, exist_ok=True)
-    cfg = dataclasses.replace(base_config or face_config(),
+    default = face_config if args.task == "face" else pose_config
+    cfg = dataclasses.replace(base_config or default(),
                               precision=args.precision)
-    data_root = args.data_root or "demo/face_examples"
-    subject = args.subject or "val024"
     mean = cfg.img_mean_array()
 
     s = args.n_source
-    images = os.path.join(data_root, "images", subject)
-    labels = os.path.join(data_root, "labels", subject)
-    clip = FaceDatasetTest(images, labels, images, labels,
-                           img_size=(cfg.image_size, cfg.image_size),
-                           max_frame_num=args.max_frames)[0]
-    src, tar = clip["src"], clip["tar"]
-    src_imgs, src_lbls, src_boxes = src["img"][:s], src["lbl"][:s], \
-        src["bbox"][:s]
-    # held-out driving frames: everything after the sources
-    tar_imgs, tar_lbls, tar_boxes = tar["img"][s:], tar["lbl"][s:], \
-        tar["bbox"][s:]
+    if args.task == "face":
+        data_root = args.data_root or "demo/face_examples"
+        subject = args.subject or "val024"
+        images = os.path.join(data_root, "images", subject)
+        labels = os.path.join(data_root, "labels", subject)
+        clip = FaceDatasetTest(images, labels, images, labels,
+                               img_size=(cfg.image_size, cfg.image_size),
+                               max_frame_num=args.max_frames)[0]
+        src, tar = clip["src"], clip["tar"]
+        src_imgs, src_lbls, src_boxes = (src["img"][:s], src["lbl"][:s],
+                                         src["bbox"][:s])
+        # held-out driving frames: everything after the sources
+        tar_imgs, tar_lbls, tar_boxes = (tar["img"][s:], tar["lbl"][s:],
+                                         tar["bbox"][s:])
+    else:
+        imgs, lbls, boxes = load_pose_self_clip(
+            args.data_root or "demo/dance_example", args.subject or "00110",
+            args.max_frames, mean)
+        src_imgs, src_lbls, src_boxes = imgs[:s], lbls[:s], boxes[:s]
+        tar_imgs, tar_lbls, tar_boxes = imgs[s:], lbls[s:], boxes[s:]
 
     snaps = sorted(glob.glob(os.path.join(args.snapshot_dir, "*.msgpack")))
     if not snaps:

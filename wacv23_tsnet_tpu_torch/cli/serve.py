@@ -3,8 +3,10 @@ of the JAX package's `cli/serve.py`: the same API, flags and status
 codes).
 
 A client registers a subject once (the reference frames are encoded on
-the GPU and stay there), then streams driving face landmarks and gets
+the GPU and stay there), then streams driving keypoints and gets
 synthesized frames back. One lock owns the GPU; requests queue behind it.
+A `Server` of a pose config takes the pose task's OpenPose points
+through the same routes; the command line serves the face model.
 
     python -m wacv23_tsnet_tpu_torch.cli.serve --port 8787 \
         [--restore-from ckpt.msgpack]
@@ -17,6 +19,7 @@ API (JSON in, JSON out):
                    "src_lbl": [S,H,W] class-map list,
                    "src_bbox": [S,H,W] 0/1 list}       -> {"session": id}
   POST /frames    {"session": id, "keypoints": [F,68,2]}
+                  (pose: [F,137,2], pose|face|hand_l|hand_r, 0 = missing)
                   -> {"frames": [F,H,W,3] uint8 RGB list, "ms": float}
                   with "encoding": "base64" -> {"frames_b64": ...,
                   "shape": [F,H,W,3], "dtype": "uint8", "ms": float}

@@ -1,18 +1,22 @@
-"""Image files and resizes of the face data pipeline, in numpy.
+"""Image files and resizes of the data pipelines, in numpy.
 
 The port's counterpart of what the JAX package's datasets take from
 Pillow and OpenCV, which the port does not depend on:
 
 - `decode_png` / `encode_png`: PNG on `zlib` + `struct`, 8-bit gray, RGB
   and RGBA, non-interlaced; all five row filters when reading, filter
-  None when writing. Other formats (JPEG, palette, 16-bit, interlaced)
-  are refused with a `ValueError`.
-- `crop` (Pillow's `Image.crop`: zero fill outside the image) and
-  `mirror`.
+  None when writing. Other PNGs (palette, 16-bit, interlaced) are
+  refused with a `ValueError`.
+- `read_rgb` reads a PNG or a JPEG frame (by its signature); JPEG goes
+  to the port's baseline decoder (`data.jpeg`), bit-equal to Pillow's
+  libjpeg-turbo. `image_size` reads a frame's size from its header.
+- `crop` (Pillow's `Image.crop`: zero fill outside the image), `mirror`
+  and `pad_square` (`ImageOps.expand` to a square, black border).
 - `resize_frame`: Pillow's `Image.resize` default, bicubic (a = -0.5)
   with its support widened by the scale when shrinking, in Pillow's
   fixed point: 22-bit integer taps, a horizontal pass clipped to uint8,
   then a vertical pass. Bit-equal to Pillow.
+- `resize_nearest`: Pillow's `Image.resize(size, Image.NEAREST)`.
 - `resize_mask`: the JAX datasets' `_resize_bool`, OpenCV's float32
   resize (`INTER_AREA` when the width shrinks, else `INTER_LINEAR`) in
   OpenCV's float32 order, then the absolute 0.5 threshold.
@@ -24,6 +28,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from .jpeg import SOI, decode_jpeg, jpeg_size
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_CHANNELS = {0: 1, 2: 3, 6: 4}       # gray, RGB, RGBA
@@ -83,8 +89,8 @@ def _unfilter(ftype: np.ndarray, filt: np.ndarray) -> np.ndarray:
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> (H, W, C) uint8, C = 1 (gray), 3 (RGB) or 4 (RGBA)."""
     if data[:8] != PNG_SIGNATURE:
-        raise ValueError("not a PNG file: the port reads PNG frames only "
-                         "(JPEG and other formats are not supported)")
+        raise ValueError("not a PNG file: decode_png reads PNG frames only "
+                         "(read_rgb takes JPEG frames to data.jpeg)")
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -141,12 +147,31 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """A PNG frame as (H, W, 3) uint8 RGB: gray is repeated, alpha
-    dropped (Pillow's `convert("RGB")`)."""
-    img = read_png(path)
+    """A PNG or JPEG frame as (H, W, 3) uint8 RGB: gray is repeated,
+    alpha dropped (Pillow's `convert("RGB")`). Another format raises
+    ValueError."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == PNG_SIGNATURE:
+        img = decode_png(data)
+    elif data[:2] == SOI:
+        img = decode_jpeg(data, name=path)
+    else:
+        raise ValueError(f"{path}: neither PNG nor JPEG")
     if img.shape[-1] == 1:
         return np.repeat(img, 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def image_size(path: str) -> tuple[int, int]:
+    """(width, height) of a PNG or JPEG frame, from its header."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == PNG_SIGNATURE:
+        return struct.unpack(">II", data[16:24])
+    if data[:2] == SOI:
+        return jpeg_size(data, name=path)
+    raise ValueError(f"{path}: neither PNG nor JPEG")
 
 
 # ---------------------------------------------------- crop and mirror
@@ -168,6 +193,44 @@ def crop(img: np.ndarray, coords) -> np.ndarray:
 def mirror(img: np.ndarray) -> np.ndarray:
     """Left-right mirror of an (H, W, ...) image."""
     return np.ascontiguousarray(img[:, ::-1])
+
+
+def pad_square(img: np.ndarray) -> np.ndarray:
+    """(H, W, ...) -> (S, S, ...), S = max(H, W), the image centred on a
+    zero border (left/top take the smaller half: `ImageOps.expand` as the
+    JAX datasets' `_pad_square` calls it)."""
+    h, w = img.shape[:2]
+    s = max(h, w)
+    top, left = (s - h) // 2, (s - w) // 2
+    out = np.zeros((s, s) + img.shape[2:], img.dtype)
+    out[top:top + h, left:left + w] = img
+    return out
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Pillow's `ImagingScaleAffine` source positions: x0 = 0.5 * scale,
+    then scale added once per output pixel in double precision, each cast
+    to int; -1 where it leaves the image (that output stays 0)."""
+    scale = float(in_size) / out_size
+    steps = np.full(out_size, scale)
+    steps[0] = 0.0 + scale * 0.5
+    pos = np.add.accumulate(steps)
+    idx = pos.astype(np.int64)
+    return np.where((pos >= 0) & (idx < in_size), idx, -1)
+
+
+def resize_nearest(img: np.ndarray, size) -> np.ndarray:
+    """(H, W, ...) -> (h, w, ...) for `size` = (w, h), as Pillow's
+    `Image.resize(size, Image.NEAREST)` samples."""
+    w, h = size
+    if img.shape[:2] == (h, w):
+        return img.copy()
+    xi = _nearest_index(img.shape[1], w)
+    yi = _nearest_index(img.shape[0], h)
+    out = img[np.maximum(yi, 0)][:, np.maximum(xi, 0)]
+    out[yi < 0] = 0
+    out[:, xi < 0] = 0
+    return out
 
 
 # ------------------------------------------ frame resize (Pillow bicubic)

@@ -1,30 +1,42 @@
-"""On-device keypoint rasterizer, face path (counterpart of the JAX
-package's `data/rasterize_jax.py`: `_exists_int`, `_stamp_cover`,
-`_stamp_cover_quad` and `rasterize_face_clip`).
+"""On-device keypoint rasterizer (counterpart of the JAX package's
+`data/rasterize_jax.py`: `_exists_int`, `_stamp_cover`,
+`_stamp_cover_quad`, `rasterize_face_clip`, `_build_edge_table` and
+`rasterize_pose_clip`).
 
-Every edge of the face's part lists is a curve; a pixel is an edge pixel
-when some edge covers it. Coverage is the JAX package's closed form of
-the host tier's discrete stamping (`data/face.py:render_face_edges`): a
-curve sampled at `ceil(span)` points along its longer axis, each sample
+Every edge of a skeleton is a curve. Coverage is the JAX package's
+closed form of the host tier's discrete stamping (`data/rasterize.py`):
+a curve sampled at `ceil(span)` points along its longer axis, each sample
 int-cast and stamped with a square brush [-bw, bw). "Some sample covers
 pixel p" becomes "an integer sample index lies in a closed-form interval
-set", evaluated per (pixel, edge) as dense torch math:
+set", evaluated per (pixel, edge) as dense torch math.
+
+Face (`rasterize_face_clip`, as `data/face.py:render_face_edges`):
 
 - landmarks group in threes (edge_len=3, stride 2): 28 three-point edges
   whose minor coordinate is the Lagrange parabola through the points,
   edges with |a| > 1 dropped (the reference's wild-quadratic rejection);
-- 6 two-point tails drawn as linear strokes.
+- 6 two-point tails drawn as linear strokes;
+- a pixel is an edge pixel when some edge covers it.
+
+Pose (`rasterize_pose_clip`, as `render_person`): the 24 body edges
+(18 with `basic_point_only`), 40 finger edges and 54 face edges of the
+OpenPose skeleton, two-point strokes each; body edges add the radius-2bw
+end dots (integer-offset disks around the floored ends, drawn only for a
+non-empty curve); an edge is drawn only where both its x coordinates are
+non-zero; and the last edge in stamping order that covers a pixel sets
+its class (1..24, the palette row of its colour).
 
 The expressions copy the JAX ones term for term (the same `eps`, the
 same `where` guards and operation order), since coverage is `ceil` /
 `floor` of fp32 values and another order can move a sample exactly onto
 a window edge. Eager PyTorch materialises every temporary that XLA
-fuses, so frames go through in groups of about `_BUDGET` (pixel, edge)
-elements (16 MB a fp32 temporary); each group's coverage is OR-ed over
-its edges into one (F, H*W) map. No Pallas kernel stood here, and none
-stands here: this is torch ops on whatever device the keypoints live.
-
-The pose path (`rasterize_pose_clip`) is not ported yet.
+fuses, so the work goes through in groups of about `_BUDGET` (pixel,
+edge) elements (16 MB a fp32 temporary): frames for the face (each
+group's coverage OR-ed over its edges), frames and edges for the pose,
+where a running maximum of the covering edge's index carries the
+stamping order from one edge group to the next. No Pallas kernel stood
+here, and none stands here: this is torch ops on whatever device the
+keypoints live.
 """
 
 from __future__ import annotations
@@ -32,7 +44,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .codecs import POSE_PALETTE
 from .face import FACE_PART_LIST
+from .rasterize import FACE_SEGMENTS, HAND_FINGERS, pose_edge_colors
 
 _INF = float("inf")
 _BUDGET = 1 << 22
@@ -272,3 +286,87 @@ def rasterize_face_clip(keypoints: torch.Tensor, bw: torch.Tensor,
                             b).any(dim=2)
         out.append(hit)
     return torch.cat(out).reshape(-1, h, w).to(torch.int32)
+
+
+def _build_edge_table(basic_point_only: bool = False,
+                      remove_face_labels: bool = False):
+    """(starts, ends, group, class_id) int64 arrays of the pose skeleton's
+    edges in stamping order. Points index one concatenated (137, 2)
+    array a frame: pose 0..24, face 25..94, hand_l 95..115, hand_r
+    116..136; group 0 = body, 1 = hand, 2 = face (the brush width)."""
+    palette = {tuple(c): i + 1 for i, c in enumerate(POSE_PALETTE.tolist())}
+    edges = []
+    pose_edges, pose_colors = pose_edge_colors(basic_point_only)
+    for (a, b), color in zip(pose_edges, pose_colors):
+        edges.append((a, b, 0, palette[tuple(color)]))
+    if not basic_point_only:
+        for hand_base in (95, 116):
+            for fi, finger in enumerate(HAND_FINGERS):
+                cls = palette[tuple(POSE_PALETTE[18 + fi].tolist())]
+                for j in range(len(finger) - 1):
+                    edges.append((hand_base + finger[j],
+                                  hand_base + finger[j + 1], 1, cls))
+        if not remove_face_labels:
+            for seg_list in FACE_SEGMENTS:
+                for seg in seg_list:
+                    for i in range(len(seg) - 1):
+                        edges.append((25 + seg[i], 25 + seg[i + 1], 2, 24))
+    arr = np.asarray(edges, np.int64)
+    return arr[:, 0], arr[:, 1], arr[:, 2], arr[:, 3]
+
+
+def rasterize_pose_clip(pose: torch.Tensor, face: torch.Tensor,
+                        hand_l: torch.Tensor, hand_r: torch.Tensor,
+                        pose_bw: torch.Tensor, hand_bw: torch.Tensor,
+                        h: int = 256, w: int = 256,
+                        basic_point_only: bool = False,
+                        remove_face_labels: bool = False) -> torch.Tensor:
+    """Validated keypoints pose (F, 25, 2), face (F, 70, 2), hand_l and
+    hand_r (F, 21, 2) (zeros: not detected) and brush widths pose_bw,
+    hand_bw (F,) (the face uses hand_bw) -> (F, h, w) int32 class maps
+    (0 background, 1..24 palette), on the keypoints' device."""
+    dev = pose.device
+    starts, ends, group, class_id = (
+        torch.as_tensor(t, device=dev) for t in _build_edge_table(
+            basic_point_only, remove_face_labels))
+    pts = torch.cat([pose, face, hand_l, hand_r], dim=1).float()
+    a_all = pts[:, starts]                                   # (F, E, 2)
+    b_all = pts[:, ends]
+    # the host tier tests `if 0 not in x`: x coordinates only
+    valid_all = (a_all[..., 0] != 0) & (b_all[..., 0] != 0)  # (F, E)
+    bw_all = torch.where(group == 0, pose_bw.float()[:, None],
+                         hand_bw.float()[:, None])           # (F, E)
+    body = group == 0
+    n_f, n_e = a_all.shape[:2]
+
+    ys = torch.arange(h, dtype=torch.float32, device=dev)
+    xs = torch.arange(w, dtype=torch.float32, device=dev)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    px = gx.reshape(1, -1, 1)
+    py = gy.reshape(1, -1, 1)
+    e_step = max(1, min(n_e, _BUDGET // (h * w)))
+    f_step = max(1, _BUDGET // (h * w * e_step))
+    order = torch.arange(n_e, dtype=torch.int64, device=dev)
+    out = []
+    for f0 in range(0, n_f, f_step):
+        fs = slice(f0, f0 + f_step)
+        best = None
+        for e0 in range(0, n_e, e_step):
+            es = slice(e0, e0 + e_step)
+            a, b, bw = a_all[fs, es], b_all[fs, es], bw_all[fs, None, es]
+            hit = _stamp_cover(px, py, a, b, bw)             # (f, P, e)
+            nonempty = (torch.maximum(torch.abs(b[..., 0] - a[..., 0]),
+                                      torch.abs(b[..., 1] - a[..., 1]))
+                        > 0.0)[:, None]
+            af = torch.floor(a)[:, None]                     # (f, 1, e, 2)
+            bf = torch.floor(b)[:, None]
+            d2a = (px - af[..., 0]) ** 2 + (py - af[..., 1]) ** 2
+            d2b = (px - bf[..., 0]) ** 2 + (py - bf[..., 1]) ** 2
+            dots = ((torch.minimum(d2a, d2b) < 4.0 * bw ** 2)
+                    & body[es] & nonempty)
+            hit = (hit | dots) & valid_all[fs, None, es]
+            # stamping order: the last covering edge wins
+            last = torch.amax(torch.where(hit, order[es], -1), dim=2)
+            best = last if best is None else torch.maximum(best, last)
+        out.append(torch.where(best >= 0, class_id[best.clamp(min=0)], 0))
+    return torch.cat(out).reshape(n_f, h, w).to(torch.int32)

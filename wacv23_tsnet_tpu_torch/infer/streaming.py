@@ -6,9 +6,10 @@ on the device; callers then stream driving inputs in chunks and get
 synthesized frames back. Two input levels:
 
 - `push_labels(tar_lbl, tar_bbox)`: rasterized label maps;
-- `push_keypoints(keypoints)`: raw face landmarks. Rasterization
-  (`data.rasterize_device`), one-hot expansion and the extent bbox run on
-  the device, chunk by chunk, so only keypoints cross to it.
+- `push_keypoints(keypoints)`: raw keypoints, face landmarks or the
+  pose task's OpenPose points. Rasterization (`data.rasterize_device`),
+  one-hot expansion and the extent bbox run on the device, chunk by
+  chunk, so only keypoints cross to it.
 
 `output="model"` returns f32 model-space frames; `output="display"`
 converts on the device to `round(clip(rec*255 + img_mean))` uint8 frames
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data.rasterize_device import rasterize_face_clip
+from ..data.rasterize_device import rasterize_face_clip, rasterize_pose_clip
 from ..device import resolve_device
 from ..models.tsnet import TSNetModules, decode_with_sources, encode_sources
 
@@ -103,20 +104,37 @@ class RetargetSession:
                 & (pos[None, :, None] < y_max[:, None, None]))
         return (in_x & in_y).float()
 
+    def _rasterize(self, kp: torch.Tensor, bw: torch.Tensor):
+        """One chunk of keypoints -> (class maps (F, hw, hw), bboxes)."""
+        hw = self.mods.cfg.image_size
+        if self.mods.cfg.task == "face":
+            return (rasterize_face_clip(kp, bw, hw, hw),
+                    self._extent_bbox(kp[..., 0], kp[..., 1], hw))
+        lbl = rasterize_pose_clip(kp[:, :25], kp[:, 25:95], kp[:, 95:116],
+                                  kp[:, 116:137], bw,
+                                  torch.clamp(bw / 3.0, min=1.0), hw, hw)
+        # the extent over the detected points only
+        valid = (kp != 0).all(dim=-1)
+        inf = torch.tensor(float("inf"), device=kp.device)
+        lo = torch.where(valid[..., None], kp, inf).amin(dim=1)
+        hi = torch.where(valid[..., None], kp, -inf).amax(dim=1)
+        return lbl, self._extent_bbox(torch.stack([lo[:, 0], hi[:, 0]], 1),
+                                      torch.stack([lo[:, 1], hi[:, 1]], 1),
+                                      hw)
+
     def push_keypoints(self, keypoints, bw=None) -> np.ndarray:
-        """Crop-local face landmarks (F, 68, 2) -> (F, H, W, 3) frames in
-        `output` format, rasterized with brush widths `bw` (F,) (default
-        1) on the device. The pose task is not ported yet. Raises
-        ValueError on another shape (the rasterizer gathers by landmark
-        index, which on the GPU would fail inside a kernel)."""
-        cfg = self.mods.cfg
-        if cfg.task != "face":
-            raise NotImplementedError("push_keypoints: the pose task is not "
-                                      "ported yet")
-        hw = cfg.image_size
+        """Crop-local keypoints -> (F, H, W, 3) frames in `output` format,
+        rasterized on the device with brush widths `bw` (F,) (default 1;
+        the pose task's hands and face take max(bw / 3, 1)). Face task:
+        (F, 68, 2) landmarks; pose task: (F, 137, 2) validated OpenPose
+        points (zeros: not detected), pose 25 | face 70 | hand_l 21 |
+        hand_r 21. Raises ValueError on another shape (the rasterizer
+        gathers by point index, which on the GPU would fail inside a
+        kernel)."""
+        n_pts = 68 if self.mods.cfg.task == "face" else 137
         kp = torch.as_tensor(keypoints, dtype=torch.float32)
-        if kp.dim() != 3 or tuple(kp.shape[1:]) != (68, 2):
-            raise ValueError(f"keypoints must be (F, 68, 2), got "
+        if kp.dim() != 3 or tuple(kp.shape[1:]) != (n_pts, 2):
+            raise ValueError(f"keypoints must be (F, {n_pts}, 2), got "
                              f"{tuple(kp.shape)}")
         kp = kp.to(self.device)
         f = int(kp.shape[0])
@@ -125,8 +143,6 @@ class RetargetSession:
         outs = []
         with torch.inference_mode():
             for lo in range(0, f, self.chunk):
-                k = kp[lo:lo + self.chunk]
-                lbl = rasterize_face_clip(k, bw[lo:lo + self.chunk], hw, hw)
-                outs.append(self._decode(
-                    lbl, self._extent_bbox(k[..., 0], k[..., 1], hw)))
+                outs.append(self._decode(*self._rasterize(
+                    kp[lo:lo + self.chunk], bw[lo:lo + self.chunk])))
         return torch.cat(outs).cpu().numpy()

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import TrainConfig, TSNetConfig
+from ..data.codecs import labels_to_image
 from ..data.image_io import write_png
 from ..infer.pipeline import montage_row, to_display_rgb
 from ..models.api import TSNet
@@ -143,7 +144,8 @@ def run_training(model: TSNet, loader, cfg: TSNetConfig, tcfg: TrainConfig,
                 if actual_step % tcfg.save_img_freq == 0:
                     sync_pending()
                     _save_imgshot(model, imgs, lbls, frame_iter, mean,
-                                  imgshot_dir, actual_step, step_batch)
+                                  imgshot_dir, actual_step, step_batch,
+                                  cfg.task)
 
                 if actual_step % save_every == 0:
                     sync_pending()
@@ -164,17 +166,20 @@ def run_training(model: TSNet, loader, cfg: TSNetConfig, tcfg: TrainConfig,
 
 
 def _save_imgshot(model, imgs, lbls, frame_iter, mean, imgshot_dir, step,
-                  step_batch):
+                  step_batch, task):
     """source | target label | target | reconstruction | warp montage.
 
     `imgs` are dataset space (mean-subtracted, 0..255 scale), so they are
     divided by 255 for `to_display_rgb` (which takes model space);
-    `rec_tar_img` and the warp previews are model space already.
+    `rec_tar_img` and the warp previews are model space already. The
+    label column is white face edges, or the pose palette.
     """
-    edges = np.where(lbls[0, frame_iter] == 1, 255, 0).astype(np.uint8)
+    lbl = labels_to_image(lbls[0, frame_iter], task)
+    if task == "face":
+        lbl = np.repeat(lbl[..., None], 3, axis=-1)
     row = [
         to_display_rgb(imgs[0, 0] / 255.0, mean),
-        np.repeat(edges[..., None], 3, axis=-1),
+        lbl,
         to_display_rgb(imgs[0, frame_iter] / 255.0, mean),
         to_display_rgb(model.rec_tar_img[0], mean),
         to_display_rgb(model.render_warp_previews(step_batch)[0, 0], mean),
