@@ -171,10 +171,37 @@ non-zero, printing no result, where CUDA or the package is missing.
    bench and bit-parity: a 64-frame (F, 137, 2) request (one warp kernel
    and one K2 a chunk), frames within 1 LSB of in-process
    `push_keypoints`, the server ms of five 32-frame requests.
-13. Prints one `kernels` JSON line (with each kernel's launches on the
-   pose path, `pose_launches`, and on the pose data path,
-   `pose_data_launches`, and for K3-flow, K4 and K2 its check at the
-   pose train shape, `pose`), the card line again, and last
+13. Runs the multi-device wrappers (`[parallel]`, after
+   `[pose_data]`): a (1, 1) mesh over NCCL in this process, the
+   bit-parity train step at batch 15 through `make_parallel_train_step`
+   against `make_train_step` from the same seeded state (rec bit for bit,
+   metrics and gradients within the train bars, beside what two
+   single-process steps differ by) and `make_parallel_clip_infer` in the
+   bit-parity and bench tiers bit for bit against `tsnet_forward_clip`
+   over 64 frames; then two spawned ranks on the one card over gloo
+   (NCCL refuses two ranks on one device; the mesh stages collectives
+   through host memory): the (2, 1) step at batch 16 against one process
+   at batch 16 (metrics and rec within 5e-3), and on a (1, 2) mesh the
+   TP+SP clip on the plain path and the TP clip on the kernel path
+   (<=5e-3 max, <=2e-4 mean against one process) and `bench+fused` under
+   TP (<=0.01 mean L1), launches counted per rank. One card measures no
+   scaling.
+14. After `[demo]`, `[tools]`: `cli.plot_history` on `[loop]`'s
+   history.csv, the PNG decoded by the port's reader.
+15. After the standalone phase, `[sweep]`: `cli.bench_sweep.main([])` at
+   full width (8 configs, one K1 and one K2 a clip call), K1 at (S, F) =
+   (1, 64), (5, 64) and (3, 128) against its plain version and timed
+   (S=5 is the JAX package's streamed K1b), and the clip at S=5, F=128
+   against its plain path (<=0.01 mean L1); then `[zoo]`: the zoo's
+   generators and discriminators at 256² and the WGAN-GP penalty, card
+   against CPU.
+16. Prints one `kernels` JSON line (with each kernel's launches on the
+   pose path, `pose_launches`, on the pose data path,
+   `pose_data_launches`, on `[parallel]`'s runs, `parallel_launches`, and
+   in `[sweep]`, `sweep_launches`; for K3-flow, K4 and K2 its check at
+   the pose train shape, `pose`; for K1 its checks at the sweep's
+   shapes, `sweep`; SDPA on the mask-folded inputs as `library_ms` of
+   K1, K3-nf, K3-flow and K4), the card line again, and last
    `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --parts
@@ -192,7 +219,11 @@ loaded beside an earlier tree's package they read that tree the same way.
 
     python3 chip_smoke.py --pose
 
-builds the kernels and runs only the pose phases (steps 11 and 12).
+builds the kernels and runs only the pose phases (steps 11 and 12), and
+
+    python3 chip_smoke.py --parallel
+
+the kernel checks, `[parallel]`, `[sweep]` and `[zoo]`.
 """
 
 from __future__ import annotations
@@ -202,6 +233,7 @@ import collections
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import random
@@ -216,14 +248,16 @@ from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 from torch.profiler import ProfilerActivity, profile
 
-from wacv23_tsnet_tpu_torch.cli import (demo_face, demo_pose,
-                                        eval_snapshots, profile_stages,
-                                        quick_start, smooth_keypoints,
-                                        train_face, train_pose)
+from wacv23_tsnet_tpu_torch.cli import (bench_sweep, demo_face, demo_pose,
+                                        eval_snapshots, plot_history,
+                                        profile_stages, quick_start,
+                                        smooth_keypoints, train_face,
+                                        train_pose)
 from wacv23_tsnet_tpu_torch.cli.demo_face import load_params
 from wacv23_tsnet_tpu_torch.cli.serve import Server, make_handler
 from wacv23_tsnet_tpu_torch.compat import (export_flax_params,
@@ -243,7 +277,8 @@ from wacv23_tsnet_tpu_torch.infer import (ClipInference, RetargetSession,
                                           to_display_rgb)
 from wacv23_tsnet_tpu_torch.infer import metrics as im
 from wacv23_tsnet_tpu_torch.losses import (feature_matching_loss,
-                                           lsgan_loss, vgg_perceptual_loss)
+                                           gradient_penalty, lsgan_loss,
+                                           vgg_perceptual_loss)
 from wacv23_tsnet_tpu_torch.models import (TSNet, TSNetModules,
                                            tsnet_forward, tsnet_forward_clip)
 from wacv23_tsnet_tpu_torch.models.tsnet import (crop_faces,
@@ -251,7 +286,8 @@ from wacv23_tsnet_tpu_torch.models.tsnet import (crop_faces,
                                                  encode_sources,
                                                  get_face_bbox,
                                                  label_features, propagate)
-from wacv23_tsnet_tpu_torch.nn import fuse_clip
+from wacv23_tsnet_tpu_torch.nn import (VideoDiscriminator, define_D, define_G,
+                                       fuse_clip)
 from wacv23_tsnet_tpu_torch.ops import conv_kernels as ck
 from wacv23_tsnet_tpu_torch.ops import cuda_build
 from wacv23_tsnet_tpu_torch.ops import flow_kernels as fl
@@ -263,6 +299,11 @@ from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
 from wacv23_tsnet_tpu_torch.ops.precision import tf32
 from wacv23_tsnet_tpu_torch.ops.similarity import transformation_warp
 from wacv23_tsnet_tpu_torch.ops.warp import space_to_depth
+from wacv23_tsnet_tpu_torch.parallel import (init_distributed, make_mesh,
+                                             make_parallel_clip_infer,
+                                             make_parallel_train_step,
+                                             shard_batch, shard_modules,
+                                             spawn_ranks)
 from wacv23_tsnet_tpu_torch.train import (GEN_SUBNETS, create_train_state,
                                           find_latest_checkpoint,
                                           make_train_step,
@@ -537,6 +578,65 @@ def ptxas_resources(name: str) -> list[dict]:
     return rows
 
 
+def fold_masks(tar, tar_mask, src, src_mask):
+    """SDPA's q and k for the masked similarity: <[mt t, (1 - mt) t],
+    [ms s, (1 - ms) s]> = (mt ms + (1 - mt)(1 - ms)) <t, s>."""
+    mt, ms = tar_mask[..., None], src_mask[..., None]
+    return (torch.cat([mt * tar, (1 - mt) * tar], -1),
+            torch.cat([ms * src, (1 - ms) * src], -1))
+
+
+def sdpa(q, k, v):
+    """The yardstick's call: SDPA at temp 100, fp32, TF32 off."""
+    with tf32(False):
+        return F.scaled_dot_product_attention(q, k, v, scale=100.0)
+
+
+def clip_sdpa(src, tar_n, src_n, tar_mask, src_mask, grid):
+    """SDPA on a clip's mask-folded inputs (every source x frame pair, v =
+    the source features): the same logits and temp-100 softmax as K3-nf
+    and K1, its output softmax . v where the kernels warp the source
+    features at softmax . grid. Returns (call, what it is)."""
+    s, t, c = src.shape
+    f = tar_n.shape[0]
+    q, k = fold_masks(tar_n, tar_mask, src_n, src_mask)
+    q = q[None].expand(s, f, t, 2 * c).contiguous()
+    k = k[:, None].expand(s, f, t, 2 * c).contiguous()
+    v = src[:, None].expand(s, f, t, c).contiguous()
+    return (lambda: sdpa(q, k, v),
+            f"SDPA, backend {sdpa_backend(q, k, v, 100.0)}, on mask-folded "
+            f"q/k {2 * c} wide, v the source features")
+
+
+def train_sdpa(src, tar_n, src_n, tar_mask, src_mask, grid):
+    """SDPA at K3-flow's train shape, v = [source features | grid]
+    zero-padded to a multiple of 8 columns (its grid columns are
+    K3-flow's flow): (forward call, backward call on one cotangent, what
+    it is)."""
+    g, ns, t, c = src.shape
+    q, k = fold_masks(tar_n, tar_mask, src_n, src_mask)
+    q = q.expand(g, ns, t, 2 * c).contiguous().requires_grad_(True)
+    k = k.contiguous().requires_grad_(True)
+    width = -(-(c + 2) // 8) * 8
+    v = F.pad(torch.cat([src, grid.expand(g, ns, t, 2)], -1),
+              (0, width - c - 2)).contiguous().requires_grad_(True)
+    what = (f"SDPA, backend {sdpa_backend(q, k, v, 100.0)}, on mask-folded "
+            f"q/k {2 * c} wide, v = [features | grid] {width} wide")
+    out = sdpa(q, k, v)
+    ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)
+                     ).to(out.device)
+
+    def bwd():
+        with tf32(False):
+            return torch.autograd.grad(out, (q, k, v), ct, retain_graph=True)
+
+    def fwd():
+        with torch.no_grad():
+            return sdpa(q, k, v)
+
+    return fwd, bwd, what
+
+
 def kernel_checks(line: str) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     dev = torch.device("cuda")
@@ -552,6 +652,7 @@ def kernel_checks(line: str) -> dict:
     in_bytes = 4 * (2 * s * t * c + f * t * c + s * t + f * t + 2 * t)
     warp_flops = s * f * t * (2 * t * c + 10 * t + 8 * c)
     x32 = (torch.randn(s, f, h, w, 2 * c, generator=g) * 2 + 1).to(dev)
+    sdpa_nf, sdpa_nf_what = clip_sdpa(*args)
 
     cases = {
         "transform_warp_pairs_mean": dict(
@@ -561,6 +662,9 @@ def kernel_checks(line: str) -> dict:
                 *args, h, w, out_dtype=torch.float32),
             tol=TOL["bf16"], bytes=in_bytes + 2 * f * t * c,
             flops=warp_flops, tier="bench",
+            library=(lambda: sdpa_nf().mean(dim=0),
+                     sdpa_nf_what + ", then .mean(0) over the sources: "
+                     "two calls"),
             replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:495",
             source="wacv23_tsnet_tpu_torch/csrc/transform_warp.cu"),
         "transform_warp_pairs_mean_f32out": dict(
@@ -573,6 +677,7 @@ def kernel_checks(line: str) -> dict:
             plain=lambda: wk.transform_warp_pairs_nf_plain(*args, h, w),
             tol=TOL["f32"], bytes=in_bytes + 4 * s * f * t * c,
             flops=warp_flops, tier="bit-parity",
+            library=(sdpa_nf, sdpa_nf_what),
             replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:262",
             source="wacv23_tsnet_tpu_torch/csrc/transform_warp.cu"),
         "instance_norm_mean_f32": dict(
@@ -613,6 +718,11 @@ def check_cases(cases: dict, line: str) -> dict:
             res["device_parts"] = device_parts(case["kernel"])
             yardstick += (f" cluster={case['cluster']} device_parts="
                           f"{json.dumps(res['device_parts'])}")
+        library = "none"
+        if "library" in case:   # one PyTorch call (or two, as named)
+            fn, what = case["library"]
+            res["library_ms"] = time_ms(fn)
+            library = f"{res['library_ms']:.4f} ({what})"
         if "conv_alone" in case:
             res["conv_alone_ms"] = time_ms(case["conv_alone"])
             yardstick += (f" conv_alone_ms={res['conv_alone_ms']:.4f} (cuDNN "
@@ -624,7 +734,7 @@ def check_cases(cases: dict, line: str) -> dict:
               f"(atol, rtol)={case['tol']} "
               f"worst_err_over_tol={res['worst_err_over_tol']:.3f} "
               f"kernel_ms={res['ms']:.4f} "
-              f"plain_ms={res['plain_ms']:.4f} library_ms=none "
+              f"plain_ms={res['plain_ms']:.4f} library_ms={library} "
               f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
               f"bound_share={res['bound_ms'] / res['ms']:.4f}"
               f"{yardstick} | {line}", flush=True)
@@ -1071,6 +1181,8 @@ def train_kernel_checks(line: str, g: int = TRAIN_BATCH) -> dict:
     res["bound_ms"], res["bound_by"] = bound(
         in_bytes + 4 * pairs * t * (c + 3),
         pairs * t * (2 * t * c + 10 * t + 8 * c))
+    sdpa_fwd, sdpa_bwd, sdpa_what = train_sdpa(*args)
+    res["library_ms"] = time_ms(sdpa_fwd)
     res.update(replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:262",
                source="wacv23_tsnet_tpu_torch/csrc/transform_warp.cu")
     results["transform_warp_pairs"] = res
@@ -1079,7 +1191,8 @@ def train_kernel_checks(line: str, g: int = TRAIN_BATCH) -> dict:
           f" max_abs_err={res['max_abs_err']:.3e} "
           f"mean_abs_err={res['mean_abs_err']:.3e} (atol, rtol)="
           f"{TOL['f32']} kernel_ms={res['ms']:.4f} "
-          f"plain_ms={res['plain_ms']:.4f} library_ms=none "
+          f"plain_ms={res['plain_ms']:.4f} library_ms="
+          f"{res['library_ms']:.4f} ({sdpa_what}) "
           f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
           f"bound_share={res['bound_ms'] / res['ms']:.4f} | {line}",
           flush=True)
@@ -1152,6 +1265,8 @@ def train_kernel_checks(line: str, g: int = TRAIN_BATCH) -> dict:
     del launch
     res["plain_ms"] = time_ms(lambda: wk.transform_warp_pairs_bwd_plain(
         *args, gw, gf, h, w, temp), iters=3)
+    res["library_ms"] = time_ms(sdpa_bwd)
+    del sdpa_fwd, sdpa_bwd
     res["bound_ms"], res["bound_by"] = bound(
         in_bytes + 4 * pairs * t * (c + 5)          # flow, lse, gw, gf
         + 4 * (2 * g * ns * t * c + g * nf * t * c + g * ns * t + g * nf * t
@@ -1163,7 +1278,9 @@ def train_kernel_checks(line: str, g: int = TRAIN_BATCH) -> dict:
     print(f"[kernel] transform_warp_pairs_bwd (K4, six cotangents, G={g}): "
           f"max_abs_err={res['max_abs_err']:.3e} (temp 10, rtol "
           f"{BWD_RTOL} of max(1, max|plain|)) kernel_ms={res['ms']:.4f} "
-          f"plain_ms={res['plain_ms']:.4f} library_ms=none "
+          f"plain_ms={res['plain_ms']:.4f} library_ms="
+          f"{res['library_ms']:.4f} (the backward of {sdpa_what}, on one "
+          "cotangent) "
           f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
           f"bound_share={res['bound_ms'] / res['ms']:.4f} "
           f"parts_ms={json.dumps(res['parts_ms'])} | {line}", flush=True)
@@ -3451,6 +3568,468 @@ def run_pose_data(line: str, pose: dict) -> dict:
     return report
 
 
+def clip_src(cfg, s: int, frames: int, seed: int = 0) -> tuple:
+    """Seeded clip inputs on the card: s sources and `frames` driving
+    frames (label maps and boxes), as main_path makes them."""
+    rng = np.random.default_rng(seed)
+    hw, nl = cfg.image_size, cfg.label_nc
+    arrays = (rng.random((s, hw, hw, 3), np.float32),
+              rng.integers(0, 2, (s, hw, hw, nl)).astype(np.float32),
+              rng.integers(0, 2, (s, hw, hw)).astype(np.float32),
+              rng.integers(0, 2, (frames, hw, hw, nl)).astype(np.float32),
+              rng.integers(0, 2, (frames, hw, hw)).astype(np.float32))
+    return tuple(torch.as_tensor(a, device="cuda") for a in arrays)
+
+
+def launched() -> dict:
+    """The launch counts that are not 0."""
+    return {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+
+
+def counted(fn):
+    """fn() with the launch counts zeroed just before and read just after:
+    (its result, the counts that are not 0)."""
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launched()
+
+
+def step_once(state, step, batch: dict) -> dict:
+    """One train step, counted; metrics, rec and every gradient (flat,
+    on the host) of the state after it."""
+    (state, metrics, rec), launches = counted(
+        lambda: step(state, batch, TRAIN_LR))
+    check(state.step == 1, f"{PARALLEL}: step count {state.step}")
+    grads = torch.cat([p.grad.flatten() for p in state.mods.parameters()
+                       if p.grad is not None]).cpu()
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "rec": rec.cpu(), "grads": grads, "launches": launches}
+
+
+PARALLEL = "parallel"
+PAR_TRAIN_BATCH = 16      # the two-rank step: 8 samples a rank
+PAR_FRAMES = 64
+PAR_SEED = 7
+PAR_TIMEOUT = 600.0       # the two ranks' join limit, seconds
+PAR_STEP_TOL = 5e-3       # metrics and rec, the CPU tests' bar
+PAR_TP_MAX, PAR_TP_MEAN = 5e-3, 2e-4   # TP+SP clip, tests/test_parallel.py
+TRAIN_KERNEL_LAUNCHES = {"transform_warp_pairs": 1,
+                         "transform_warp_pairs_bwd": 1,
+                         "instance_norm_mean": 1}
+
+
+def parallel_one_rank(line: str, store: str) -> dict:
+    """A (1, 1) mesh over NCCL in this process: the bit-parity train step
+    at batch 15 through `make_parallel_train_step` against
+    `make_train_step` from the same seeded state (the reconstruction bit
+    for bit; the metrics within 1e-4 relative and the gradients within
+    1e-3 relative L2, or twice what two single-process steps differ by:
+    K4's da is a scatter by atomics, so no two steps agree bit for bit
+    after the first backward), and
+    `make_parallel_clip_infer` in the bit-parity and bench tiers bit for
+    bit against `tsnet_forward_clip` over 64 frames. Launches counted."""
+    cfg = face_config()
+    batch = train_batch(cfg, TRAIN_BATCH)
+    runs = {}
+    init_distributed(0, 1, f"file://{store}")
+    try:
+        mesh = make_mesh()
+        for name in ("single", "parallel", "single_again"):
+            state = create_train_state(cfg, seed=0)
+            step = (make_parallel_train_step(state, mesh) if name == "parallel"
+                    else make_train_step(state))
+            runs[name] = step_once(state, step, batch)
+            del state, step
+            torch.cuda.empty_cache()
+        one, par, again = (runs[k] for k in ("single", "parallel",
+                                             "single_again"))
+        report = {"launches": par["launches"],
+                  "rec_bit_equal": bool(torch.equal(par["rec"], one["rec"]))}
+        for key, diff, tol in (
+                ("metrics", lambda a, b: max(
+                    abs(a["metrics"][k] - b["metrics"][k])
+                    / max(1.0, abs(b["metrics"][k])) for k in a["metrics"]),
+                 STEP_METRIC_RTOL),
+                ("grads", lambda a, b: ((a["grads"] - b["grads"]).norm()
+                                        / b["grads"].norm()).item(),
+                 STEP_GRAD_RTOL)):
+            got, spread = diff(par, one), diff(again, one)
+            report[f"{key}_vs_single"] = got
+            report[f"{key}_single_vs_single"] = spread
+            check(got <= max(tol, 2.0 * spread),
+                  f"{PARALLEL}: (1, 1) step {key} {got} against one "
+                  f"process (bar {tol}; its own spread {spread})")
+        check(report["rec_bit_equal"], f"{PARALLEL}: (1, 1) step rec differs")
+        check(par["launches"] == TRAIN_KERNEL_LAUNCHES
+              and one["launches"] == TRAIN_KERNEL_LAUNCHES,
+              f"{PARALLEL}: (1, 1) step launched {par['launches']}")
+        print(f"[{PARALLEL}] (1, 1) NCCL train step, batch {TRAIN_BATCH}, "
+              f"bit-parity: {json.dumps(report)} | {line}", flush=True)
+        del runs, one, par, again
+        src = clip_src(cfg, cfg.n_source, PAR_FRAMES)
+        bench = dataclasses.replace(cfg, precision="high", fast_tail=True,
+                                    fast_trunk=True)
+        for tier, tcfg, warp in (
+                ("bit-parity", cfg, "transform_warp_pairs_nf"),
+                ("bench", bench, "transform_warp_pairs_mean")):
+            mods = TSNetModules(tcfg, seed=0)
+            want = tsnet_forward_clip(mods, *src)
+            run = make_parallel_clip_infer(mods, mesh, use_kernels=True)
+            got, launches = counted(lambda: run(*src))
+            res = {"bit_equal": bool(torch.equal(got, want)),
+                   "launches": launches}
+            print(f"[{PARALLEL}] (1, 1) NCCL clip, {tier}, {PAR_FRAMES} "
+                  f"frames: {json.dumps(res)} | {line}", flush=True)
+            check(res["bit_equal"], f"{PARALLEL}: (1, 1) {tier} clip differs")
+            check(launches == {warp: 1, "instance_norm_mean": 1},
+                  f"{PARALLEL}: (1, 1) {tier} clip launched {launches}")
+            report[f"clip_{tier}"] = res
+            del mods, want, got
+            torch.cuda.empty_cache()
+        report["collectives"] = {"/".join(k): v
+                                 for k, v in mesh.calls.items()}
+    finally:
+        dist.destroy_process_group()
+    return report
+
+
+TAIL_FUSED = "high+fast_tail+fused"
+
+
+def par_clip_cases(cfg) -> dict:
+    """The (1, 2) clips of the two-rank run: name -> (config, arguments of
+    `make_parallel_clip_infer`, TSNET_FUSE_PAIR_KERNEL on, the subnets
+    split over `model`). The single-process reference runs
+    `tsnet_forward_clip` with the same `use_kernels` and `fused_blocks`.
+    `high+fast_tail+fused` splits only FuseNet and the decoder, the two
+    subnets whose blocks K6 and K7 compute (each gathering its block's
+    weights), so that the encoders' TP rounding, which the temp-100
+    attention amplifies, stays out of that comparison."""
+    bench = dataclasses.replace(cfg, precision="high", fast_tail=True,
+                                fast_trunk=True)
+    fused = dict(use_kernels=True, fused_blocks=True)
+    return {
+        "tp_sp_plain": (cfg, dict(use_kernels=False, spatial_parallel=True),
+                        False, GEN_SUBNETS),
+        "tp_kernels": (cfg, dict(use_kernels=True), False, GEN_SUBNETS),
+        FUSED_TIER: (bench, fused, True, GEN_SUBNETS),
+        TAIL_FUSED: (dataclasses.replace(bench, fast_trunk=False), fused,
+                     True, ("fuse_net", "dec")),
+    }
+
+
+def parallel_rank(rank: int, world: int, store: str) -> dict:
+    """One of two ranks on the one card over gloo (NCCL refuses two ranks
+    on one device; the mesh stages each collective through host memory):
+    the (2, 1) bit-parity train step at batch 16, then on a (1, 2) mesh
+    each clip of `par_clip_cases`, 64 frames, and the source features of
+    `bench+fused` under TP. Rank 0 returns the outputs; both return their
+    launch counts and collectives."""
+    torch.cuda.set_device(0)
+    init_distributed(rank, world, f"file://{store}", backend="gloo")
+    cfg = face_config()
+    out = {}
+    dp = make_mesh(model_parallel=1)
+    state = create_train_state(cfg, seed=0)
+    step = make_parallel_train_step(state, dp)
+    batch = shard_batch(train_batch(cfg, PAR_TRAIN_BATCH, PAR_SEED), dp)
+    res = step_once(state, step, batch)
+    del res["grads"]
+    if rank:
+        del res["rec"]
+    out["train"] = res
+    del state, step, batch
+    torch.cuda.empty_cache()
+    tp = make_mesh(model_parallel=2)
+    src = clip_src(cfg, cfg.n_source, PAR_FRAMES)
+    for name, (tcfg, kw, fused, split) in par_clip_cases(cfg).items():
+        mods = TSNetModules(tcfg, seed=0)
+        for sub in split:
+            shard_modules(getattr(mods, sub), tp)
+        run = make_parallel_clip_infer(mods, tp, **kw)
+        with fuse_pair_kernel(fused):
+            frames, launches = counted(lambda: run(*src))
+        out[name] = {"launches": launches}
+        # every rank runs the TP encoder: its blocks' collectives
+        fea = (encode_sources(mods, *src[:3])["fea"].float().cpu()
+               if name == FUSED_TIER else None)
+        if rank == 0:
+            out[name]["frames"] = frames.cpu()
+            if fea is not None:
+                out[name]["fea"] = fea
+        del mods, run, frames, fea
+        torch.cuda.empty_cache()
+    out["collectives"] = {
+        mesh: {"/".join(k): v for k, v in m.calls.items()}
+        for mesh, m in (("(2, 1)", dp), ("(1, 2)", tp))}
+    return out
+
+
+def parallel_two_ranks(line: str, store: str) -> dict:
+    """Two ranks on the one card over gloo (`parallel_rank`), against one
+    process: the (2, 1) step at batch 16 against the single-process step
+    at batch 16 (metrics and rec within the CPU bar, 5e-3); on (1, 2), the
+    TP+SP clip (plain path, bit-parity) and the TP clip on the kernel path
+    against one process (<=5e-3 max, <=2e-4 mean); the clip with the fused
+    opt-ins (K6, K7: each gathers its block's weights) in "high" +
+    `fast_tail`, FuseNet and the decoder split, against one process
+    (<=0.01 mean L1); and `bench+fused` with every subnet split, printed
+    with its source features' error, which is held at bf16 resolution:
+    with random weights the temp-100 attention turns the encoders' TP
+    rounding into a drift past the 0.01 budget (ROADMAP queue 3).
+    Launches read per rank; every result printed before any check."""
+    cfg = face_config()
+    state = create_train_state(cfg, seed=0)
+    single = step_once(state, make_train_step(state),
+                       train_batch(cfg, PAR_TRAIN_BATCH, PAR_SEED))
+    del state
+    torch.cuda.empty_cache()
+    src = clip_src(cfg, cfg.n_source, PAR_FRAMES)
+    cases = par_clip_cases(cfg)
+    want = {}
+    for name, (tcfg, kw, fused, _) in cases.items():
+        mods = TSNetModules(tcfg, seed=0)
+        with fuse_pair_kernel(fused):
+            want[name] = tsnet_forward_clip(
+                mods, *src, use_kernels=kw["use_kernels"],
+                fused_blocks=kw.get("fused_blocks", False)).cpu()
+        if name == FUSED_TIER:
+            want_fea = encode_sources(mods, *src[:3])["fea"].float().cpu()
+        del mods
+        torch.cuda.empty_cache()
+    del src
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(parallel_rank, 2, (store,), timeout=PAR_TIMEOUT)
+    wall = time.perf_counter() - t0
+    got = ranks[0]          # its tensors come back as numpy arrays
+    m_err = max(abs(got["train"]["metrics"][k] - v)
+                for k, v in single["metrics"].items())
+    rec_err = (torch.from_numpy(got["train"]["rec"])
+               - single["rec"]).abs().max().item()
+    report = {"ranks_wall_s": wall,
+              "train": {"metrics_max_abs": m_err, "rec_max_abs": rec_err,
+                        "launches_per_rank": [r["train"]["launches"]
+                                              for r in ranks]}}
+    checks = [(set(got["train"]["metrics"]) == set(single["metrics"])
+               and m_err <= PAR_STEP_TOL and rec_err <= PAR_STEP_TOL,
+               f"(2, 1) step against one process: {report['train']}"),
+              (all(r["train"]["launches"] == TRAIN_KERNEL_LAUNCHES
+                   for r in ranks),
+               f"(2, 1) step launches {report['train']}")]
+    fused = {"transform_warp_pairs_mean": 1, "instance_norm_mean": 1,
+             "fuse_pair_conv2": 1, "conv3x3_in": 2 * cfg.dec_n_blocks}
+    expect = {"tp_sp_plain": {},
+              "tp_kernels": {"transform_warp_pairs_nf": 1,
+                             "instance_norm_mean": 1},
+              FUSED_TIER: fused, TAIL_FUSED: fused}
+    for name in cases:
+        diff = (torch.from_numpy(got[name]["frames"]) - want[name]).abs()
+        res = {"max_abs": diff.max().item(), "mean_abs": diff.mean().item(),
+               "launches_per_rank": [r[name]["launches"] for r in ranks]}
+        if name == FUSED_TIER:
+            fea = torch.from_numpy(got[name]["fea"])
+            res["source_fea_rel_l2"] = ((fea - want_fea).norm()
+                                        / want_fea.norm()).item()
+            ok = res["source_fea_rel_l2"] <= 2.0 ** -7
+        elif name == TAIL_FUSED:
+            ok = res["mean_abs"] <= 0.01
+        else:
+            ok = res["max_abs"] <= PAR_TP_MAX and res["mean_abs"] <= PAR_TP_MEAN
+        report[name] = res
+        checks += [(ok, f"(1, 2) {name} clip against one process: {res}"),
+                   (all(r[name]["launches"] == expect[name] for r in ranks),
+                    f"(1, 2) {name} launches {res}")]
+    report["collectives"] = got["collectives"]
+    print(f"[{PARALLEL}] two ranks on one card over gloo (collectives staged "
+          f"through host memory): {json.dumps(report)} | {line}", flush=True)
+    for ok, what in checks:
+        check(ok, f"{PARALLEL}: {what}")
+    return report
+
+
+def parallel_phase(line: str, root: str) -> dict:
+    """`[parallel]`: the (1, 1) NCCL mesh in this process, then two gloo
+    ranks on the one card. One card measures no scaling: these are
+    correctness runs."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_",
+                                     dir=root) as tmp:
+        report = parallel_one_rank(line, os.path.join(tmp, "store_nccl"))
+        torch.cuda.empty_cache()
+        report["two_ranks"] = parallel_two_ranks(
+            line, os.path.join(tmp, "store_gloo"))
+    # launches on the path, for the kernels line: one rank's (1, 1) step
+    # and clips, and rank 0 of the two-rank runs
+    total = collections.Counter(report["launches"])
+    for tier in ("bit-parity", "bench"):
+        total.update(report[f"clip_{tier}"]["launches"])
+    two = report["two_ranks"]
+    total.update(two["train"]["launches_per_rank"][0])
+    for name in par_clip_cases(face_config()):
+        total.update(two[name]["launches_per_rank"][0])
+    report["launches"] = dict(total)
+    return report
+
+
+SWEEP = "sweep"
+SWEEP_CALLS = 6 * 8       # a warm-up and five timed calls, eight configs
+K1_SWEEP_SHAPES = ((1, 64), (5, 64), (3, 128))   # (S, F)
+
+
+def k1_case(s: int, f: int, g) -> dict:
+    """K1 (bf16 out, as the bench tier runs it) at S sources and F frames
+    of T = 32 x 32, C = 512, against its plain version; SDPA plus the
+    mean over sources as its yardstick. At S=5 the JAX package would
+    take the streamed K1b (past its 10-MiB resident budget)."""
+    h = w = 32
+    t, c = h * w, 512
+    src = torch.randn(s, t, c, generator=g)
+    args = tuple(x.to("cuda").contiguous() for x in (
+        src, l2_normalize(torch.randn(f, t, c, generator=g)),
+        l2_normalize(src), (torch.rand(f, t, generator=g) > 0.5).float(),
+        (torch.rand(s, t, generator=g) > 0.5).float(),
+        normalized_grid(h, w).reshape(t, 2)))
+    fn, what = clip_sdpa(*args)
+    return dict(
+        kernel=lambda: wk.transform_warp_pairs_mean(
+            *args, h, w, out_dtype=torch.bfloat16),
+        plain=lambda: wk.transform_warp_mean_plain(
+            *args, h, w, out_dtype=torch.float32),
+        tol=TOL["bf16"],
+        bytes=4 * (2 * s * t * c + f * t * c + s * t + f * t + 2 * t)
+        + 2 * f * t * c,
+        flops=s * f * t * (2 * t * c + 10 * t + 8 * c),
+        library=(lambda: fn().mean(dim=0),
+                 what + ", then .mean(0) over the sources: two calls"))
+
+
+def sweep_phase(line: str) -> dict:
+    """`[sweep]`: `cli.bench_sweep.main([])` at full width (its 8 lines,
+    one K1 and one K2 a clip call, nothing else), K1 at (S, F) = (1, 64),
+    (5, 64) and (3, 128) against its plain version and timed, and the
+    bench_sweep tier's clip at S=5, F=128 against its plain path (<=0.01
+    mean L1)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lines, launches = counted(lambda: bench_sweep.main([]))
+    for text in buf.getvalue().splitlines():
+        print(f"[{SWEEP}] {text} | {line}", flush=True)
+    check(len(lines) == 8 and all(x["value"] > 0 for x in lines),
+          f"{SWEEP}: {len(lines)} lines")
+    check(launches == {"transform_warp_pairs_mean": SWEEP_CALLS,
+                       "instance_norm_mean": SWEEP_CALLS},
+          f"{SWEEP}: launched {launches} in {SWEEP_CALLS} clip calls")
+    g = torch.Generator().manual_seed(11)
+    kernels = check_cases({f"transform_warp_pairs_mean_s{s}_f{f}":
+                           k1_case(s, f, g) for s, f in K1_SWEEP_SHAPES},
+                          line)
+    cfg = dataclasses.replace(face_config(), precision="high",
+                              fast_tail=True)
+    mods = TSNetModules(cfg, seed=0)
+    src = clip_src(cfg, 5, 128, seed=3)
+    out = tsnet_forward_clip(mods, *src)
+    plain = tsnet_forward_clip(mods, *src, use_kernels=False)
+    mean_l1 = (out - plain).abs().mean().item()
+    print(f"[{SWEEP}] clip S=5, F=128, the sweep's tier: kernel path vs "
+          f"plain path mean_abs={mean_l1:.4e} | {line}", flush=True)
+    check(mean_l1 <= 0.01, f"{SWEEP}: S=5, F=128 clip vs plain {mean_l1}")
+    del mods, src, out, plain
+    torch.cuda.empty_cache()
+    return {"lines": lines, "launches": launches, "kernels": kernels,
+            "clip_s5_f128_mean_abs": mean_l1}
+
+
+ZOO_TOL = 1e-3            # card vs CPU, max abs (fp32, TF32 off)
+
+
+def zoo_phase(line: str) -> dict:
+    """`[zoo]`: the zoo's networks at 256² from one seed on the card
+    against the CPU (outputs, max abs), each timed on the card, and the
+    WGAN-GP penalty (mixed, fixed alpha) on PixelGAN and PatchGAN."""
+    x = torch.from_numpy(np.random.default_rng(5).random(
+        (2, 256, 256, 3), np.float32))
+
+    def video(device):
+        net = VideoDiscriminator(3)
+        net.reset_parameters(torch.Generator().manual_seed(0))
+        return net.to(device)
+
+    nets = {
+        "resnet_9blocks": lambda d: define_G(3, 3, 64, "resnet_9blocks",
+                                             device=d),
+        "unet_256": lambda d: define_G(3, 3, 64, "unet_256", device=d),
+        "basic": lambda d: define_D(3, 64, "basic", device=d),
+        "pixel": lambda d: define_D(3, 64, "pixel", device=d),
+        "video": video,
+    }
+    report = {}
+    for name, make in nets.items():
+        cpu = make("cpu")
+        card = make("cuda")
+        card.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            want, got = cpu(x), card(x.cuda())
+        wants = want if isinstance(want, list) else [want]
+        gots = got if isinstance(got, list) else [got]
+        err = max((a.cpu() - b).abs().max().item()
+                  for a, b in zip(gots, wants))
+        with torch.no_grad():
+            ms = time_ms(lambda: card(x.cuda()), iters=3)
+        report[name] = {"max_abs": err, "ms_batch2": ms}
+        check(err <= ZOO_TOL, f"zoo: {name} card vs CPU {err}")
+        del cpu, card
+    alpha = torch.tensor([0.3, 0.8])
+    for name in ("pixel", "basic"):
+        cpu, card = nets[name]("cpu"), nets[name]("cuda")
+        card.load_state_dict(cpu.state_dict())
+
+        def logits(net):
+            def fn(z):
+                out = net(z)
+                return out[-1] if isinstance(out, list) else out
+            return fn
+
+        want = gradient_penalty(logits(cpu), x, x * 0.5, alpha=alpha)
+        got = gradient_penalty(logits(card), x.cuda(), x.cuda() * 0.5,
+                               alpha=alpha)
+        rel = abs(got.item() - want.item()) / abs(want.item())
+        report[f"gradient_penalty_{name}"] = {"value": got.item(), "rel": rel}
+        check(rel <= ZOO_TOL, f"zoo: gradient_penalty {name} rel {rel}")
+    torch.cuda.empty_cache()
+    print(f"[zoo] card vs CPU at 256², batch 2: {json.dumps(report)} | "
+          f"{line}", flush=True)
+    return report
+
+
+def tools_phase(line: str, history: str, out_dir: str) -> dict:
+    """`[tools]`: `cli.plot_history` on `[loop]`'s history.csv, the PNG
+    decoded by the port's reader: its size (352 x 264 pixels a panel, up
+    to four a row) and the curve's colour present."""
+    out = os.path.join(out_dir, "loss_curves.png")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        plot_history.main(["--csv", history, "--out", out])
+    said = buf.getvalue().strip()
+    with open(history) as fh:
+        n = len(fh.readline().strip().split(",")) - 2   # step, seconds
+    img = read_png(out)
+    cols = min(4, n)
+    # matplotlib's size: the figure's inches times the dpi, truncated
+    want = tuple(int(inch * k * plot_history.DPI) for inch, k in zip(
+        plot_history.PANEL_IN[::-1], (-(-n // cols), cols)))
+    line_px = int((np.abs(img.astype(int) - np.array(plot_history.LINE))
+                   .max(-1) <= 40).sum())
+    report = {"said": said, "panels": n, "shape": list(img.shape),
+              "curve_pixels": line_px}
+    print(f"[tools] plot_history on [loop]'s history.csv: "
+          f"{json.dumps(report)} | {line}", flush=True)
+    check(said.endswith(f"({n} panels)") and img.shape[:2] == want
+          and line_px > 0, f"tools: plot_history {report}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -3472,6 +4051,19 @@ def main() -> int:
     per_source = cuda_build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s wall, per source "
           f"{json.dumps(per_source)}", flush=True)
+    if sys.argv[1:] == ["--parallel"]:
+        root = os.path.dirname(os.path.abspath(__file__))
+        kernel_checks(line)
+        train_kernel_checks(line)
+        for name, phase in ((PARALLEL, lambda: parallel_phase(line, root)),
+                            (SWEEP, lambda: sweep_phase(line)),
+                            ("zoo", lambda: zoo_phase(line))):
+            t0 = time.perf_counter()
+            phase()
+            torch.cuda.empty_cache()
+            print(f"[{name}] phase {time.perf_counter() - t0:.1f} s | "
+                  f"{line}", flush=True)
+        return 0
     if sys.argv[1:] == ["--pose"]:
         t0 = time.perf_counter()
         pose = pose_phase(line)
@@ -3516,6 +4108,11 @@ def main() -> int:
     report["pose_data"] = run_pose_data(line, report["pose"])
     torch.cuda.empty_cache()
     root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    report[PARALLEL] = parallel_phase(line, root)
+    print(f"[{PARALLEL}] phase {time.perf_counter() - t0:.1f} s | {line}",
+          flush=True)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_",
                                      dir=root) as tmp:
         t0 = time.perf_counter()
@@ -3534,6 +4131,8 @@ def main() -> int:
                 {tier: report[tier] for tier in ("bit-parity", "bench")})
             print(f"[demo] phase {time.perf_counter() - t0:.1f} s | {line}",
                   flush=True)
+            report["tools"] = tools_phase(
+                line, os.path.join(tmp, "run", "history.csv"), demo_root)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     flow = flow_phase(line)
@@ -3544,6 +4143,15 @@ def main() -> int:
           flush=True)
     report[STANDALONE] = {"launches": {n: k.pop("launches")
                                        for n, k in standalone.items()}}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report[SWEEP] = sweep_phase(line)
+    print(f"[{SWEEP}] phase {time.perf_counter() - t0:.1f} s | {line}",
+          flush=True)
+    t0 = time.perf_counter()
+    report["zoo"] = zoo_phase(line)
+    print(f"[zoo] phase {time.perf_counter() - t0:.1f} s | {line}",
+          flush=True)
 
     rows = []
     for name, k in train_kernels.items():
@@ -3572,7 +4180,14 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
             "pose_launches": report["pose"]["launches"].get(launch, 0),
             "pose_data_launches": report["pose_data"]["launches"].get(
-                launch, 0)}
+                launch, 0),
+            "parallel_launches": report[PARALLEL]["launches"].get(launch, 0),
+            "sweep_launches": report[SWEEP]["launches"].get(launch, 0)}
+        if name == "transform_warp_pairs_mean":
+            # K1 at the sweep's shapes (S=5: the JAX package's K1b)
+            row[SWEEP] = {key: {k: at[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")} for key, at in report[SWEEP]["kernels"].items()}
         if name in pose_rows:
             at = report["pose"]["kernels"][pose_rows[name]]
             row["pose"] = {key: at[key] for key in (

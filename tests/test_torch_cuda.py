@@ -1014,3 +1014,139 @@ def test_pose_push_keypoints_kernels_match_plain(dev, fast_tail):
         assert err.mean() <= 0.01
     else:
         assert err.max() <= 1e-3
+
+
+def _toy_clip_inputs(cfg, frames=8, seed=5):
+    rng = np.random.default_rng(seed)
+    s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
+    return (rng.random((s, hw, hw, 3), np.float32),
+            rng.integers(0, 2, (s, hw, hw, nl)).astype(np.float32),
+            rng.integers(0, 2, (s, hw, hw)).astype(np.float32),
+            rng.integers(0, 2, (frames, hw, hw, nl)).astype(np.float32),
+            rng.integers(0, 2, (frames, hw, hw)).astype(np.float32))
+
+
+@pytest.mark.parametrize("fast_tail", [False, True], ids=["nf", "mean"])
+def test_parallel_clip_one_rank_nccl_is_the_clip(dev, tmp_path, fast_tail):
+    """A (1, 1) mesh over NCCL: `make_parallel_clip_infer` on the kernel
+    path gives `tsnet_forward_clip`'s bits, one warp kernel and one K2."""
+    import torch.distributed as dist
+
+    from wacv23_tsnet_tpu_torch.models import TSNetModules, tsnet_forward_clip
+    from wacv23_tsnet_tpu_torch.parallel import (init_distributed, make_mesh,
+                                                 make_parallel_clip_infer)
+
+    cfg = dataclasses.replace(toy_config(), fast_tail=fast_tail)
+    mods = TSNetModules(cfg, device="cuda")
+    args = _toy_clip_inputs(cfg)
+    want = tsnet_forward_clip(mods, *args)
+    init_distributed(0, 1, f"file://{tmp_path / 'store'}")
+    try:
+        mesh = make_mesh()
+        cuda_build.reset_launches()
+        got = make_parallel_clip_infer(mods, mesh, use_kernels=True)(*args)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        calls = dict(mesh.calls)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want)
+    warp = ("transform_warp_pairs_mean" if fast_tail
+            else "transform_warp_pairs_nf")
+    assert launched == {warp: 1, "instance_norm_mean": 1}, launched
+    assert calls == {("all_gather", "data", "nccl", "cuda"): 1}, calls
+
+
+def test_parallel_train_step_one_rank_nccl(dev, tmp_path):
+    """A (1, 1) mesh over NCCL: the DP step's reconstruction is the
+    single-process step's bits from the same state, its metrics within
+    the CPU bar, one K3-flow, one K4 and one K2."""
+    import torch.distributed as dist
+
+    from wacv23_tsnet_tpu_torch.parallel import (init_distributed, make_mesh,
+                                                 make_parallel_train_step,
+                                                 shard_batch)
+    from wacv23_tsnet_tpu_torch.train import (create_train_state,
+                                              make_train_step)
+
+    rng = np.random.default_rng(0)
+    cfg = toy_config()
+    s, hw, nl, bs = cfg.n_source, cfg.image_size, cfg.label_nc, 4
+    batch = {"src_img": rng.random((bs, s, hw, hw, 3), np.float32),
+             "src_lbl": rng.integers(0, 2, (bs, s, hw, hw, nl)).astype(
+                 np.float32),
+             "src_bbox": rng.integers(0, 2, (bs, s, hw, hw)).astype(
+                 np.float32),
+             "tar_img": rng.random((bs, hw, hw, 3), np.float32),
+             "tar_lbl": rng.integers(0, 2, (bs, hw, hw, nl)).astype(
+                 np.float32),
+             "tar_bbox": rng.integers(0, 2, (bs, hw, hw)).astype(np.float32)}
+    state = create_train_state(cfg, seed=0)
+    _, want_m, want_rec = make_train_step(state)(state, batch, 2e-4)
+    state = create_train_state(cfg, seed=0)
+    init_distributed(0, 1, f"file://{tmp_path / 'store'}")
+    try:
+        mesh = make_mesh()
+        step = make_parallel_train_step(state, mesh)
+        cuda_build.reset_launches()
+        state, got_m, got_rec = step(state, shard_batch(batch, mesh), 2e-4)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    finally:
+        dist.destroy_process_group()
+    assert state.step == 1
+    assert torch.equal(got_rec, want_rec)
+    for k, v in want_m.items():
+        assert abs(float(got_m[k]) - float(v)) < 5e-3, k
+    assert launched == {"transform_warp_pairs": 1,
+                        "transform_warp_pairs_bwd": 1,
+                        "instance_norm_mean": 1}, launched
+
+
+def test_zoo_on_the_card_matches_the_cpu(dev):
+    """The zoo's generators and discriminators and the WGAN-GP penalty on
+    the card against the CPU, from one seed."""
+    from wacv23_tsnet_tpu_torch.losses import gradient_penalty
+    from wacv23_tsnet_tpu_torch.nn import define_D, define_G
+
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (2, 128, 128, 3), np.float32))
+
+    def seed():
+        return torch.Generator().manual_seed(0)
+
+    for make in (lambda d: define_G(3, 3, 16, "resnet_6blocks", device=d,
+                                   generator=seed()),
+                 lambda d: define_G(3, 3, 16, "unet_128", device=d,
+                                   generator=seed()),
+                 lambda d: define_D(3, 8, "pixel", device=d,
+                                   generator=seed())):
+        cpu, card = make("cpu"), make("cuda")
+        with torch.no_grad():
+            want, got = cpu(x), card(x.to(dev))
+        assert (got.cpu() - want).abs().max().item() <= 1e-4
+    d_cpu = define_D(3, 8, "pixel", device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    d_card = define_D(3, 8, "pixel", device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    alpha = torch.tensor([0.25, 0.75])
+    want = gradient_penalty(d_cpu, x, x * 0.5, alpha=alpha)
+    got = gradient_penalty(d_card, x.to(dev), x.to(dev) * 0.5, alpha=alpha)
+    assert abs(got.item() - want.item()) <= 1e-4 * abs(want.item())
+
+
+def test_bench_sweep_toy_on_the_card(dev, capsys):
+    """`bench_sweep` at the toy config on the card: the card line, eight
+    JSON lines, and one K1 and one K2 a clip call (one warm-up and five
+    timed calls a config)."""
+    from wacv23_tsnet_tpu_torch.cli import bench_sweep
+
+    cuda_build.reset_launches()
+    lines = bench_sweep.main([], base_config=toy_config())
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    err = capsys.readouterr().err.splitlines()
+    assert err[0] and err[0] != "cpu"
+    assert len(lines) == 8 and all(line["value"] > 0 for line in lines)
+    assert launched == {"transform_warp_pairs_mean": 48,
+                        "instance_norm_mean": 48}, launched

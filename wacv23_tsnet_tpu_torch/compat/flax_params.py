@@ -22,6 +22,13 @@ mu, nu}` of each optimizer, and the step) into a port `TrainState`, and
 parameters do (HWIO <-> OIHW); optax's `count` is each parameter's torch
 Adam `step`. Both bias-correct with the count of updates taken.
 
+The zoo's networks (`nn.generators`, `nn.discriminator`) map the same way
+(`conv_in`, `down{i}`, `block{j}`, `up{i}`, `conv_out`; `conv{i}`); a
+bias-free conv has no `bias` in either layout. For tensor parallelism,
+`tp_split_dim` is the JAX package's `parallel/spmd.py:_param_spec` rule
+by state-dict name, and `shard_flax_tree` / `gather_flax_trees` cut a
+flax tree into a rank's share and put the shares back together.
+
 The modules hold f32 parameters in every tier (a bf16 tier casts them
 where it computes), so loading and exporting are exact; a tensor of any
 other dtype refuses to export, since that would not give the f32 tree
@@ -72,6 +79,78 @@ def state_dict_to_flax(state_dict: Mapping) -> dict:
         else:
             raise KeyError(f"unexpected state-dict entry {key}")
     return tree
+
+
+def tp_split_dim(name: str) -> int | None:
+    """The TP rule (the JAX package's `_param_spec`) for a state-dict
+    name: inside any `block*`, conv1's weight and bias are split by
+    out-channels (OIHW dim 0), conv2's weight by in-channels (dim 1), its
+    bias replicated; None (replicated) for everything else."""
+    parts = name.split(".")
+    inside_block = any(p.startswith("block") for p in parts)
+    if inside_block and "conv1" in parts:
+        return 0
+    if inside_block and "conv2" in parts:
+        return 1 if parts[-1] == "weight" else None
+    return None
+
+
+# the flax-layout axis of an OIHW dim: HWIO kernels, (O,) biases
+_FLAX_AXIS = {("kernel", 0): 3, ("kernel", 1): 2, ("bias", 0): 0}
+
+
+def _tp_axes(tree: Mapping) -> dict:
+    """flat state-dict name -> (path, flax axis or None) of each leaf."""
+    out = {}
+
+    def walk(node, path):
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                walk(val, path + (key,))
+                continue
+            name = ".".join(path + ("weight" if key == "kernel" else key,))
+            dim = tp_split_dim(name)
+            out[name] = (path + (key,), None if dim is None
+                         else _FLAX_AXIS[(key, dim)])
+    walk(tree, ())
+    return out
+
+
+def _put(tree: dict, path: tuple, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def shard_flax_tree(tree: Mapping, index: int, count: int) -> dict:
+    """Rank `index`'s share (of `count`) of a flax param tree under the
+    TP rule: split leaves cut into `count` equal contiguous parts along
+    their axis, the rest as they are (numpy leaves)."""
+    out: dict = {}
+    for path, axis in _tp_axes(tree).values():
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        leaf = np.asarray(leaf)
+        if axis is not None:
+            leaf = np.split(leaf, count, axis=axis)[index]
+        _put(out, path, leaf)
+    return out
+
+
+def gather_flax_trees(trees: list) -> dict:
+    """The full flax tree from the ranks' shares (`shard_flax_tree` of
+    each index, in order)."""
+    out: dict = {}
+    for path, axis in _tp_axes(trees[0]).values():
+        leaves = []
+        for t in trees:
+            for key in path:
+                t = t[key]
+            leaves.append(np.asarray(t))
+        _put(out, path, leaves[0] if axis is None
+             else np.concatenate(leaves, axis=axis))
+    return out
 
 
 def load_flax_params(module: nn.Module, tree: Mapping) -> None:

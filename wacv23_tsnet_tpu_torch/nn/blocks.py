@@ -67,15 +67,46 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias=None, stride: int = 1,
                      bwd_precision)
 
 
+def conv2d_split_in(x: torch.Tensor, weight: torch.Tensor, bias, mesh,
+                    axis: str, precision: str = "highest",
+                    dtype=torch.float32, bwd_precision=None) -> torch.Tensor:
+    """`conv2d` where x holds this rank's share of the in-channels and
+    weight the same share of its dim 1: the partial sums are summed over
+    `axis` of `mesh` (`reduce_from`: the gradient passes as it is) and the
+    bias is added once, after the sum. Where the whole conv rounds its
+    output to bf16 (a bf16 tier, or "default" precision), each partial
+    sum is the exact product of the bf16 operands summed in f32, and the
+    total is rounded once, as the whole conv's f32 accumulator is; what
+    remains different is the order of the sum."""
+    rounds = dtype == torch.bfloat16 or (
+        precision == "default" and bwd_precision in (None, "default"))
+    if not rounds:
+        y = mesh.reduce_from(conv2d(x, weight, None, precision=precision,
+                                    dtype=dtype, bwd_precision=bwd_precision),
+                             axis)
+        return y if bias is None else y + bias
+    y = conv2d(x.to(torch.bfloat16).float(), weight.to(torch.bfloat16).float(),
+               None, precision="highest", bwd_precision=bwd_precision)
+    y = mesh.reduce_from(y, axis)
+    if dtype == torch.bfloat16:
+        if bias is not None:
+            y = y + bias.to(torch.bfloat16).float()
+        return y.to(torch.bfloat16)
+    y = y.to(torch.bfloat16).float()
+    return y if bias is None else y + bias.float()
+
+
 class Conv2d(nn.Module):
-    """Convolution module holding an OIHW kernel and a bias (f32)."""
+    """Convolution module holding an OIHW kernel and, unless `bias=False`,
+    a bias (f32)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  padding: int = 0, dtype=torch.float32,
-                 precision: str = "highest", bwd_precision=None):
+                 precision: str = "highest", bwd_precision=None,
+                 bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
-        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         self.stride = stride
         self.padding = padding
         self.dtype = dtype
@@ -89,7 +120,8 @@ class Conv2d(nn.Module):
         with torch.no_grad():
             self.weight.copy_(torch.empty(self.weight.shape).normal_(
                 0.0, 0.02, generator=generator))
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d(x, self.weight, self.bias, self.stride, self.padding,
@@ -97,7 +129,16 @@ class Conv2d(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """reflect-pad 3x3 conv + IN + ReLU, reflect-pad 3x3 conv + IN, +skip."""
+    """reflect-pad 3x3 conv + IN + ReLU, reflect-pad 3x3 conv + IN, +skip.
+
+    Tensor parallel (`tensor_parallel = (mesh, axis)`, set by
+    `parallel.spmd.shard_modules`): conv1 holds this rank's share of the
+    out-channels (and of its bias), conv2 the same share of its
+    in-channels. The input enters through `mesh.copy_to` (its gradient is
+    summed over `axis`), conv1, its instance norm (per channel, so no
+    collective) and the ReLU run on the rank's channels, and conv2 runs
+    as `conv2d_split_in`.
+    """
 
     def __init__(self, dim: int, dtype=torch.float32,
                  precision: str = "highest", bwd_precision=None):
@@ -106,7 +147,90 @@ class ResnetBlock(nn.Module):
                   bwd_precision=bwd_precision)
         self.conv1 = Conv2d(dim, dim, 3, **kw)
         self.conv2 = Conv2d(dim, dim, 3, **kw)
+        self.tensor_parallel = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(instance_norm(self.conv1(reflect_pad(x, 1))))
-        return x + instance_norm(self.conv2(reflect_pad(h, 1)))
+        if self.tensor_parallel is None:
+            h = torch.relu(instance_norm(self.conv1(reflect_pad(x, 1))))
+            return x + instance_norm(self.conv2(reflect_pad(h, 1)))
+        mesh, axis = self.tensor_parallel
+        h = self.conv1(reflect_pad(mesh.copy_to(x, axis), 1))
+        h = torch.relu(instance_norm(h))
+        c2 = self.conv2
+        y = conv2d_split_in(reflect_pad(h, 1), c2.weight, c2.bias, mesh, axis,
+                            c2.precision, c2.dtype, c2.bwd_precision)
+        return x + instance_norm(y)
+
+
+# flax's truncated-normal variance scaling draws from a unit normal cut at
+# +-2 and divides by that distribution's std, so the kernel keeps `scale`
+_TRUNC_STD = 0.87962566103423978
+
+
+def get_initializer(init_type: str = "normal", init_gain: float = 0.02):
+    """Weight-init factory (the JAX package's `get_initializer`, after the
+    reference's `init_weights`): `init(weight, generator=None)` fills an
+    OIHW conv kernel in place from `generator` (drawn on the CPU, so a
+    seed gives the same kernel on any device) and returns it.
+
+    normal: N(0, init_gain). xavier: flax `variance_scaling(init_gain**2,
+    "fan_avg", "truncated_normal")`. kaiming: flax `kaiming_normal`
+    (`variance_scaling(2, "fan_in", "truncated_normal")`). orthogonal:
+    orthonormal rows of the (O, I*kh*kw) matrix (columns where there are
+    fewer of them), times init_gain. fan_in = I*kh*kw, fan_out =
+    O*kh*kw, as flax counts an HWIO kernel.
+    """
+    def variance_scaling(scale: float, mode: str):
+        def init(weight, generator=None):
+            o, i = weight.shape[:2]
+            field = weight[0, 0].numel()
+            fan = {"fan_in": i * field,
+                   "fan_avg": (i + o) * field / 2.0}[mode]
+            std = (scale / fan) ** 0.5 / _TRUNC_STD
+            x = torch.nn.init.trunc_normal_(torch.empty(weight.shape),
+                                            generator=generator)
+            with torch.no_grad():
+                return weight.copy_(x * std)
+        return init
+
+    if init_type == "normal":
+        def normal(weight, generator=None):
+            with torch.no_grad():
+                return weight.copy_(torch.empty(weight.shape).normal_(
+                    0.0, init_gain, generator=generator))
+        return normal
+    if init_type == "xavier":
+        return variance_scaling(init_gain ** 2, "fan_avg")
+    if init_type == "kaiming":
+        return variance_scaling(2.0, "fan_in")
+    if init_type == "orthogonal":
+        def orthogonal(weight, generator=None):
+            rows, cols = weight.shape[0], weight[0].numel()
+            a = torch.empty(max(rows, cols), min(rows, cols),
+                            dtype=torch.float64).normal_(generator=generator)
+            q, r = torch.linalg.qr(a)
+            q = q * torch.sign(torch.diagonal(r))[None]
+            q = q if rows >= cols else q.T              # (rows, cols)
+            with torch.no_grad():
+                return weight.copy_((init_gain * q).reshape(weight.shape))
+        return orthogonal
+    raise NotImplementedError(
+        f"initialization method [{init_type}] is not implemented")
+
+
+def get_norm_layer(norm_type: str = "instance"):
+    """Norm factory (the JAX package's `get_norm_layer`): a callable
+    x -> x on NHWC tensors. TS-Net uses "instance" everywhere
+    (affine-free, no running statistics); "batch" is refused, as there:
+    no shipped config uses it and it needs running-statistics state."""
+    if norm_type == "instance":
+        return instance_norm
+    if norm_type == "none":
+        return lambda x: x
+    if norm_type == "batch":
+        raise NotImplementedError(
+            "batch norm is vestigial in the reference (never used by a "
+            "shipped TS-Net config) and needs mutable batch-stats state; "
+            "use 'instance' or 'none'")
+    raise NotImplementedError(
+        f"normalization layer [{norm_type}] is not found")

@@ -10,7 +10,9 @@ TPU layout rewrite of the same math (phase-decomposed upsample convs);
 the tests hold this module against it. `fused_blocks=True` on a bf16
 decoder is the counterpart of its `use_pallas_blocks=True`: each ResNet
 block runs as two K7 calls (`ops.conv_kernels.resblock_fused`), which
-drop the blocks' conv biases (they cancel in the instance norms).
+drop the blocks' conv biases (they cancel in the instance norms). A
+tensor-parallel block (`nn.blocks.ResnetBlock`) gathers its weights
+first, so K7 sees whole convolutions.
 """
 
 from __future__ import annotations
@@ -58,8 +60,13 @@ class Decoder(nn.Module):
             x = x.contiguous()
             for j in range(self.n_blocks):
                 blk = getattr(self, f"block{j}")
-                x = resblock_fused(x, blk.conv1.weight, blk.conv2.weight,
-                                   use_kernels=use_kernels)
+                w1, w2 = blk.conv1.weight, blk.conv2.weight
+                if blk.tensor_parallel is not None:
+                    # K7 normalises whole conv outputs: gather the shards
+                    mesh, axis = blk.tensor_parallel
+                    w1 = mesh.all_gather(w1, axis, 0)
+                    w2 = mesh.all_gather(w2, axis, 1)
+                x = resblock_fused(x, w1, w2, use_kernels=use_kernels)
         else:
             for j in range(self.n_blocks):
                 x = getattr(self, f"block{j}")(x)

@@ -21,6 +21,12 @@ Off by default, as in the JAX package.
 `fuse_train` is the same split for the training shape, where each sample
 has its own S sources and one target: differentiable, with K2's backward
 through its recomputed plain composition.
+
+Under tensor parallelism (`block0.tensor_parallel`, see
+`nn.blocks.ResnetBlock`) both run conv1, the norm and the ReLU on this
+rank's share of the 2C channels and sum conv2's partial sums over the
+`model` axis before K2. K6 computes the whole block, so with K6 on the
+block's weights are gathered first and every rank runs it whole.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ import torch.nn as nn
 from ..ops.fuse_kernels import fuse_pair_conv2, fuse_pair_conv2_plain
 from ..ops.norm_kernels import instance_norm_mean, instance_norm_mean_plain
 from ..ops.norms import instance_norm
-from .blocks import Conv2d, ResnetBlock, conv2d, reflect_pad
+from .blocks import (Conv2d, ResnetBlock, conv2d, conv2d_split_in,
+                     reflect_pad)
 
 
 class FuseNet(nn.Module):
@@ -76,24 +83,35 @@ def fuse_clip(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
     s, h, w, c = src_fea.shape
     f = tar_fea.shape[0]
     blk = fuse_net.block0
-    w1 = blk.conv1.weight                                   # (2C, 2C, 3, 3)
+    w1, b1, w2 = blk.conv1.weight, blk.conv1.bias, blk.conv2.weight
+    pair_kernel = (dt == torch.bfloat16
+                   and os.environ.get("TSNET_FUSE_PAIR_KERNEL", "0") == "1")
+    tp = blk.tensor_parallel
+    if tp is not None and pair_kernel:
+        # K6 computes the whole pair block: gather the block's shards
+        mesh, axis = tp
+        w1, b1 = mesh.all_gather(w1, axis, 0), mesh.all_gather(b1, axis, 0)
+        w2 = mesh.all_gather(w2, axis, 1)
+        tp = None
     a = src_fea.to(dt)
     t = tar_fea.to(dt)
 
     def conv(x, weight, bias=None):
         return conv2d(x, weight, bias, precision=prec, dtype=dt)
 
-    c1a = conv(reflect_pad(a, 1), w1[:, :c])                # (S, h, w, 2C)
-    c1t = conv(reflect_pad(t, 1), w1[:, c:], blk.conv1.bias)  # (F, h, w, 2C)
-    if (dt == torch.bfloat16
-            and os.environ.get("TSNET_FUSE_PAIR_KERNEL", "0") == "1"):
+    # (S or F, h, w, 2C), or this rank's share of the 2C under TP
+    c1a = conv(reflect_pad(a, 1), w1[:, :c])
+    c1t = conv(reflect_pad(t, 1), w1[:, c:], b1)
+    if pair_kernel:
         pair_conv = fuse_pair_conv2 if use_kernels else fuse_pair_conv2_plain
-        h2 = pair_conv(c1a.contiguous(), c1t.contiguous(),
-                       blk.conv2.weight)                    # bias dropped
+        h2 = pair_conv(c1a.contiguous(), c1t.contiguous(), w2)  # bias dropped
     else:
-        hp = (c1a[:, None] + c1t[None]).reshape(s * f, h, w, 2 * c)
+        hp = (c1a[:, None] + c1t[None]).reshape((s * f,) + c1a.shape[1:])
         hp = torch.relu(instance_norm(hp))
-        h2 = conv(reflect_pad(hp, 1), blk.conv2.weight)     # bias dropped
+        if tp is None:
+            h2 = conv(reflect_pad(hp, 1), w2)               # bias dropped
+        else:
+            h2 = conv2d_split_in(reflect_pad(hp, 1), w2, None, *tp, prec, dt)
         h2 = h2.reshape(s, f, h, w, 2 * c).contiguous()
     in_mean = instance_norm_mean if use_kernels else instance_norm_mean_plain
     h2m = in_mean(h2).to(dt)                                # (F, h, w, 2C)
@@ -119,16 +137,25 @@ def fuse_train(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
     w1 = blk.conv1.weight                                   # (2C, 2C, 3, 3)
     a = src_fea.to(dt).reshape(b * s, h, w, c)
     t = tar_fea.to(dt)
+    a_in, t_in, tp = a, t, blk.tensor_parallel
+    if tp is not None:
+        # conv1 holds this rank's share of the 2C out-channels
+        a_in, t_in = tp[0].copy_to(a, tp[1]), tp[0].copy_to(t, tp[1])
 
     def conv(x, weight, bias=None):
         return conv2d(x, weight, bias, precision=prec, dtype=dt,
                       bwd_precision=fuse_net.bwd_precision)
 
-    c1a = conv(reflect_pad(a, 1), w1[:, :c]).reshape(b, s, h, w, 2 * c)
-    c1t = conv(reflect_pad(t, 1), w1[:, c:], blk.conv1.bias)  # (B, h, w, 2C)
-    hp = (c1a + c1t[:, None]).reshape(b * s, h, w, 2 * c)
+    c1a = conv(reflect_pad(a_in, 1), w1[:, :c])             # (B*S, h, w, 2C)
+    c1t = conv(reflect_pad(t_in, 1), w1[:, c:], blk.conv1.bias)  # (B, ...)
+    k = c1t.shape[-1]
+    hp = (c1a.reshape(b, s, h, w, k) + c1t[:, None]).reshape(b * s, h, w, k)
     hp = torch.relu(instance_norm(hp))
-    h2 = conv(reflect_pad(hp, 1), blk.conv2.weight)         # bias dropped
+    if tp is None:
+        h2 = conv(reflect_pad(hp, 1), blk.conv2.weight)     # bias dropped
+    else:
+        h2 = conv2d_split_in(reflect_pad(hp, 1), blk.conv2.weight, None, *tp,
+                             prec, dt, fuse_net.bwd_precision)
     h2 = h2.reshape(b, s, h, w, 2 * c).transpose(0, 1).contiguous()
     in_mean = instance_norm_mean if use_kernels else instance_norm_mean_plain
     h2m = in_mean(h2).to(dt)                                # (B, h, w, 2C)

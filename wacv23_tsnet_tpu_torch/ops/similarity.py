@@ -16,9 +16,23 @@ clip-inference entry points; they dispatch to the CUDA kernels of
 `ops/warp_kernels.py` (K3-nf and K1). `transformation_warp_sources` is
 the training entry point, differentiable: K3-flow forward and K4
 backward.
+
+Spatial (sequence) parallelism: inside `spatial_partitioning(mesh,
+axis)` (set by `parallel.spmd`, as the JAX package's hook of the same
+name constrains the logits' sharding), the plain path computes only this
+rank's contiguous share of the target pixels T: its rows of the
+similarity, the softmax, the flow and the warp; the rows are gathered
+over `axis`, and the replicated inputs' gradients summed over it
+(`parallel.mesh.Mesh`). The kernel path ignores it, as in the JAX
+package: each kernel takes the full T of its rank's data slice (the JAX
+package's `batch_partitioning`, which runs its kernels per data shard,
+has no counterpart here: each rank already holds only its slice).
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -28,6 +42,27 @@ from .grid_sample import grid_sample
 from .warp_kernels import (transform_warp_mean_plain, transform_warp_pairs,
                            transform_warp_pairs_mean, transform_warp_pairs_nf,
                            transform_warp_pairs_nf_plain)
+
+_SPATIAL: contextvars.ContextVar = contextvars.ContextVar(
+    "tsnet_spatial_partitioning", default=None)
+
+
+@contextlib.contextmanager
+def spatial_partitioning(mesh, axis: str = "model"):
+    """Context: the plain path splits the target pixels over `axis` of
+    `mesh` (a `parallel.mesh.Mesh`)."""
+    token = _SPATIAL.set((mesh, axis))
+    try:
+        yield
+    finally:
+        _SPATIAL.reset(token)
+
+
+def _spatial():
+    """(mesh, axis) of the active spatial partitioning over more than one
+    rank, else None."""
+    ctx = _SPATIAL.get()
+    return ctx if ctx is not None and ctx[0].size(ctx[1]) > 1 else None
 
 
 def transformation_warp(src_img_fea, tar_fea_n, src_fea_n, tar_mask, src_mask,
@@ -44,6 +79,20 @@ def transformation_warp(src_img_fea, tar_fea_n, src_fea_n, tar_mask, src_mask,
     """
     b, h, w, c = src_img_fea.shape
     grid = normalized_grid(h, w, device=src_img_fea.device).reshape(h * w, 2)
+    sp = None if use_kernels else _spatial()
+    if sp is not None:
+        mesh, axis = sp
+        rows = mesh.chunk(h * w, axis)
+        src_img_fea, tar_fea_n, src_fea_n = (
+            mesh.copy_to(x, axis) for x in (src_img_fea, tar_fea_n, src_fea_n))
+        flow = masked_attention_flow(
+            tar_fea_n.reshape(b, h * w, c)[:, rows],
+            src_fea_n.reshape(b, h * w, c),
+            tar_mask.reshape(b, h * w)[:, rows], src_mask.reshape(b, h * w),
+            grid, temp=temp)                                 # (B, rows, 2)
+        warped = grid_sample(src_img_fea, flow[:, None])[:, 0]
+        return (mesh.gather_from(warped, axis, 1).reshape(b, h, w, c),
+                mesh.gather_from(flow, axis, 1).reshape(b, h, w, 2))
     flow_fn = (masked_attention_flow_fused if use_kernels
                else masked_attention_flow)
     flow = flow_fn(
@@ -122,10 +171,11 @@ def transformation_warp_clip(src_fea, src_fea_n, src_mask, tar_fea_n,
     """
     s, h, w, c = src_fea.shape
     f = tar_fea_n.shape[0]
-    fn = (transform_warp_pairs_nf if use_kernels
-          else transform_warp_pairs_nf_plain)
-    out = fn(*_flat(src_fea, src_fea_n, src_mask, tar_fea_n, tar_mask),
-             h, w, temp)
+    args = _flat(src_fea, src_fea_n, src_mask, tar_fea_n, tar_mask)
+    if use_kernels:
+        out = transform_warp_pairs_nf(*args, h, w, temp)
+    else:
+        out = _target_rows(transform_warp_pairs_nf_plain, args, 2, h, w, temp)
     return out.reshape(s, f, h, w, c)
 
 
@@ -139,8 +189,25 @@ def transformation_warp_clip_mean(src_fea, src_fea_n, src_mask, tar_fea_n,
     """
     _, h, w, c = src_fea.shape
     f = tar_fea_n.shape[0]
-    fn = (transform_warp_pairs_mean if use_kernels
-          else transform_warp_mean_plain)
-    out = fn(*_flat(src_fea, src_fea_n, src_mask, tar_fea_n, tar_mask),
-             h, w, temp, out_dtype)
+    args = _flat(src_fea, src_fea_n, src_mask, tar_fea_n, tar_mask)
+    if use_kernels:
+        out = transform_warp_pairs_mean(*args, h, w, temp, out_dtype)
+    else:
+        out = _target_rows(transform_warp_mean_plain, args, 1, h, w, temp,
+                           out_dtype)
     return out.reshape(f, h, w, c)
+
+
+def _target_rows(plain, args, dim: int, *rest) -> torch.Tensor:
+    """plain(*args, *rest) on the clip inputs of `_flat`; under spatial
+    partitioning on this rank's target rows only, the result's rows
+    (axis `dim`) gathered over the axis (inference: no gradient)."""
+    sp = _spatial()
+    if sp is None:
+        return plain(*args, *rest)
+    mesh, axis = sp
+    src_fea, tar_fea_n, src_fea_n, tar_mask, src_mask, grid = args
+    rows = mesh.chunk(tar_fea_n.shape[1], axis)
+    out = plain(src_fea, tar_fea_n[:, rows].contiguous(), src_fea_n,
+                tar_mask[:, rows].contiguous(), src_mask, grid, *rest)
+    return mesh.all_gather(out, axis, dim)

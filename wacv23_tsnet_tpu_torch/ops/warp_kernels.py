@@ -46,28 +46,30 @@ def transform_warp_pairs_plain(src_fea, tar_fea_n, src_fea_n, tar_mask,
                                temp: float = 100.0, dtype=torch.float32):
     """Plain version of K3-flow, differentiable in every input.
 
-    src_fea, src_fea_n (G, NS, T, C); tar_fea_n (G, NF, T, C); tar_mask
-    (G, NF, T); src_mask (G, NS, T); grid (T, 2). Returns warped
-    (G, NS, NF, T, C), flow (G, NS, NF, T, 2) and each row's softmax
-    log-sum-exp (G, NS, NF, T), computed in `dtype` (f32; float64 makes
-    the reference the kernels' rounding is measured against).
+    src_fea, src_fea_n (G, NS, T, C); tar_fea_n (G, NF, Tt, C); tar_mask
+    (G, NF, Tt); src_mask (G, NS, T); grid (T, 2); Tt target rows, T of
+    them or, under spatial partitioning (`ops.similarity`), a rank's
+    share. Returns warped (G, NS, NF, Tt, C), flow (G, NS, NF, Tt, 2) and
+    each row's softmax log-sum-exp (G, NS, NF, Tt), computed in `dtype`
+    (f32; float64 makes the reference the kernels' rounding is measured
+    against).
     """
     g, ns, t, c = src_fea.shape
-    nf = tar_fea_n.shape[1]
-    mt = tar_mask.to(dtype)[:, :, :, None]                    # (G, NF, T, 1)
+    nf, tt = tar_fea_n.shape[1:3]
+    mt = tar_mask.to(dtype)[:, :, :, None]                    # (G, NF, Tt, 1)
     warped, flows, lses = [], [], []
     for si in range(ns):
         ms = src_mask.to(dtype)[:, si, None, None, :]         # (G, 1, 1, T)
         with tf32(False):
             logits = torch.matmul(tar_fea_n.to(dtype),
                                   src_fea_n[:, si, None].to(dtype).transpose(
-                                      -1, -2))                # (G, NF, T, T)
+                                      -1, -2))                # (G, NF, Tt, T)
             z = temp * (logits * (mt * ms + (1.0 - mt) * (1.0 - ms)))
             flow = torch.matmul(torch.softmax(z, dim=-1), grid.to(dtype))
         img = src_fea[:, si, None].to(dtype).expand(g, nf, t, c)
         warped.append(grid_sample(img.reshape(g * nf, h, w, c),
-                                  flow.reshape(g * nf, h, w, 2)
-                                  ).reshape(g, nf, t, c))
+                                  flow.reshape(g * nf, 1, tt, 2)
+                                  ).reshape(g, nf, tt, c))
         flows.append(flow)
         lses.append(torch.logsumexp(z, dim=-1))
     return torch.stack(warped, 1), torch.stack(flows, 1), torch.stack(lses, 1)

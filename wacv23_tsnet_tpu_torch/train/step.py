@@ -25,7 +25,7 @@ BATCH_KEYS = ("src_img", "src_lbl", "src_bbox", "tar_img", "tar_lbl",
 
 def make_train_step(state: TrainState, lambda_dec: float = 1.0,
                     d_lr_factor: float = 0.5, use_kernels: bool = True,
-                    mark=None):
+                    mark=None, grad_hook=None):
     """Build `step(state, batch, lr) -> (state, metrics, rec_img)`.
 
     `batch` holds src_img (B, S, H, W, 3), src_lbl (B, S, H, W, L),
@@ -40,7 +40,10 @@ def make_train_step(state: TrainState, lambda_dec: float = 1.0,
     every kernel's plain version. The metrics are 0-d tensors on the
     device. `mark(name)`, where given, is called at the end of each stage
     of the step: "g_forward", "d_phase", "d_opt", "g_loss_backward",
-    "g_opt" (a profiler places its events there).
+    "g_opt" (a profiler places its events there). `grad_hook(opt)`,
+    where given, is called just before each Adam update with the
+    optimizer about to step (`parallel.spmd` averages the gradients over
+    its `data` axis there).
     """
     mods, vgg = state.mods, state.vgg
     cfg = mods.cfg
@@ -92,6 +95,8 @@ def make_train_step(state: TrainState, lambda_dec: float = 1.0,
         d_total.backward()
         done("d_phase")
         set_lr(state.disc_opt, lr)
+        if grad_hook is not None:
+            grad_hook(state.disc_opt)
         state.disc_opt.step()
         done("d_opt")
 
@@ -135,6 +140,8 @@ def make_train_step(state: TrainState, lambda_dec: float = 1.0,
                 d.requires_grad_(True)
         done("g_loss_backward")
         set_lr(state.gen_opt, lr)
+        if grad_hook is not None:
+            grad_hook(state.gen_opt)
         state.gen_opt.step()
         done("g_opt")
         state.step += 1

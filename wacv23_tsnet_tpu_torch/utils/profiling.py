@@ -1,12 +1,14 @@
 """Profiling helpers (counterpart of the JAX package's
 `utils/profiling.py`): a `torch.profiler` trace exported for Perfetto or
 chrome://tracing, named regions inside it, and rolling per-step
-wall-clock percentiles."""
+wall-clock percentiles; `card_line` names the device a measurement ran
+on."""
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 
 import torch
@@ -63,3 +65,23 @@ class StepProfiler:
             "max_s": s[-1],
             "steps_per_sec": n / sum(s),
         }
+
+
+def card_line(device) -> str:
+    """The device a number was measured on: for a GPU, its name and power
+    limit as `nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader` gives them (a card set below its maximum runs
+    slower under load), else torch's name of it; "cpu" for the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        out = (f"{torch.cuda.get_device_name(index)}, power limit not read "
+               f"({type(e).__name__})")
+    return out
