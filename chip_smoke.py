@@ -44,7 +44,7 @@ non-zero, printing no result, where CUDA or the package is missing.
    of `face_config()`, bit-parity tier, batch 15: the first step from one
    seeded state through the kernels and through the plain versions
    (metrics and per-subnet gradients compared, at temp 10 and at the
-   config's 100), then 20 steps on a fixed
+   config's 100), then 10 steps on a fixed
    batch with the launch counts zeroed just before and read just after
    (one K3-flow, one K4 and one K2 a step; no inference kernel), with
    ms/step, samples/s, the CUDA-event stage split, peak memory and a
@@ -139,7 +139,10 @@ non-zero, printing no result, where CUDA or the package is missing.
    `crop_faces` under `torch.cuda.set_sync_debug_mode("error")`; the
    first train step at batch 10 through the kernels, the plain versions
    and the plain versions on nudged inputs (the 16 metrics, netD and
-   netDF gradients, each generator subnet's); 20 steps (one K3-flow, K4
+   netDF gradients, each generator subnet's; the metrics that read the
+   updated discriminators also through the plain path's, with the
+   updated discriminator weights in units of their lr and the sign
+   flips of their gradients); 20 steps (one K3-flow, K4
    and K2 a step; ms/step over steps 2-20, stage split, peak memory);
    the trained state saved and restored bit for bit (netDF and its Adam
    moments); the fast train tier's ms/step, and the cosines of its
@@ -162,8 +165,9 @@ non-zero, printing no result, where CUDA or the package is missing.
    image shot's label column in the pose palette; the snapshot restored
    bit for bit); `cli.eval_snapshots --task pose` over its snapshots;
    `cli.demo_pose.main` on a pair of one build and a pair of two (the
-   retargeted skeleton), 30 frames in one chunk, default tier (K3-nf)
-   and `--fast-tail` (K1), one warp kernel and one K2 a chunk, against
+   retargeted skeleton), 30 frames in one chunk, the first pair in the
+   default tier (K3-nf) and `--fast-tail` (K1), the second in the
+   default tier, one warp kernel and one K2 a chunk, against
    `ClipInference(use_kernels=False)` (0.01 mean L1), its last montage
    PNG and its GIF's size, frame count and delays; `rasterize_pose_clip`
    on the card bit-equal to its CPU run on a 32-frame chunk (time, CUDA
@@ -195,7 +199,26 @@ non-zero, printing no result, where CUDA or the package is missing.
    against its plain path (<=0.01 mean L1); then `[zoo]`: the zoo's
    generators and discriminators at 256² and the WGAN-GP penalty, card
    against CPU.
-16. Prints one `kernels` JSON line (with each kernel's launches on the
+16. After `[zoo]`, `[rewrites]` at the full width of `face_config()`: the
+   phase-decomposed decoder that both entry points run
+   (`nn.decoder.decoder_apply_fast`) against the plain `Decoder` on the
+   same prop/syn features of a 64-frame clip in the bit-parity, bench and
+   `bench+fused` tiers (<=1e-3 max abs / <=0.01 mean L1; in
+   `bench+fused` K7's eight launches inside the phase decoder), each
+   form's decoder ms (CUDA events), the clip's frames/s with each form
+   decoding (`models.tsnet.decode` swapped for the plain module; blocks
+   of 3 clips alternated twice) and peak memory; `encoder_apply_fast`
+   against `lbl_enc` on the clip's labels (difference, ms each); the
+   bit-parity and the fast train tier's step at batch 15 with each form
+   (one forward's reconstruction <=1e-3 apart; ms/step over blocks of 3
+   steps alternated twice; a profile of one step each); `ring_pad` on
+   against off (the first step's metrics within 1e-4, ms/step; the
+   64-frame bit-parity clip at softmax temp 10 within 5e-4 relative, at
+   100 within that or twice the pad path's own spread under a 1e-6 input
+   nudge, and its ms); and one pose clip's host rendering (32 OpenPose
+   frames of `[pose_data]`'s figure) through the native `draw_edge` and
+   its numpy tier (ms, pixel agreement >= 0.999).
+17. Prints one `kernels` JSON line (with each kernel's launches on the
    pose path, `pose_launches`, on the pose data path,
    `pose_data_launches`, on `[parallel]`'s runs, `parallel_launches`, and
    in `[sweep]`, `sweep_launches`; for K3-flow, K4 and K2 its check at
@@ -223,7 +246,16 @@ builds the kernels and runs only the pose phases (steps 11 and 12), and
 
     python3 chip_smoke.py --parallel
 
-the kernel checks, `[parallel]`, `[sweep]` and `[zoo]`.
+the kernel checks, `[parallel]`, `[sweep]` and `[zoo]`, and
+
+    python3 chip_smoke.py --rewrites
+
+builds the kernels and runs `[rewrites]` alone, and
+
+    python3 chip_smoke.py --pose-first-step
+
+`[pose]`'s first-step comparison alone, with the plain `Decoder` and then
+the phase-decomposed decoder decoding.
 """
 
 from __future__ import annotations
@@ -270,7 +302,8 @@ from wacv23_tsnet_tpu_torch.data.datasets import (FaceDatasetTest,
                                                   PoseDatasetTest,
                                                   PoseDatasetTrain)
 from wacv23_tsnet_tpu_torch.data.image_io import read_png, read_rgb, write_png
-from wacv23_tsnet_tpu_torch.data.rasterize import valid_keypoints
+from wacv23_tsnet_tpu_torch.data.rasterize import (render_openpose,
+                                                  valid_keypoints)
 from wacv23_tsnet_tpu_torch.data.rasterize_device import (rasterize_face_clip,
                                                           rasterize_pose_clip)
 from wacv23_tsnet_tpu_torch.infer import (ClipInference, RetargetSession,
@@ -281,13 +314,14 @@ from wacv23_tsnet_tpu_torch.losses import (feature_matching_loss,
                                            vgg_perceptual_loss)
 from wacv23_tsnet_tpu_torch.models import (TSNet, TSNetModules,
                                            tsnet_forward, tsnet_forward_clip)
-from wacv23_tsnet_tpu_torch.models.tsnet import (crop_faces,
+from wacv23_tsnet_tpu_torch.models import tsnet as tsnet_module
+from wacv23_tsnet_tpu_torch.models.tsnet import (crop_faces, decode,
                                                  decode_with_sources,
                                                  encode_sources,
                                                  get_face_bbox,
                                                  label_features, propagate)
 from wacv23_tsnet_tpu_torch.nn import (VideoDiscriminator, define_D, define_G,
-                                       fuse_clip)
+                                       encoder_apply_fast, fuse_clip)
 from wacv23_tsnet_tpu_torch.ops import conv_kernels as ck
 from wacv23_tsnet_tpu_torch.ops import cuda_build
 from wacv23_tsnet_tpu_torch.ops import flow_kernels as fl
@@ -351,7 +385,7 @@ CHUNK = 32
 # and lse, and the rest is printed with the count of such rows.
 BWD_RTOL = 2e-4
 TRAIN_BATCH = 15
-TRAIN_STEPS = 20
+TRAIN_STEPS = 10
 TRAIN_LR = 2e-4
 # kernel path vs plain path on the first train step: metrics relative;
 # every subnet's gradient (relative L2) within 1e-3, or within
@@ -443,13 +477,22 @@ POSE_SUBNETS = GEN_SUBNETS + ("netD", "netDF")
 # Adam step, which moves each weight by about its lr whatever the size
 # of its gradient: where the kernel path's netDF gradient has the other
 # sign from the plain path's (their relative L2 differs by ~1e-3 on the
-# 64^2 crops), the weight lands 2 lr away. These metrics are held as the
-# gradients are: within STEP_METRIC_RTOL or NUDGE_MARGIN times the
-# plain path's own difference under the input nudges. One nudge is one
-# sample of that spread: the pose phase takes two, POSE_NUDGES, as the
-# CPU train-step tests do, and holds each quantity against the larger
+# 64^2 crops), the weight lands 2 lr away. Some 800 of netDF's 2.76M
+# weights flip so, fewer than under a 1e-6 input nudge, and which ones
+# decides these metrics: one step's reading is a draw, which a decoder
+# of the same function but other rounding moved from 1.5e-4 to 2.7e-4
+# (GF_GAN at temp 10; the nudged paths read 4e-5 - 1.6e-4). So each is
+# held in its two parts: the generator's, read through the plain path's
+# updated discriminators, within STEP_METRIC_RTOL; the discriminators',
+# every updated weight within D_STEP_LR_MARGIN lr of the plain path's
+# (the rule of tests/test_torch_train_step.py) and their gradients'
+# sign flips within NUDGE_MARGIN times the nudged paths' larger count.
+# The gradients are held within STEP_GRAD_RTOL or NUDGE_MARGIN times the
+# plain path's own difference under the input nudges, POSE_NUDGES, as
+# the CPU train-step tests hold them
 POSE_D_READ_METRICS = ("G_GAN", "G_FML", "G", "GF_GAN", "GF_FML", "GF")
 POSE_NUDGES = (1e-6, 1e-5)
+D_STEP_LR_MARGIN = 2.5
 # crop_faces on the card against its CPU run: the card's `arange / 63`
 # differs from the CPU's in the last bit of 30 of 64 values, so a sample
 # position below 256 may move by its ulp, 2^-16, which the bilinear
@@ -465,7 +508,7 @@ POSE_CASES = ("face", "head", "neither", "border")
 # POSE_DATA_START, so that the loop's image shot (every 100 steps) fires;
 # cli.demo_pose on a pair of one build and a pair of two (driving
 # POSE_DATA_UNSEEN, smoothed by cli.smooth_keypoints), POSE_DEMO_FRAMES
-# frames in one chunk, in DEMO_TIERS
+# frames in one chunk, in the tiers of POSE_DEMO_TIERS
 JPEG_FIXTURES = os.path.join("tests", "torch_fixtures", "jpeg")
 POSE_DATA_VIDEOS = (10, 20, 30, 40, 50, 100, 110, 120, 130, 140)
 POSE_DATA_FRAMES = 40
@@ -477,6 +520,8 @@ POSE_DATA_SEX = {"same-build": "", "cross-build": "mf"}
 POSE_DATA_STEPS = 14
 POSE_DATA_START = 86
 POSE_DEMO_FRAMES = 30
+POSE_DEMO_TIERS = {"same-build": tuple(DEMO_TIERS),
+                   "cross-build": ("default",)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -881,7 +926,7 @@ def stage_ms(mods, src, tar_lbl, tar_bbox, fused: bool = False) -> dict:
         mark("transformation")
         syn = fuse_clip(mods.fuse_net, pack["fea"].float(), tar_fea.float())
         mark("fuse_clip")
-        mods.dec(prop, syn, fused_blocks=fused).float()
+        decode(mods, prop, syn, fused_blocks=fused).float()
         mark("decoder")
     torch.cuda.synchronize()
     return {name: marks[i - 1][1].elapsed_time(ev)
@@ -1889,12 +1934,43 @@ def pose_clip_tier(line: str, tier: str, cfg, src, tar_lbl, tar_bbox,
     return res
 
 
+def through_discriminators(mods, cfg, rec: torch.Tensor, batch: dict,
+                           metrics: dict) -> dict:
+    """POSE_D_READ_METRICS of the reconstruction `rec` read through the
+    netD and netDF of `mods`, as the train step's G phase computes them
+    (the VGG terms, which read no discriminator, from `metrics`)."""
+    lbl, tar = batch["tar_lbl"], batch["tar_img"]
+    with torch.no_grad():
+        fake = mods.netD(torch.cat([lbl, rec], dim=-1))
+        real = mods.netD(torch.cat([lbl, tar], dim=-1))
+        face = mods.netDF(crop_faces(rec, lbl))
+        face_real = mods.netDF(crop_faces(tar, lbl))
+        out = {"G_GAN": lsgan_loss(fake[-1], True),
+               "G_FML": feature_matching_loss(fake, real, cfg.lambda_fml),
+               "GF_GAN": lsgan_loss(face[-1], True),
+               "GF_FML": feature_matching_loss(face, face_real,
+                                               cfg.lambda_fml)}
+    out = {k: v.item() for k, v in out.items()}
+    out["G"] = out["G_GAN"] + out["G_FML"] + metrics["G_VGG"]
+    out["GF"] = out["GF_GAN"] + out["GF_FML"] + metrics["GF_VGG"]
+    return out
+
+
 def pose_first_step(cfg, batch: dict, launched: collections.Counter):
     """The first pose train step from one seeded state through the
     kernels, the plain versions and the plain versions on input images
-    moved by INPUT_NUDGE, at temp 10 and at the config's 100, held by
-    [train]'s rules, with netDF beside netD; returns the temp-100 kernel
-    path's state and step."""
+    moved by each of POSE_NUDGES, at temp 10 and at the config's 100,
+    held by [train]'s rules, with netDF beside netD; returns the
+    temp-100 kernel path's state and step.
+
+    The G-phase metrics that read the updated discriminators
+    (POSE_D_READ_METRICS) are also read for each path through the plain
+    path's updated discriminators (`same_d`), which parts the
+    generator's difference from the discriminators'; each path's updated
+    discriminator parameters are compared with the plain path's in units
+    of their lr (`d_params_over_lr`), and its netD and netDF gradients
+    by the elements whose sign differs from the plain path's (`flips`:
+    Adam's first step moves each such weight 2 lr the other way)."""
     gen = torch.Generator().manual_seed(9)
     paths = [("plain", False, batch)]
     for eps in POSE_NUDGES:
@@ -1912,7 +1988,7 @@ def pose_first_step(cfg, batch: dict, launched: collections.Counter):
             state = create_train_state(tcfg, device="cuda", seed=0)
             step = make_train_step(state, use_kernels=use_kernels)
             cuda_build.reset_launches()
-            _, metrics, _ = step(state, data, TRAIN_LR)
+            _, metrics, rec = step(state, data, TRAIN_LR)
             torch.cuda.synchronize()
             launches = dict(cuda_build.LAUNCHES)
             check(all(launches[k] == int(use_kernels) for k in TRAIN_KERNELS)
@@ -1921,21 +1997,46 @@ def pose_first_step(cfg, batch: dict, launched: collections.Counter):
                   f"{launches}")
             if use_kernels:
                 launched.update(launches)
-            runs[name] = {"metrics": {k: v.item()
-                                      for k, v in metrics.items()},
-                          "grads": grads_of(state, POSE_SUBNETS)}
-            if not (use_kernels and temp == cfg.softmax_temp):
+            if name == "plain":
+                plain_state = state
+            m = {k: v.item() for k, v in metrics.items()}
+            runs[name] = {
+                "metrics": m, "grads": grads_of(state, POSE_SUBNETS),
+                "same_d": through_discriminators(plain_state.mods, tcfg, rec,
+                                                 data, m),
+                "disc": {d: torch.cat([p.detach().flatten() for p in
+                                       getattr(state.mods, d).parameters()])
+                         for d in ("netD", "netDF")},
+                "d_lr": state.disc_opt.param_groups[0]["lr"]}
+            del rec
+            if not (use_kernels and temp == cfg.softmax_temp) and \
+                    name != "plain":
                 del state, step
                 torch.cuda.empty_cache()
+        del plain_state
+        torch.cuda.empty_cache()
         mp, gp = runs["plain"]["metrics"], runs["plain"]["grads"]
+        sp, dp = runs["plain"]["same_d"], runs["plain"]["disc"]
         err = {}
         for name in ["kernel"] + nudges:
+            run = runs[name]
             err[f"{name}_metrics"] = {
                 k: abs(v - mp[k]) / max(1.0, abs(mp[k]))
-                for k, v in runs[name]["metrics"].items()}
+                for k, v in run["metrics"].items()}
             err[f"{name}_grads"] = {
                 k: ((v - gp[k]).norm() / gp[k].norm()).item()
-                for k, v in runs[name]["grads"].items()}
+                for k, v in run["grads"].items()}
+            err[f"{name}_same_d"] = {
+                k: abs(v - sp[k]) / max(1.0, abs(sp[k]))
+                for k, v in run["same_d"].items()}
+            err[f"{name}_d_params_over_lr"] = {
+                d: (v - dp[d]).abs().max().item() / run["d_lr"]
+                for d, v in run["disc"].items()}
+            err[f"{name}_flips"] = {
+                d: int((torch.sign(run["grads"][d])
+                        != torch.sign(gp[d])).sum())
+                for d in ("netD", "netDF")}
+        err["elements"] = {d: gp[d].numel() for d in ("netD", "netDF")}
         for kind in ("metrics", "grads"):
             err[f"nudged_{kind}"] = {k: max(err[f"{n}_{kind}"][k]
                                             for n in nudges)
@@ -1944,11 +2045,22 @@ def pose_first_step(cfg, batch: dict, launched: collections.Counter):
               f"path and nudged plain path vs plain path (gradients "
               f"relative L2): {json.dumps(err)}", flush=True)
         bad = {k: v for k, v in err["kernel_metrics"].items()
-               if v > (max(STEP_METRIC_RTOL,
-                           NUDGE_MARGIN * err["nudged_metrics"][k])
-                       if k in POSE_D_READ_METRICS else STEP_METRIC_RTOL)}
+               if k not in POSE_D_READ_METRICS and v > STEP_METRIC_RTOL}
+        bad.update({f"{k} (same discriminators)": v
+                    for k, v in err["kernel_same_d"].items()
+                    if v > STEP_METRIC_RTOL})
         check(len(err["kernel_metrics"]) == 16 and not bad,
               f"pose: first-step metrics at temp {temp}: {bad}")
+        check(max(err["kernel_d_params_over_lr"].values())
+              <= D_STEP_LR_MARGIN,
+              f"pose: updated discriminators at temp {temp}, in lr: "
+              f"{err['kernel_d_params_over_lr']}")
+        flip_bar = {d: NUDGE_MARGIN * max(err[f"{n}_flips"][d]
+                                          for n in nudges)
+                    for d in err["elements"]}
+        check(all(err["kernel_flips"][d] <= flip_bar[d] for d in flip_bar),
+              f"pose: discriminator gradient sign flips at temp {temp}: "
+              f"{err['kernel_flips']} against {flip_bar}")
         check(err["kernel_grads"]["netD"] <= STEP_GRAD_RTOL,
               f"pose: first-step netD gradient at temp {temp}: "
               f"{err['kernel_grads']}")
@@ -1961,6 +2073,31 @@ def pose_first_step(cfg, batch: dict, launched: collections.Counter):
         check(not worst, f"pose: first-step gradients at temp {temp} beyond "
               f"the nudged path's spread: {worst}")
     return state, step
+
+
+def pose_first_step_forms(line: str) -> int:
+    """[pose]'s first-step comparison alone, with the plain `Decoder` and
+    then the phase-decomposed decoder decoding: which of the two moves
+    the metrics read through the updated discriminators. Both forms run
+    even where the first fails its checks; returns 1 if either did."""
+    cfg = pose_config()
+    batch = pose_batch(cfg, POSE_BATCH, seed=8)
+    failed = []
+    for form, ctx in (("plain", plain_decoder()),
+                      ("phase", contextlib.nullcontext())):
+        print(f"[pose] first step with the {form} decoder | {line}",
+              flush=True)
+        try:
+            with ctx:
+                state, step = pose_first_step(cfg, batch,
+                                              collections.Counter())
+            del state, step
+        except RuntimeError as exc:
+            print(f"[pose] first step with the {form} decoder failed: {exc}",
+                  flush=True)
+            failed.append(form)
+        torch.cuda.empty_cache()
+    return int(bool(failed))
 
 
 def pose_g_grad(cfg, batch: dict) -> torch.Tensor:
@@ -3183,8 +3320,9 @@ def pose_data_phase(line: str) -> dict:
     """The pose variant from files on disk at the full width of
     pose_config() (see the module docstring, step 12): the JPEG fixtures
     against their manifest, a synthetic dance set, `cli.train_pose`,
-    `cli.eval_snapshots --task pose`, `cli.demo_pose` on a same-build and
-    a cross-build pair in two tiers, and pose serving. Its files go to a
+    `cli.eval_snapshots --task pose`, `cli.demo_pose` on a same-build
+    pair in two tiers and a cross-build pair in the default tier, and pose
+    serving. Its files go to a
     git-ignored `chip_smoke_pose_data_*` directory of the checkout.
     Returns its report, with the launches of its counted runs by kernel
     under "launches"."""
@@ -3236,7 +3374,7 @@ def pose_data_phase(line: str) -> dict:
             load_s = time.perf_counter() - t0
             check(sample["diff_sex"] == POSE_DATA_SEX[name],
                   f"pose_data: pair {pair} is {sample['diff_sex']!r}")
-            for tier in DEMO_TIERS:
+            for tier in POSE_DEMO_TIERS[name]:
                 report[f"demo {name} {tier}"] = pose_demo_tier(
                     line, pair, tier, data, os.path.join(
                         tmp, f"demo_{name}_{tier}"), sample, launched)
@@ -4030,6 +4168,332 @@ def tools_phase(line: str, history: str, out_dir: str) -> dict:
     return report
 
 
+REWRITES = "rewrites"
+REWRITE_TIERS = ("bit-parity", "bench", FUSED_TIER)
+REWRITE_BLOCKS = 2        # timed blocks of each form, alternated
+REWRITE_CLIPS = 3         # clips a block (host clock)
+REWRITE_STEPS = 3         # train steps a block, batch 15
+RING_CLIP_RTOL = 5e-4     # ring_pad clip vs pad clip, max rel (test_ring_pad)
+POSE_RENDER_FRAMES = 32
+
+
+@contextlib.contextmanager
+def plain_decoder():
+    """`models.tsnet.decode` swapped for the plain `Decoder` module while
+    the block runs, so that both entry points decode through it: the form
+    the phase-decomposed decoder is measured against."""
+    inner = tsnet_module.decode
+
+    def plain(mods, prop_fea, syn_fea, use_kernels=True, fused_blocks=False):
+        return mods.dec(prop_fea, syn_fea, fused_blocks=fused_blocks,
+                        use_kernels=use_kernels)
+
+    tsnet_module.decode = plain
+    try:
+        yield
+    finally:
+        tsnet_module.decode = inner
+
+
+def rewrite_cfg(tier: str):
+    base = face_config()
+    if tier == "bit-parity":
+        return base
+    return dataclasses.replace(base, precision="high", fast_tail=True,
+                               fast_trunk=True)
+
+
+def alternated(run, forms=("phase", "plain")) -> dict:
+    """run(form) for each form, REWRITE_BLOCKS times alternated (phase,
+    plain, phase, plain): {form: [one number a block]}."""
+    out = {f: [] for f in forms}
+    for _ in range(REWRITE_BLOCKS):
+        for form in forms:
+            with (plain_decoder() if form == "plain"
+                  else contextlib.nullcontext()):
+                out[form].append(run(form))
+    return out
+
+
+def decoder_forms(line: str, tier: str) -> dict:
+    """One tier of `[rewrites]`: the phase-decomposed decoder against the
+    plain `Decoder` on the same prop/syn features of a 64-frame clip
+    (bit-parity <=1e-3 max abs, the fast tiers <=0.01 mean L1), each
+    form's decoder ms (CUDA events), the clip's frames/s with each form
+    decoding (host clock, alternated blocks) and peak memory; K7's
+    launches inside the phase decoder in `bench+fused`; and
+    `encoder_apply_fast` against `lbl_enc` at the clip's shape."""
+    cfg = rewrite_cfg(tier)
+    fused = tier == FUSED_TIER
+    mods = TSNetModules(cfg, device="cuda", seed=0)
+    src = clip_src(cfg, cfg.n_source, CLIP_FRAMES)
+    res = {}
+    with fuse_pair_kernel(fused), torch.inference_mode():
+        pack = encode_sources(mods, *src[:3])
+        tar_fea, tar_fea_n, tar_mask = label_features(mods, *src[3:])
+        prop = propagate(mods, pack, tar_fea_n, tar_mask)
+        syn = fuse_clip(mods.fuse_net, pack["fea"].float(), tar_fea.float())
+        forms = {"phase": lambda: decode(mods, prop, syn,
+                                         fused_blocks=fused),
+                 "plain": lambda: mods.dec(prop, syn, fused_blocks=fused)}
+        phase, launches = counted(forms["phase"])
+        plain = forms["plain"]()
+        diff = (phase.float() - plain.float()).abs()
+        res["phase_vs_plain_max_abs"] = diff.max().item()
+        res["phase_vs_plain_mean_abs"] = diff.mean().item()
+        want = ({"conv3x3_in": 2 * cfg.dec_n_blocks} if fused else {})
+        check(launches == want, f"{REWRITES} {tier}: the phase decoder "
+              f"launched {launches}, expected {want}")
+        res["phase_decoder_launches"] = launches
+        del phase, plain, diff
+        res["decoder_ms"] = alternated(
+            lambda form: time_ms(forms[form], iters=5))
+        # encoder_apply_fast against the module at the clip's shape
+        if not fused:
+            enc_fast = encoder_apply_fast(mods.lbl_enc, src[3])
+            enc_diff = (enc_fast.float() - tar_fea.float()).abs()
+            res["lbl_enc_fast_vs_module_max_abs"] = enc_diff.max().item()
+            res["lbl_enc_fast_vs_module_mean_abs"] = enc_diff.mean().item()
+            res["lbl_enc_ms"] = {
+                "module": time_ms(lambda: mods.lbl_enc(src[3]), iters=5),
+                "encoder_apply_fast": time_ms(
+                    lambda: encoder_apply_fast(mods.lbl_enc, src[3]),
+                    iters=5)}
+            del enc_fast, enc_diff
+        del pack, tar_fea, tar_fea_n, tar_mask, prop, syn
+
+        def clip():
+            return tsnet_forward_clip(mods, *src, fused_blocks=fused)
+
+        def clips(form):
+            clip()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(REWRITE_CLIPS):
+                clip()
+            torch.cuda.synchronize()
+            return CLIP_FRAMES * REWRITE_CLIPS / (time.perf_counter() - t0)
+
+        res["clip_fps"] = alternated(clips)
+
+        def peak(form):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            clip()
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated() / 1e9
+
+        res["clip_peak_mem_gb"] = {f: v[0] for f, v in alternated(
+            peak).items()}
+    key, tol = (("max_abs", 1e-3) if tier == "bit-parity"
+                else ("mean_abs", 0.01))
+    print(f"[{REWRITES}] decoder forms, {tier}, 64-frame clip: "
+          f"{json.dumps(res)} | {line}", flush=True)
+    check(res[f"phase_vs_plain_{key}"] <= tol,
+          f"{REWRITES} {tier}: phase decoder vs plain Decoder {res}")
+    if not fused:
+        check(res[f"lbl_enc_fast_vs_module_{key}"] <= tol,
+              f"{REWRITES} {tier}: encoder_apply_fast vs lbl_enc {res}")
+    del mods, src
+    torch.cuda.empty_cache()
+    return res
+
+
+def first_step_and_steps(cfg, batch: dict, forms=("phase",),
+                         tier: str = "") -> dict:
+    """A train state of `cfg` from seed 0: its first step's metrics, then
+    REWRITE_STEPS steps a block for each decoder form, alternated
+    (ms/step on the host clock, synchronised), the peak memory, and with
+    a `tier` name a profile of one step of each form (its kernels with
+    the most device time printed; busy ms and share, CUDA launches)."""
+    state = create_train_state(cfg, device="cuda", seed=0)
+    step = make_train_step(state)
+    _, metrics, _ = step(state, batch, TRAIN_LR)
+    out = {"first_step_metrics": {k: v.item() for k, v in metrics.items()}}
+
+    def steps(form):
+        step(state, batch, TRAIN_LR)             # settles the form's plans
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REWRITE_STEPS):
+            step(state, batch, TRAIN_LR)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / REWRITE_STEPS
+
+    torch.cuda.reset_peak_memory_stats()
+    out["ms_per_step"] = alternated(steps, forms)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if tier:
+        for form in forms:
+            with (plain_decoder() if form == "plain"
+                  else contextlib.nullcontext()):
+                out[f"profile_{form}"] = device_breakdown(
+                    lambda: step(state, batch, TRAIN_LR),
+                    f"{REWRITES} {tier} step, {form} decoder", top=6)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_forms(line: str) -> dict:
+    """The bit-parity train step at batch 15 with each decoder form (the
+    reconstruction of one forward from one state, phase vs plain, <=1e-3
+    max abs; ms/step and a profile), the fast train tier's (FAST_TIER)
+    ms/step and profile with each, then `ring_pad` on against off: the
+    first step's
+    metrics (within STEP_METRIC_RTOL) and ms/step, and the 64-frame
+    bit-parity clip (`ring_clip`): at softmax temp 10 within
+    RING_CLIP_RTOL relative, at the config's 100 within that or twice
+    the pad path's own spread under a 1e-6 input nudge."""
+    cfg = face_config()
+    batch = train_batch(cfg, TRAIN_BATCH)
+    mods = TSNetModules(cfg, device="cuda", seed=0)
+    recs = {}
+    with torch.no_grad():
+        for form, ctx in (("phase", contextlib.nullcontext()),
+                          ("plain", plain_decoder())):
+            with ctx:
+                recs[form] = tsnet_forward(
+                    mods, *(batch[k] for k in FORWARD_KEYS),
+                    tar_img=batch["tar_img"], train=True)["rec_img"]
+    rec_err = (recs["phase"] - recs["plain"]).abs().max().item()
+    del mods, recs
+    torch.cuda.empty_cache()
+    pad = first_step_and_steps(cfg, batch, ("phase", "plain"), "bit-parity")
+    fast = first_step_and_steps(dataclasses.replace(cfg, **FAST_TIER), batch,
+                                ("phase", "plain"), "fast")
+    del fast["first_step_metrics"]
+    ring = first_step_and_steps(dataclasses.replace(cfg, ring_pad=True),
+                                batch)
+    mp = pad["first_step_metrics"]
+    metric_err = {k: abs(v - mp[k]) / max(1.0, abs(mp[k]))
+                  for k, v in ring["first_step_metrics"].items()}
+    res = {"train_rec_phase_vs_plain_max_abs": rec_err,
+           "step": {"pad": pad, "fast_tier": fast, "ring_pad": ring},
+           "ring_vs_pad_first_step_metrics_rel": metric_err}
+    del batch
+    torch.cuda.empty_cache()
+
+    res.update(ring_clip(cfg))
+    print(f"[{REWRITES}] train step (bit-parity, batch {TRAIN_BATCH}) by "
+          f"decoder form, and ring_pad: {json.dumps(res)} | {line}",
+          flush=True)
+    check(rec_err <= 1e-3, f"{REWRITES}: train forward, phase vs plain "
+          f"decoder {rec_err}")
+    check(max(metric_err.values()) <= STEP_METRIC_RTOL,
+          f"{REWRITES}: ring_pad first-step metrics vs pad {metric_err}")
+    clip = res["ring_clip"]
+    check(clip["temp10"]["ring_vs_pad_max_rel"] <= RING_CLIP_RTOL,
+          f"{REWRITES}: ring_pad clip vs pad at temp 10 {clip}")
+    top = clip[f"temp{cfg.softmax_temp:g}"]
+    check(top["ring_vs_pad_max_rel"] <= max(
+        RING_CLIP_RTOL, NUDGE_MARGIN * top["pad_nudged_vs_pad_max_rel"]),
+          f"{REWRITES}: ring_pad clip vs pad at temp {cfg.softmax_temp:g}, "
+          f"beyond the pad path's own spread {clip}")
+    return res
+
+
+def ring_clip(cfg) -> dict:
+    """The 64-frame bit-parity clip with `ring_pad` on and off from one
+    seed, at softmax temp 10 and at the config's 100: the largest
+    difference over the largest value, the mean, the source features'
+    relative L2, and the pad path's own spread under a 1e-6 relative
+    nudge of the source images (the temp-100 attention of random weights
+    turns rounding-level changes into flips, as the train checks find);
+    the clip's ms with each at the config's temperature."""
+    src = clip_src(cfg, cfg.n_source, CLIP_FRAMES)
+    gen = torch.Generator().manual_seed(4)
+    nudged = (src[0] * (1 + INPUT_NUDGE * torch.randn(
+        src[0].shape, generator=gen).to(src[0].device)),) + src[1:]
+    out, clip_ms = {}, {}
+    for temp in (10.0, cfg.softmax_temp):
+        clips, fea = {}, {}
+        for name in ("pad", "ring_pad"):
+            mods = TSNetModules(dataclasses.replace(
+                cfg, ring_pad=name == "ring_pad", softmax_temp=temp), seed=0)
+            clips[name] = tsnet_forward_clip(mods, *src)
+            fea[name] = encode_sources(mods, *src[:3])["fea"].float()
+            if name == "pad":
+                clips["nudged"] = tsnet_forward_clip(mods, *nudged)
+            if temp == cfg.softmax_temp:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(REWRITE_CLIPS):
+                    tsnet_forward_clip(mods, *src)
+                torch.cuda.synchronize()
+                clip_ms[name] = 1e3 * (time.perf_counter() - t0) / \
+                    REWRITE_CLIPS
+            del mods
+        scale = clips["pad"].abs().max()
+        out[f"temp{temp:g}"] = {
+            "ring_vs_pad_max_rel": ((clips["ring_pad"] - clips["pad"]).abs()
+                                    .max() / scale).item(),
+            "ring_vs_pad_mean_abs": (clips["ring_pad"] - clips["pad"]).abs()
+            .mean().item(),
+            "pad_nudged_vs_pad_max_rel": ((clips["nudged"] - clips["pad"])
+                                          .abs().max() / scale).item(),
+            "source_features_rel_l2": ((fea["ring_pad"] - fea["pad"]).norm()
+                                       / fea["pad"].norm()).item()}
+        del clips, fea
+        torch.cuda.empty_cache()
+    return {"ring_clip": out, "clip_ms": clip_ms}
+
+
+def native_render(line: str) -> dict:
+    """One pose clip's host rendering: POSE_RENDER_FRAMES OpenPose frames
+    of `[pose_data]`'s dancing figure (video 10's placement, at the
+    fixtures' 288x512) through the native `draw_edge` and through its
+    numpy tier (TSNET_NATIVE=0): host ms a clip, and the share of pixels
+    that agree. The two differ where a fit lands on an integer: numpy's
+    float fit truncates a hair below it, the native fit does not (the
+    JAX package's tests/test_native.py bounds that at 0.9999 on a real
+    OpenPose frame; this figure's hips and shoulders lie on whole rows,
+    so it is held at 0.999)."""
+    w, h, v = 288, 512, 10
+    sources = [json.dumps({"people": [dance_person(
+        w / 2 + 8 * np.sin(0.2 * f + v), h / 2 + 4, 0.18 * h, 0.5 * f + v)]})
+        for f in range(POSE_RENDER_FRAMES)]
+
+    def render():
+        t0 = time.perf_counter()
+        imgs = [render_openpose(src, (w, h))[0] for src in sources]
+        return imgs, 1e3 * (time.perf_counter() - t0)
+
+    render()                                      # builds the library
+    native, native_ms = render()
+    old = os.environ.get("TSNET_NATIVE")
+    os.environ["TSNET_NATIVE"] = "0"
+    try:
+        numpy_imgs, numpy_ms = render()
+    finally:
+        os.environ.pop("TSNET_NATIVE")
+        if old is not None:
+            os.environ["TSNET_NATIVE"] = old
+    differ = [(a != b).any(-1) for a, b in zip(native, numpy_imgs)]
+    res = {"frames": POSE_RENDER_FRAMES, "native_ms": native_ms,
+           "numpy_ms": numpy_ms,
+           "pixel_agreement": 1.0 - float(np.mean(differ)),
+           "pixels_differing": int(sum(d.sum() for d in differ)),
+           "drawn_pixels": int(sum((a != 0).any(-1).sum() for a in native))}
+    print(f"[{REWRITES}] native vs numpy draw_edge, one pose clip's host "
+          f"rendering: {json.dumps(res)}", flush=True)
+    check(res["pixel_agreement"] >= 0.999 and res["drawn_pixels"] > 0,
+          f"{REWRITES}: native rendering vs numpy {res}")
+    return res
+
+
+def rewrites_phase(line: str) -> dict:
+    """`[rewrites]`: the JAX package's layout rewrites as the port runs
+    them: the phase-decomposed decoder against the plain `Decoder` in each
+    clip tier and in the train step, `ring_pad` on against off,
+    `encoder_apply_fast` against `lbl_enc`, the native rasterizer against
+    its numpy tier."""
+    report = {tier: decoder_forms(line, tier) for tier in REWRITE_TIERS}
+    report["train"] = train_forms(line)
+    report["native"] = native_render(line)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -4064,6 +4528,14 @@ def main() -> int:
             print(f"[{name}] phase {time.perf_counter() - t0:.1f} s | "
                   f"{line}", flush=True)
         return 0
+    if sys.argv[1:] == ["--rewrites"]:
+        t0 = time.perf_counter()
+        rewrites_phase(line)
+        print(f"[{REWRITES}] phase {time.perf_counter() - t0:.1f} s | {line}",
+              flush=True)
+        return 0
+    if sys.argv[1:] == ["--pose-first-step"]:
+        return pose_first_step_forms(line)
     if sys.argv[1:] == ["--pose"]:
         t0 = time.perf_counter()
         pose = pose_phase(line)
@@ -4151,6 +4623,11 @@ def main() -> int:
     t0 = time.perf_counter()
     report["zoo"] = zoo_phase(line)
     print(f"[zoo] phase {time.perf_counter() - t0:.1f} s | {line}",
+          flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report[REWRITES] = rewrites_phase(line)
+    print(f"[{REWRITES}] phase {time.perf_counter() - t0:.1f} s | {line}",
           flush=True)
 
     rows = []

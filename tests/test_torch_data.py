@@ -51,6 +51,7 @@ def _jax_numpy_draw_edge(img, x, y, bw=1, color=(255, 255, 255),
 @pytest.fixture
 def jax_numpy_tier(monkeypatch):
     monkeypatch.setattr(j_face, "draw_edge", _jax_numpy_draw_edge)
+    monkeypatch.setenv("TSNET_NATIVE", "0")
 
 
 def _test_image(h, w, c, kind):

@@ -76,6 +76,7 @@ def _jax_numpy_draw_edge(img, x, y, bw=1, color=(255, 255, 255),
 @pytest.fixture
 def jax_numpy_tier(monkeypatch):
     monkeypatch.setattr(j_ras, "draw_edge", _jax_numpy_draw_edge)
+    monkeypatch.setenv("TSNET_NATIVE", "0")
 
 
 @pytest.fixture(scope="module")
@@ -155,6 +156,7 @@ def train_runs(dance, warm_snapshot, tmp_path_factory):
     stand-in loader, model)}."""
     mp = pytest.MonkeyPatch()
     mp.setattr(j_ras, "draw_edge", _jax_numpy_draw_edge)
+    mp.setenv("TSNET_NATIVE", "0")
     root = tmp_path_factory.mktemp("train")
     common = ["--json-path", os.path.join(dance, "clean_video_dict.json"),
               "--label-path", os.path.join(dance, "labels"),

@@ -25,6 +25,7 @@ from wacv23_tsnet_tpu_torch.compat import load_flax_params
 from wacv23_tsnet_tpu_torch.configs import toy_config
 from wacv23_tsnet_tpu_torch.infer import RetargetSession
 from wacv23_tsnet_tpu_torch.models import TSNetModules, tsnet_forward_clip
+from wacv23_tsnet_tpu_torch.nn.blocks import ResnetBlock
 from wacv23_tsnet_tpu_torch.train import create_train_state
 
 torch.set_num_threads(2)
@@ -163,9 +164,17 @@ def test_config_copy_matches_the_jax_package(name):
 
 @pytest.mark.parametrize("knob", ["ring_pad"])
 def test_unported_knobs_are_refused(knob):
+    """No knob is refused now: `ring_pad`, the last the port lacked, builds
+    modules whose encoders, FuseNet and every ResNet block run their
+    reflect-pad convs without the padded tensor
+    (tests/test_torch_ring_pad.py holds it to JAX)."""
     cfg = dataclasses.replace(toy_config(), **{knob: True})
-    with pytest.raises(NotImplementedError):
-        TSNetModules(cfg, device="cpu")
+    mods = TSNetModules(cfg, device="cpu")
+    blocks = [m for m in mods.modules() if isinstance(m, ResnetBlock)]
+    assert mods.img_enc.ring_pad and mods.lbl_enc.ring_pad
+    assert mods.fuse_net.ring_pad
+    assert all(b.ring_pad for b in blocks)
+    assert len(blocks) == cfg.enc_n_blocks + cfg.dec_n_blocks + 1
 
 
 @pytest.mark.parametrize("knob", ["use_fg_mask", "use_face_d"])
@@ -301,5 +310,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # data slice's (data.jpeg / codecs / posenorm, cli.train_pose /
     # demo_pose / smooth_keypoints) and the multi-device, zoo and tools
     # slice's (parallel / parallel.launch / mesh / spmd, nn.generators,
-    # utils.font / viz, cli.bench_sweep / plot_history)
-    assert int(proc.stdout.strip()) >= 82
+    # utils.font / viz, cli.bench_sweep / plot_history) and the last
+    # modules' (ops.upconv / reflectconv / stemconv, native /
+    # native.build, compat.export_vgg19)
+    assert int(proc.stdout.strip()) >= 88

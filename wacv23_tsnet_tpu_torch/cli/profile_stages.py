@@ -2,9 +2,10 @@
 (counterpart of the JAX package's `cli/profile_stages.py`, same flags).
 
 Clip: the stages of `models.tsnet.decode_with_sources` (`label_features`,
-`propagate`, `fuse_clip`, the decoder), each run alone on the outputs of
-the one before, with the S sources encoded once. The port has no
-phase-decomposed decoder, so the decoder line times its own `Decoder`.
+`propagate`, `fuse_clip`, `decode`), each run alone on the outputs of
+the one before, with the S sources encoded once. The decoder line times
+the decoder the entry points run: the phase-decomposed one
+(`nn.decoder.decoder_apply_fast`), as the JAX package's does.
 `--train`: the generator forward and forward+backward, netD
 forward+backward on fake and real, the VGG loss forward+backward and the
 full GAN step, at batch `--batch-size` with seeded random weights (the
@@ -27,8 +28,8 @@ import torch
 from ..configs import face_config
 from ..device import resolve_device
 from ..losses import vgg_perceptual_loss
-from ..models.tsnet import (TSNetModules, encode_sources, label_features,
-                            propagate, tsnet_forward)
+from ..models.tsnet import (TSNetModules, decode, encode_sources,
+                            label_features, propagate, tsnet_forward)
 from ..nn import fuse_clip
 from ..train.state import create_train_state
 from ..train.step import make_train_step
@@ -72,8 +73,8 @@ def clip_stages(mods: TSNetModules, pack: dict, tar_lbl: torch.Tensor,
         prop = stage(warp, lambda: propagate(mods, pack, tar_fea_n, tar_mask))
         syn = stage("fuse (split form, K2)", lambda: fuse_clip(
             mods.fuse_net, pack["fea"].float(), tar_fea.float()))
-        return stage("decoder (the port's Decoder)",
-                     lambda: mods.dec(prop, syn).float())
+        return stage("decoder (phase-decomposed)",
+                     lambda: decode(mods, prop, syn).float())
 
 
 def profile_clip(args, device: torch.device) -> dict:

@@ -186,12 +186,12 @@ def _moments(opt: torch.optim.Adam, params: Mapping, count: int,
 def _opt_state(opt: torch.optim.Adam, params: Mapping) -> dict:
     """optax `ScaleByAdamState` state dict {count, mu, nu} of the torch
     Adam over `params`. optax keeps one count; torch skips a parameter
-    whose gradient is None (FuseNet's conv2 bias, which the instance norm
-    after it cancels, never has one), where optax takes a zero gradient
-    and keeps zero moments. So the count is the largest step, and a
-    parameter with fewer steps (or none) must have zero moments, which
-    is what optax holds for it; a fresh optimizer gives zeros and count
-    0, as `optax.scale_by_adam().init` does."""
+    whose gradient is None, where optax takes a zero gradient (the port's
+    train step gives its unused parameters zero gradients, so they step
+    with the rest). So the count is the largest step, and a parameter
+    with fewer steps (or none) must have zero moments, which is what
+    optax holds for it; a fresh optimizer gives zeros and count 0, as
+    `optax.scale_by_adam().init` does."""
     steps = {name: int(opt.state[p]["step"].item()) if p in opt.state else 0
              for name, p in params.items()}
     count = max(steps.values())

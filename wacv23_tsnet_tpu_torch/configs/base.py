@@ -23,8 +23,10 @@ The similarity logits, softmax and flow run in fp32 in every tier.
 Training knobs: `bwd_precision` sets the tier of the two backward convs
 of every conv (`ops.dpconv.conv2d_dp`), and `remat=True` recomputes the
 encoders', the decoder's and the discriminator's activations in the
-backward pass (`TSNetModules.run`). `ring_pad` (a TPU layout rewrite)
-is refused where the model is built. The pose variant's `use_face_d`
+backward pass (`TSNetModules.run`). `ring_pad` runs the generator's
+reflect-pad convs without the padded tensors (`ops.reflectconv`: the
+same sums, borders in another order), off by default as in the JAX
+package. The pose variant's `use_face_d`
 adds the face-crop discriminator netDF to training and `use_fg_mask`
 paints the background columns with the mean colour
 (`models.tsnet.composite_foreground`).

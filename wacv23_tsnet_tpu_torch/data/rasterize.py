@@ -4,9 +4,11 @@ package's `data/rasterize.py`).
 A keypoint edge is fitted by least squares (quadratic, linear for two
 points) along the axis of larger span, sampled at unit steps and stamped
 with a (2 bw)^2 square brush (`interp_curve`, `stamp_edge`, `draw_edge`;
-the face labels of training use them through `data.face`). The JAX
-package's `draw_edge` takes a native C++ fast path where one is built;
-the port runs the numpy form, which that path is held equal to.
+the face labels of training use them through `data.face`). `draw_edge`
+runs the native C++ form of the same loop (`native/`, built by the host's
+compiler at first use), as the JAX package's does; `TSNET_NATIVE=0` in
+the environment selects the numpy form, read at each call. A native
+build or load that fails raises.
 
 The OpenPose half renders a person's BODY_25 skeleton, hands and face
 into a colour label image (the reference's keypoint2img): keypoints
@@ -22,11 +24,13 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import random as _random
 from typing import Optional, Sequence
 
 import numpy as np
 
+from ..native import native_draw_edge
 from .codecs import POSE_PALETTE
 
 # skeleton topology: OpenPose BODY_25, 21-point hands, 70-point face
@@ -144,7 +148,12 @@ def stamp_edge(img: np.ndarray, curve_x, curve_y, bw: int = 1,
 
 def draw_edge(img: np.ndarray, x, y, bw: int = 1, color=(255, 255, 255),
               endpoints: bool = False) -> None:
-    """Fit and stamp one keypoint edge, in place."""
+    """Fit and stamp one keypoint edge into the uint8 image, in place:
+    natively unless `TSNET_NATIVE=0`, else `interp_curve` + `stamp_edge`
+    (the tests bound how far the two differ)."""
+    if os.environ.get("TSNET_NATIVE", "1") != "0":
+        native_draw_edge(img, x, y, bw, color, endpoints)
+        return
     cx, cy = interp_curve(x, y)
     stamp_edge(img, cx, cy, bw=bw, color=color, endpoints=endpoints)
 

@@ -18,6 +18,11 @@ runs FuseNet's per-pair block through K6 (`nn.fusenet.fuse_clip`), and
 `fused_blocks=True` runs the decoder's ResNet blocks through K7 (the JAX
 package's `decoder_apply_fast(use_pallas_blocks=True)`).
 
+Both entry points decode through `decode`: the phase-decomposed decoder
+(`nn.decoder.decoder_apply_fast`), as the JAX package does, in every
+tier. `cfg.ring_pad` runs the generator's reflect-pad convs without the
+padded tensors (`ops.reflectconv`), off by default as in the JAX package.
+
 `tsnet_forward` is the generator forward of training (counterpart of the
 JAX package's `tsnet_forward(train=True)`): per-sample sources, the
 transformation branch through `transformation_warp_sources` (K3-flow
@@ -40,8 +45,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs import TSNetConfig
 from ..device import resolve_device
 from ..losses.image import cosine_align_loss, l1_loss, renorm_to_reference
-from ..nn import (Decoder, Encoder, FuseNet, PatchDiscriminator, fuse_clip,
-                  fuse_train)
+from ..nn import (Decoder, Encoder, FuseNet, PatchDiscriminator,
+                  decoder_apply_fast, fuse_clip, fuse_train)
 from ..nn.blocks import Conv2d
 from ..ops.norms import l2_normalize
 from ..ops.resize import resize_nearest, sample_separable
@@ -84,9 +89,6 @@ class TSNetModules(nn.Module):
     def __init__(self, cfg: TSNetConfig, device="cuda", seed: int = 0,
                  train: bool = False):
         super().__init__()
-        if cfg.ring_pad:
-            raise NotImplementedError("ring_pad is a TPU training knob; the "
-                                      "port does not implement it")
         dev = resolve_device(device)
         self.cfg = cfg
         dt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -96,7 +98,7 @@ class TSNetModules(nn.Module):
         trunk_prec = "default" if cfg.fast_trunk else prec
         bwd = cfg.bwd_precision
         common = dict(ngf=cfg.ngf, n_downsampling=cfg.n_downsampling,
-                      bwd_precision=bwd)
+                      bwd_precision=bwd, ring_pad=cfg.ring_pad)
         self.img_enc = Encoder(3 + cfg.label_nc, n_blocks=cfg.enc_n_blocks,
                                addcoords=cfg.addcoords, dtype=dt,
                                precision=trunk_prec, **common)
@@ -109,7 +111,7 @@ class TSNetModules(nn.Module):
                            dtype=tail_dt, precision=tail_prec, **common)
         self.fuse_net = FuseNet(ngf=2 * cfg.feat_ch, n_blocks=1,
                                 dtype=tail_dt, precision=tail_prec,
-                                bwd_precision=bwd)
+                                bwd_precision=bwd, ring_pad=cfg.ring_pad)
         self.init_generator_params(seed)
         if train:
             self.netD = PatchDiscriminator(3 + cfg.label_nc, ndf=cfg.ndf,
@@ -279,7 +281,8 @@ def tsnet_forward(mods: TSNetModules, src_img, src_lbl, src_bbox, tar_lbl,
                          use_kernels=use_kernels)
     if train and cfg.use_align_loss:
         out["loss_align"] = cosine_align_loss(prop_fea, syn_fea)
-    rec_img = mods.run(mods.dec, prop_fea, syn_fea).float()
+    rec_img = mods.run(lambda pf, sf: decode(mods, pf, sf, use_kernels),
+                       prop_fea, syn_fea).float()
     if cfg.use_fg_mask:
         rec_img = composite_foreground(rec_img, cfg)
     out["rec_img"] = rec_img
@@ -335,12 +338,26 @@ def propagate(mods: TSNetModules, src_pack: dict, tar_fea_n: torch.Tensor,
     return warped.mean(dim=0).to(mods.dtype)
 
 
+def decode(mods: TSNetModules, prop_fea: torch.Tensor, syn_fea: torch.Tensor,
+           use_kernels: bool = True, fused_blocks: bool = False
+           ) -> torch.Tensor:
+    """The decoder stage of both entry points: (B, h, w, C) x 2 -> the
+    tanh image (B, H, W, 3) in the decoder's dtype, through the
+    phase-decomposed decoder (`nn.decoder.decoder_apply_fast`, as the JAX
+    package runs it) with the config's `ring_pad` and `bwd_precision`, as
+    the decoder was built. `fused_blocks` runs a bf16 decoder's ResNet
+    blocks through K7."""
+    return decoder_apply_fast(mods.dec, prop_fea, syn_fea, return_fea=False,
+                              fused_blocks=fused_blocks,
+                              use_kernels=use_kernels)[0]
+
+
 def decode_with_sources(mods: TSNetModules, src_pack: dict,
                         tar_lbl: torch.Tensor, tar_bbox: torch.Tensor,
                         use_kernels: bool = True,
                         fused_blocks: bool = False) -> torch.Tensor:
     """Run F driving frames against a source pack -> (F, H, W, 3) f32:
-    `label_features`, `propagate`, `fuse_clip` and the decoder.
+    `label_features`, `propagate`, `fuse_clip` and `decode`.
 
     `use_kernels=False` runs every kernel's plain PyTorch version instead
     (the reference the kernels are held against, as `use_pallas=False`
@@ -355,8 +372,8 @@ def decode_with_sources(mods: TSNetModules, src_pack: dict,
                              use_kernels=use_kernels)
         syn_fea = fuse_clip(mods.fuse_net, src_pack["fea"].float(),
                             tar_fea.float(), use_kernels=use_kernels)
-        rec = mods.dec(prop_fea, syn_fea, fused_blocks=fused_blocks,
-                       use_kernels=use_kernels).float()
+        rec = decode(mods, prop_fea, syn_fea, use_kernels,
+                     fused_blocks=fused_blocks).float()
         if mods.cfg.use_fg_mask:
             rec = composite_foreground(rec, mods.cfg)
         return rec

@@ -4,8 +4,8 @@ Counterpart of the JAX package's `nn/blocks.py`: reflection padding
 before VALID convolutions, affine-free instance norm, normal(0, 0.02)
 kernels and zero biases.
 
-Every convolution goes through `conv2d`, which takes the tier's
-activation dtype and precision (see `configs/base.py`):
+Every convolution goes through `conv2d` (`ops/dpconv.py`), which takes
+the tier's activation dtype and precision (see `configs/base.py`):
 
 - dtype bf16 (`fast_tail`): input, kernel and bias in bf16, bf16 out;
 - dtype f32, precision "default" (`fast_trunk`): one bf16 pass, output
@@ -26,10 +26,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from ..ops.dpconv import PRECISIONS, conv2d_dp
+from ..ops.dpconv import conv2d
 from ..ops.norms import instance_norm
+from ..ops.reflectconv import conv2d_reflect_dp
 
 
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -43,50 +43,44 @@ def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     return x.index_select(1, index(h)).index_select(2, index(w))
 
 
-def conv2d(x: torch.Tensor, weight: torch.Tensor, bias=None, stride: int = 1,
-           padding: int = 0, precision: str = "highest",
-           dtype=torch.float32, bwd_precision=None) -> torch.Tensor:
-    """2D convolution of an NHWC tensor with an OIHW kernel, in the tier's
-    dtype and precision, its backward at `bwd_precision` (None: as the
-    forward; `ops.dpconv`). Zero `padding` pixels on each side. A bf16
-    conv's operands are bf16 in both directions."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}")
-
-    def run(xx, ww, bb):
-        y = F.conv2d(xx.permute(0, 3, 1, 2), ww, bb, stride, padding)
-        return y.permute(0, 2, 3, 1)
-
-    if dtype == torch.bfloat16:
-        b = None if bias is None else bias.to(torch.bfloat16)
-        return run(x.to(torch.bfloat16), weight.to(torch.bfloat16), b)
-    if precision == "default" and bwd_precision in (None, "default"):
-        y = run(x.to(torch.bfloat16), weight.to(torch.bfloat16), None).float()
-        return y if bias is None else y + bias.float()
-    return conv2d_dp(x, weight, bias, stride, padding, precision,
-                     bwd_precision)
+def reflect_conv(x: torch.Tensor, weight: torch.Tensor, bias, p: int,
+                 precision: str = "highest", dtype=torch.float32,
+                 bwd_precision=None, ring_pad: bool = False) -> torch.Tensor:
+    """`conv2d(reflect_pad(x, p), weight, bias)`; with `ring_pad` the same
+    sums without the padded tensor (`ops.reflectconv`)."""
+    if ring_pad:
+        return conv2d_reflect_dp(x, weight, p, bias, precision, dtype,
+                                 bwd_precision)
+    return conv2d(reflect_pad(x, p), weight, bias, 1, 0, precision, dtype,
+                  bwd_precision)
 
 
 def conv2d_split_in(x: torch.Tensor, weight: torch.Tensor, bias, mesh,
                     axis: str, precision: str = "highest",
-                    dtype=torch.float32, bwd_precision=None) -> torch.Tensor:
-    """`conv2d` where x holds this rank's share of the in-channels and
-    weight the same share of its dim 1: the partial sums are summed over
-    `axis` of `mesh` (`reduce_from`: the gradient passes as it is) and the
-    bias is added once, after the sum. Where the whole conv rounds its
-    output to bf16 (a bf16 tier, or "default" precision), each partial
-    sum is the exact product of the bf16 operands summed in f32, and the
-    total is rounded once, as the whole conv's f32 accumulator is; what
-    remains different is the order of the sum."""
+                    dtype=torch.float32, bwd_precision=None,
+                    ring_pad: bool = False) -> torch.Tensor:
+    """The reflect-pad 3x3 conv `reflect_conv(x, weight, bias, 1)` where x
+    holds this rank's share of the in-channels and weight the same share
+    of its dim 1: the partial sums are summed over `axis` of `mesh`
+    (`reduce_from`: the gradient passes as it is) and the bias is added
+    once, after the sum. Where the whole conv rounds its output to bf16
+    (a bf16 tier, or "default" precision), each partial sum is the exact
+    product of the bf16 operands summed in f32, and the total is rounded
+    once, as the whole conv's f32 accumulator is; what remains different
+    is the order of the sum. With `ring_pad` each partial sum is taken by
+    `ops.reflectconv` (a linear map of x, so the sum over ranks holds)."""
     rounds = dtype == torch.bfloat16 or (
         precision == "default" and bwd_precision in (None, "default"))
+
+    def partial(xx, ww, prec, dt):
+        return reflect_conv(xx, ww, None, 1, prec, dt, bwd_precision,
+                            ring_pad)
+
     if not rounds:
-        y = mesh.reduce_from(conv2d(x, weight, None, precision=precision,
-                                    dtype=dtype, bwd_precision=bwd_precision),
-                             axis)
+        y = mesh.reduce_from(partial(x, weight, precision, dtype), axis)
         return y if bias is None else y + bias
-    y = conv2d(x.to(torch.bfloat16).float(), weight.to(torch.bfloat16).float(),
-               None, precision="highest", bwd_precision=bwd_precision)
+    y = partial(x.to(torch.bfloat16).float(),
+                weight.to(torch.bfloat16).float(), "highest", torch.float32)
     y = mesh.reduce_from(y, axis)
     if dtype == torch.bfloat16:
         if bias is not None:
@@ -138,27 +132,35 @@ class ResnetBlock(nn.Module):
     summed over `axis`), conv1, its instance norm (per channel, so no
     collective) and the ReLU run on the rank's channels, and conv2 runs
     as `conv2d_split_in`.
+
+    `ring_pad` (`TSNetConfig.ring_pad`) runs each reflect-pad conv
+    without the padded tensor (`ops.reflectconv`), on one rank or split.
     """
 
     def __init__(self, dim: int, dtype=torch.float32,
-                 precision: str = "highest", bwd_precision=None):
+                 precision: str = "highest", bwd_precision=None,
+                 ring_pad: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, precision=precision,
                   bwd_precision=bwd_precision)
         self.conv1 = Conv2d(dim, dim, 3, **kw)
         self.conv2 = Conv2d(dim, dim, 3, **kw)
+        self.ring_pad = ring_pad
         self.tensor_parallel = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        def conv(t, c):
+            return reflect_conv(t, c.weight, c.bias, 1, c.precision, c.dtype,
+                                c.bwd_precision, self.ring_pad)
+
         if self.tensor_parallel is None:
-            h = torch.relu(instance_norm(self.conv1(reflect_pad(x, 1))))
-            return x + instance_norm(self.conv2(reflect_pad(h, 1)))
+            h = torch.relu(instance_norm(conv(x, self.conv1)))
+            return x + instance_norm(conv(h, self.conv2))
         mesh, axis = self.tensor_parallel
-        h = self.conv1(reflect_pad(mesh.copy_to(x, axis), 1))
-        h = torch.relu(instance_norm(h))
+        h = torch.relu(instance_norm(conv(mesh.copy_to(x, axis), self.conv1)))
         c2 = self.conv2
-        y = conv2d_split_in(reflect_pad(h, 1), c2.weight, c2.bias, mesh, axis,
-                            c2.precision, c2.dtype, c2.bwd_precision)
+        y = conv2d_split_in(h, c2.weight, c2.bias, mesh, axis, c2.precision,
+                            c2.dtype, c2.bwd_precision, self.ring_pad)
         return x + instance_norm(y)
 
 

@@ -27,6 +27,10 @@ Under tensor parallelism (`block0.tensor_parallel`, see
 rank's share of the 2C channels and sum conv2's partial sums over the
 `model` axis before K2. K6 computes the whole block, so with K6 on the
 block's weights are gathered first and every rank runs it whole.
+
+A FuseNet built with `ring_pad` (`TSNetConfig.ring_pad`) runs its
+reflect-pad convs, in the module and in both split forms, without the
+padded tensor (`ops.reflectconv`), split over ranks too; K6 pads inside.
 """
 
 from __future__ import annotations
@@ -40,22 +44,24 @@ from ..ops.fuse_kernels import fuse_pair_conv2, fuse_pair_conv2_plain
 from ..ops.norm_kernels import instance_norm_mean, instance_norm_mean_plain
 from ..ops.norms import instance_norm
 from .blocks import (Conv2d, ResnetBlock, conv2d, conv2d_split_in,
-                     reflect_pad)
+                     reflect_conv)
 
 
 class FuseNet(nn.Module):
     def __init__(self, ngf: int = 1024, n_blocks: int = 1,
                  dtype=torch.float32, precision: str = "highest",
-                 bwd_precision=None):
+                 bwd_precision=None, ring_pad: bool = False):
         super().__init__()
         self.n_blocks = n_blocks
         self.dtype = dtype
         self.precision = precision
         self.bwd_precision = bwd_precision
+        self.ring_pad = ring_pad
         kw = dict(dtype=dtype, precision=precision,
                   bwd_precision=bwd_precision)
         for j in range(n_blocks):
-            self.add_module(f"block{j}", ResnetBlock(ngf, **kw))
+            self.add_module(f"block{j}",
+                            ResnetBlock(ngf, ring_pad=ring_pad, **kw))
         self.conv = Conv2d(ngf, ngf // 2, 1, **kw)
 
     def forward(self, src_fea: torch.Tensor,
@@ -99,9 +105,13 @@ def fuse_clip(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
     def conv(x, weight, bias=None):
         return conv2d(x, weight, bias, precision=prec, dtype=dt)
 
+    def rconv(x, weight, bias=None):
+        return reflect_conv(x, weight, bias, 1, prec, dt,
+                            ring_pad=fuse_net.ring_pad)
+
     # (S or F, h, w, 2C), or this rank's share of the 2C under TP
-    c1a = conv(reflect_pad(a, 1), w1[:, :c])
-    c1t = conv(reflect_pad(t, 1), w1[:, c:], b1)
+    c1a = rconv(a, w1[:, :c])
+    c1t = rconv(t, w1[:, c:], b1)
     if pair_kernel:
         pair_conv = fuse_pair_conv2 if use_kernels else fuse_pair_conv2_plain
         h2 = pair_conv(c1a.contiguous(), c1t.contiguous(), w2)  # bias dropped
@@ -109,9 +119,10 @@ def fuse_clip(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
         hp = (c1a[:, None] + c1t[None]).reshape((s * f,) + c1a.shape[1:])
         hp = torch.relu(instance_norm(hp))
         if tp is None:
-            h2 = conv(reflect_pad(hp, 1), w2)               # bias dropped
+            h2 = rconv(hp, w2)                              # bias dropped
         else:
-            h2 = conv2d_split_in(reflect_pad(hp, 1), w2, None, *tp, prec, dt)
+            h2 = conv2d_split_in(hp, w2, None, *tp, prec, dt,
+                                 ring_pad=fuse_net.ring_pad)
         h2 = h2.reshape(s, f, h, w, 2 * c).contiguous()
     in_mean = instance_norm_mean if use_kernels else instance_norm_mean_plain
     h2m = in_mean(h2).to(dt)                                # (F, h, w, 2C)
@@ -142,20 +153,25 @@ def fuse_train(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
         # conv1 holds this rank's share of the 2C out-channels
         a_in, t_in = tp[0].copy_to(a, tp[1]), tp[0].copy_to(t, tp[1])
 
+    bwd, ring_pad = fuse_net.bwd_precision, fuse_net.ring_pad
+
     def conv(x, weight, bias=None):
         return conv2d(x, weight, bias, precision=prec, dtype=dt,
-                      bwd_precision=fuse_net.bwd_precision)
+                      bwd_precision=bwd)
 
-    c1a = conv(reflect_pad(a_in, 1), w1[:, :c])             # (B*S, h, w, 2C)
-    c1t = conv(reflect_pad(t_in, 1), w1[:, c:], blk.conv1.bias)  # (B, ...)
+    def rconv(x, weight, bias=None):
+        return reflect_conv(x, weight, bias, 1, prec, dt, bwd, ring_pad)
+
+    c1a = rconv(a_in, w1[:, :c])                            # (B*S, h, w, 2C)
+    c1t = rconv(t_in, w1[:, c:], blk.conv1.bias)            # (B, h, w, 2C)
     k = c1t.shape[-1]
     hp = (c1a.reshape(b, s, h, w, k) + c1t[:, None]).reshape(b * s, h, w, k)
     hp = torch.relu(instance_norm(hp))
     if tp is None:
-        h2 = conv(reflect_pad(hp, 1), blk.conv2.weight)     # bias dropped
+        h2 = rconv(hp, blk.conv2.weight)                    # bias dropped
     else:
-        h2 = conv2d_split_in(reflect_pad(hp, 1), blk.conv2.weight, None, *tp,
-                             prec, dt, fuse_net.bwd_precision)
+        h2 = conv2d_split_in(hp, blk.conv2.weight, None, *tp, prec, dt, bwd,
+                             ring_pad)
     h2 = h2.reshape(b, s, h, w, 2 * c).transpose(0, 1).contiguous()
     in_mean = instance_norm_mean if use_kernels else instance_norm_mean_plain
     h2m = in_mean(h2).to(dt)                                # (B, h, w, 2C)

@@ -24,7 +24,9 @@ are explicit (`parallel.mesh.Mesh`):
   `shard_state` cuts the parameters and their Adam moments in place and
   marks the blocks
   (`nn.blocks.ResnetBlock` runs the split forward and backward);
-  `gather_state` puts them back together. The gradients of every
+  `gather_state` puts them back together. With `ring_pad` the split
+  conv2 sums ring convs of the rank's channels (`conv2d_split_in`), the
+  same function as under the JAX package's mesh. The gradients of every
   parameter are averaged over `data` only: the work of the ranks of one
   `model` group on a replicated tensor is the same, and so are its
   gradients.

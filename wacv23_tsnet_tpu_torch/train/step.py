@@ -36,11 +36,15 @@ def make_train_step(state: TrainState, lambda_dec: float = 1.0,
     netDF. The state is updated in place (parameters, moments, step
     count) and returned. After the call every parameter's `.grad` holds
     the gradient of this step's loss (netD's and netDF's: the D loss,
-    D + DF). `use_kernels=False` runs
-    every kernel's plain version. The metrics are 0-d tensors on the
-    device. `mark(name)`, where given, is called at the end of each stage
-    of the step: "g_forward", "d_phase", "d_opt", "g_loss_backward",
-    "g_opt" (a profiler places its events there). `grad_hook(opt)`,
+    D + DF); a generator parameter the loss does not use (FuseNet's conv2
+    bias and the decoder's up-stage biases, which instance norms cancel
+    and the split forms drop) takes a zero gradient, as optax gives it:
+    Adam still decays its moments and moves it by them.
+    `use_kernels=False` runs every kernel's plain version. The metrics
+    are 0-d tensors on the device. `mark(name)`, where given, is called
+    at the end of each stage of the step: "g_forward", "d_phase",
+    "d_opt", "g_loss_backward", "g_opt" (a profiler places its events
+    there). `grad_hook(opt)`,
     where given, is called just before each Adam update with the
     optimizer about to step (`parallel.spmd` averages the gradients over
     its `data` axis there).
@@ -139,6 +143,10 @@ def make_train_step(state: TrainState, lambda_dec: float = 1.0,
             for d in discs:
                 d.requires_grad_(True)
         done("g_loss_backward")
+        for group in state.gen_opt.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         set_lr(state.gen_opt, lr)
         if grad_hook is not None:
             grad_hook(state.gen_opt)
