@@ -19,6 +19,17 @@ non-zero, printing no result, where CUDA or the package is missing.
    for K6 its two launches (statistics, conv) each alone, for K7 and K2
    the launches of their two-pass paths each alone, and what one call
    launches by CUDA kernel (a torch.profiler trace) with its cluster.
+   Then `[high]`: `precision="high"` convs (bf16x3, three bf16 products
+   with TF32 on over the splits, `ops.dpconv.conv_bf16x3`) at the model's
+   shapes at full width and the train batch (the 7x7 stem at 256², a
+   stride-2 down conv, a 512-channel ResNet-block conv at 32², FuseNet's
+   1024-channel conv on 45 pairs, a grouped ring conv of the phase
+   decoder): forward, grad-input and grad-weight through `conv2d_dp`
+   within 1e-5 relative L2 of a float64 oracle of the same three
+   products; then, against that oracle and the float64 full product and
+   timed forward and backward, the port's bf16x3 (hi·hi summed in
+   pieces), the three products one call each, one conv over 3x the
+   channels, TF32 and "highest".
 4. Drives the main path at the full width of `face_config()` with seeded
    random weights, in both tiers (bit-parity; bench = "high" + fast_tail
    + fast_trunk): `tsnet_forward_clip` over a 64-frame clip and four
@@ -28,7 +39,8 @@ non-zero, printing no result, where CUDA or the package is missing.
    kernel path is compared with the same model run through the plain
    versions, and frames/s, stage times and a profile are printed; last,
    how far the bench tier (and the bf16 tail alone) moves the output
-   from the bit-parity tier. Then the `bench+fused` tier: the bench
+   from the bit-parity tier ("high" + fast_tail held within 0.01 mean
+   L1). Then the `bench+fused` tier: the bench
    config with TSNET_FUSE_PAIR_KERNEL=1 (K6 in FuseNet) and
    `fused_blocks=True` (K7 in the decoder), a 64-frame clip and two
    32-frame `decode_with_sources` requests on one source pack, held
@@ -85,7 +97,7 @@ non-zero, printing no result, where CUDA or the package is missing.
    (`precision="high"`, `bwd_precision="default"`, `fast_tail`): the
    full-generator gradient cosines of the bf16 backward against the f32
    backward and of the bf16 tail against the f32 tail (each >= 0.99, the
-   plain path's beside it), 10 timed steps of it and of the bit-parity
+   plain path's beside it), 5 timed steps of it and of the bit-parity
    tier; `remat=True`'s peak memory and gradients (within the plain
    path's own 1e-6-nudge spread). `ClipInference` on a 64-frame clip of
    the dataset in both tiers: bit-equal to `tsnet_forward_clip` over the
@@ -148,8 +160,8 @@ non-zero, printing no result, where CUDA or the package is missing.
    moments); the fast train tier's ms/step, and the cosines of its
    generator gradient (the G-phase loss at the seeded discriminators, as
    the JAX package measured its tiers) against "high" at temp 100 and
-   the bit-parity tier at temp 10 (each >= 0.9), and against the
-   bit-parity tier at temp 100, printed.
+   the bit-parity tier at temps 10 and 100 (each >= 0.9), and of "high"
+   against the bit-parity tier at temp 100, printed.
 12. Drives the pose variant from files on disk (`[pose_data]`, after
    `[pose]`) at the full width of `pose_config()`: each committed JPEG
    fixture (tests/torch_fixtures/jpeg/) decoded by the port and held to
@@ -255,7 +267,11 @@ builds the kernels and runs `[rewrites]` alone, and
     python3 chip_smoke.py --pose-first-step
 
 `[pose]`'s first-step comparison alone, with the plain `Decoder` and then
-the phase-decomposed decoder decoding.
+the phase-decomposed decoder decoding, and
+
+    python3 chip_smoke.py --high
+
+`[high]` alone (no kernel build).
 """
 
 from __future__ import annotations
@@ -267,6 +283,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import math
 import os
 import random
 import re
@@ -324,6 +341,7 @@ from wacv23_tsnet_tpu_torch.nn import (VideoDiscriminator, define_D, define_G,
                                        encoder_apply_fast, fuse_clip)
 from wacv23_tsnet_tpu_torch.ops import conv_kernels as ck
 from wacv23_tsnet_tpu_torch.ops import cuda_build
+from wacv23_tsnet_tpu_torch.ops import dpconv as dp
 from wacv23_tsnet_tpu_torch.ops import flow_kernels as fl
 from wacv23_tsnet_tpu_torch.ops import fuse_kernels as fk
 from wacv23_tsnet_tpu_torch.ops import norm_kernels as nk
@@ -431,7 +449,7 @@ LOOP_PRINT_FREQ = 7
 # the f32 tail (JAX on its chip: 0.99947 and 0.9937)
 FAST_TIER = dict(precision="high", bwd_precision="default", fast_tail=True)
 GRAD_COS_FLOOR = 0.99
-TIER_STEPS = 10
+TIER_STEPS = 5
 # the demo phase: a synthetic face test set (a subject and a driving clip
 # of DEMO_FRAMES PNG frames at LOOP_HW^2, faces DEMO_FACE_R apart in size)
 # through cli.demo_face in two chunks of CHUNK frames, the second padded by
@@ -461,16 +479,14 @@ POSE_TIERS = {
 }
 POSE_COS_FLOOR = 0.9
 POSE_JAX_COSINE = 0.974
-# the JAX package compared its fast tier with "high", which on the TPU is
-# three bf16 passes, near fp32; the port's "high" is TF32, whose forward
-# alone turns the generator's gradient by a cosine of ~0.78 at temp 100
-# with random weights (~0.99 at temp 10). So the floor holds the fast
-# tier against "high" at the config's temp, as the JAX package measured
-# it, and against the bit-parity tier at temp 10; the fast tier against
-# the bit-parity tier at temp 100 is printed
+# the JAX package compared its fast tier with "high", three bf16 passes
+# on the TPU and in the port on the card (ops.dpconv.conv_bf16x3). The
+# floor holds the fast tier against "high" at the config's temp, as the
+# JAX package measured it, and against the bit-parity tier at temps 10
+# and 100; "high" alone against bit-parity at 100 is printed
 POSE_COS_CASES = (("fast_vs_high", 100.0, True),
                   ("fast_vs_bit_parity", 10.0, True),
-                  ("fast_vs_bit_parity", 100.0, False),
+                  ("fast_vs_bit_parity", 100.0, True),
                   ("high_vs_bit_parity", 100.0, False))
 POSE_SUBNETS = GEN_SUBNETS + ("netD", "netDF")
 # the G-phase metrics read through the discriminators after their first
@@ -978,6 +994,186 @@ def tier_perf(tier: str, mods, forward, request, request_key: str, src,
     return res
 
 
+HIGH = "high"
+HIGH_RTOL = 1e-5          # relative L2 against the float64 bf16x3 oracle
+HIGH_REPEATS = 3          # timed calls a route and direction
+# the model's conv shapes at the full width of face_config() and the
+# train step's batch (15 samples; FuseNet's pair block 45 = 15 x 3
+# sources): x NHWC as the conv reads it (after its reflect pad), weight
+# OIHW, stride, (row, column) zero padding, groups
+HIGH_SHAPES = {
+    "stem7x7_256": ((15, 262, 262, 5), (64, 5, 7, 7), 1, (0, 0), 1),
+    "down_s2_256": ((15, 256, 256, 64), (128, 64, 3, 3), 2, (1, 1), 1),
+    "resblock_512_32": ((15, 34, 34, 512), (512, 512, 3, 3), 1, (0, 0), 1),
+    "fusenet_1024_32": ((45, 34, 34, 1024), (1024, 1024, 3, 3), 1, (0, 0),
+                        1),
+    # the phase decoder's first up stage (512 -> 256 channels at 32^2):
+    # its top and bottom ring rows side by side, two groups
+    "ring_rows_512": ((15, 2, 32, 1024), (2048, 512, 2, 3), 1, (0, 0), 2),
+}
+
+
+def high_routes(xc, w, gc, stride, padding, groups) -> dict:
+    """(forward, backward) callables of each way to compute the NCHW conv
+    of xc and w and its two gradients for gc that `[high]` measures:
+    "high", the port's bf16x3 (`ops.dpconv`: hi·hi in pieces of at most
+    `CHAIN` products); "three_calls", the same three products one call
+    each, not summed in pieces; "one_conv", ONE conv over three times the
+    input channels ([x_hi, x_hi, x_lo] against [w_hi, w_lo, w_hi],
+    interleaved within each group; grad-input over 3x the output
+    channels, grad-weight over 3x the batch); "tf32", cuDNN's fp32 conv
+    with TF32 on (the port's "high" before bf16x3); "highest", TF32 off.
+    Each bf16x3 route splits its operands inside the call."""
+    args = ([stride] * 2, list(padding), [1, 1], False, [0, 0], groups)
+
+    def conv(a, b):
+        return F.conv2d(a, b, None, stride, padding, 1, groups)
+
+    def bwd(g, a, b, mask=(True, True)):
+        return torch.ops.aten.convolution_backward(
+            g, a, b, None, *args, [*mask, False])[:2]
+
+    def cudnn(tf32_on):
+        def fwd():
+            with tf32(tf32_on):
+                return conv(xc, w)
+
+        def back():
+            with tf32(tf32_on):
+                return bwd(gc, xc, w)
+        return fwd, back
+
+    def three_fwd():
+        (xh, xl), (wh, wl) = dp.split_bf16(xc), dp.split_bf16(w)
+        with tf32(True):
+            return conv(xh, wh) + (conv(xh, wl) + conv(xl, wh))
+
+    def three_bwd():
+        (xh, xl), (wh, wl), (gh, gl) = map(dp.split_bf16, (xc, w, gc))
+        with tf32(True):
+            hh, hl, lh = bwd(gh, xh, wh), bwd(gh, xl, wl), bwd(gl, xh, wh)
+        return tuple(a + (b + c) for a, b, c in zip(hh, hl, lh))
+
+    def channels(parts, n_groups):
+        """NCHW views of NHWC tensors, the parts side by side within each
+        of n_groups channel blocks."""
+        b, c, h, wd = parts[0].shape
+        nhwc = [t.permute(0, 2, 3, 1).reshape(b, h, wd, n_groups, 1, -1)
+                for t in parts]
+        return torch.cat(nhwc, 4).reshape(b, h, wd, 3 * c).permute(0, 3, 1, 2)
+
+    def rows(parts):
+        co = parts[0].shape[0]
+        blocks = [t.reshape(groups, 1, co // groups, *t.shape[1:])
+                  for t in parts]
+        return torch.cat(blocks, 1).reshape(3 * co, *parts[0].shape[1:])
+
+    def one_fwd():
+        (xh, xl), (wh, wl) = dp.split_bf16(xc), dp.split_bf16(w)
+        with tf32(True):
+            return conv(channels((xh, xh, xl), groups),
+                        torch.cat([wh, wl, wh], 1))
+
+    def one_bwd():
+        (xh, xl), (wh, wl), (gh, gl) = map(dp.split_bf16, (xc, w, gc))
+        with tf32(True):
+            gx = bwd(channels((gh, gh, gl), groups), xc, rows((wh, wl, wh)),
+                     (True, False))[0]
+            gw = bwd(torch.cat([gh, gl, gh]), torch.cat([xh, xh, xl]), w,
+                     (False, True))[1]
+        return gx, gw
+
+    return {
+        "high": (lambda: dp.conv_bf16x3(xc, w, stride, padding, groups),
+                 lambda: dp.conv_bf16x3_backward(gc, xc, w, stride, padding,
+                                                 groups)),
+        "three_calls": (three_fwd, three_bwd),
+        "one_conv": (one_fwd, one_bwd),
+        "tf32": cudnn(True),
+        "highest": cudnn(False),
+    }
+
+
+def high_oracle(x, w, g, stride, padding, groups):
+    """float64 on the card: forward, grad-input and grad-weight of the
+    NCHW conv as the exact sum of the three bf16x3 products of the fp32
+    splits, and as the full product."""
+    args = ([stride] * 2, list(padding), [1, 1], False, [0, 0], groups)
+    x64, w64, g64 = (t.double().contiguous() for t in (x, w, g))
+
+    def conv(a, b):
+        return F.conv2d(a, b, None, stride, padding, 1, groups)
+
+    def grad_input(gg, b):
+        return torch.ops.aten.convolution_backward(
+            gg, x64, b, None, *args, [True, False, False])[0]
+
+    def grad_weight(a, gg):
+        return torch.ops.aten.convolution_backward(
+            gg, a, w64, None, *args, [False, True, False])[1]
+
+    def three(f, a, b):
+        return f(a[0], b[0]) + f(a[0], b[1]) + f(a[1], b[0])
+
+    xs, ws, gs = ([v.double().contiguous() for v in dp.split_bf16(t)]
+                  for t in (x, w, g))
+    return ((three(conv, xs, ws), three(grad_input, gs, ws),
+             three(grad_weight, xs, gs)),
+            (conv(x64, w64), grad_input(g64, w64), grad_weight(x64, g64)))
+
+
+def high_phase(line: str) -> dict:
+    """`[high]`: `precision="high"` as the port computes it on the card,
+    bf16x3 (three bf16 products, TF32 on over bf16-valued operands), at
+    the model's conv shapes: forward, grad-input and grad-weight through
+    `conv2d_dp` held within HIGH_RTOL relative L2 of the float64 oracle
+    of the same three products; every route of `high_routes` against
+    that oracle and the float64 full product, and its ms, forward and
+    backward (both gradients)."""
+    rel = lambda a, b: float((a.double() - b).norm() / b.norm())  # noqa: E731
+    parts = ("forward", "grad_input", "grad_weight")
+    report = {}
+    for name, (xs, ws, stride, padding, groups) in HIGH_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(len(report))
+        x = torch.randn(*xs, generator=gen, device="cuda")
+        w = torch.randn(*ws, generator=gen, device="cuda") / math.sqrt(
+            ws[1] * ws[2] * ws[3])
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = dp.conv2d_dp(xg, wg, None, stride, padding, "high",
+                         groups=groups)
+        g = torch.randn(*y.shape, generator=gen, device="cuda")
+        y.backward(g)
+        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        got = (y.detach().permute(0, 3, 1, 2), xg.grad.permute(0, 3, 1, 2),
+               wg.grad)
+        del xg, wg, y
+        three, full = high_oracle(xc, w, gc, stride, padding, groups)
+        res = {"x": list(xs), "w": list(ws), "stride": stride,
+               "padding": list(padding), "groups": groups,
+               "conv2d_dp_high": {p: {"vs_bf16x3": rel(got[i], three[i]),
+                                      "vs_full": rel(got[i], full[i])}
+                                  for i, p in enumerate(parts)}}
+        del got
+        for route, (fwd, bwd) in high_routes(xc, w, gc, stride, padding,
+                                             groups).items():
+            out = (fwd(), *bwd())
+            res[route] = {p: {"vs_bf16x3": rel(out[i], three[i]),
+                              "vs_full": rel(out[i], full[i])}
+                          for i, p in enumerate(parts)}
+            del out
+            res[route]["ms"] = {"forward": time_ms(fwd, HIGH_REPEATS),
+                                "backward": time_ms(bwd, HIGH_REPEATS)}
+        report[name] = res
+        print(f"[{HIGH}] {name}: {json.dumps(res)} | {line}", flush=True)
+        for p in parts:
+            check(res["conv2d_dp_high"][p]["vs_bf16x3"] <= HIGH_RTOL,
+                  f"{HIGH}: {name} {p} {res['conv2d_dp_high'][p]} beyond "
+                  f"{HIGH_RTOL} of the bf16x3 oracle")
+        del x, w, g, xc, gc, three, full
+        torch.cuda.empty_cache()
+    return report
+
+
 def main_path(line: str) -> dict:
     """Full-width face clip inference and sessions, both tiers, then the
     bench tier with the fused tail."""
@@ -1105,6 +1301,14 @@ def main_path(line: str) -> dict:
         print(f"[tiers] {name} vs bit-parity on the same clip: mean_abs="
               f"{drift.mean().item():.4e} max_abs={drift.max().item():.4e}; "
               f"source features rel_err={fea_rel:.4e}", flush=True)
+        report.setdefault("tier_drift", {})[name] = drift.mean().item()
+    # "high" + fast_tail against bit-parity within the 0.01 mean-L1 budget
+    # of the JAX package's fast tiers (QUIRKS.md: 5.1e-3 with fast_tail);
+    # the bench tier's fast_trunk (one bf16 pass into the temp-100
+    # attention) drifts past it on random weights in both packages
+    # (ROADMAP.md queue 3), and is printed
+    check(report["tier_drift"]["high+fast_tail"] <= 0.01,
+          f"tiers: high+fast_tail vs bit-parity {report['tier_drift']}")
     return report
 
 
@@ -4510,6 +4714,12 @@ def main() -> int:
     if sys.argv[1:] == ["--requests"]:
         requests_phase(line)
         return 0
+    if sys.argv[1:] == ["--high"]:
+        t0 = time.perf_counter()
+        high_phase(line)
+        print(f"[{HIGH}] phase {time.perf_counter() - t0:.1f} s | {line}",
+              flush=True)
+        return 0
 
     t0 = time.perf_counter()
     per_source = cuda_build.build_all()
@@ -4565,7 +4775,13 @@ def main() -> int:
 
     kernels = kernel_checks(line)
     train_kernels = train_kernel_checks(line)
+    t0 = time.perf_counter()
+    high = high_phase(line)
+    print(f"[{HIGH}] phase {time.perf_counter() - t0:.1f} s | {line}",
+          flush=True)
+    torch.cuda.empty_cache()
     report = main_path(line)
+    report[HIGH] = high
     report["train"], state = train_phase(line)
     t0 = time.perf_counter()
     report["serve"] = serve_phase(line, state)

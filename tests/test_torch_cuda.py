@@ -27,8 +27,9 @@ check that two calls give the same bits; the pose train step's shapes
 (K3-flow and K4 at G=10, K2 at (3, 10, 32, 32, 1024)), `crop_faces` with
 no host sync, and the toy pose step's kernel path; the pose keypoint
 rasterizer on the card against the CPU, and pose `push_keypoints` through
-the kernels against the plain path; chip_smoke.py checks the main paths'
-shapes.
+the kernels against the plain path; the `precision="high"` convs (bf16x3)
+against a float64 oracle, grouped forms too; chip_smoke.py checks the
+main paths' shapes.
 """
 
 import dataclasses
@@ -47,6 +48,7 @@ from wacv23_tsnet_tpu_torch.ops.conv_kernels import (MAX_CLUSTER, conv3x3_in,
                                                      launcher, resblock_fused,
                                                      tiles)
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
+from wacv23_tsnet_tpu_torch.ops.dpconv import split_bf16
 from wacv23_tsnet_tpu_torch.ops.flow_kernels import (
     masked_attention_flow, masked_attention_flow_fused)
 from wacv23_tsnet_tpu_torch.ops.fuse_kernels import (fuse_pair_conv2,
@@ -391,6 +393,80 @@ def test_bit_parity_conv_gradient_is_fp32(dev, stride, padding):
     for got, want in ((xs.grad, xd.grad), (ws.grad, wd.grad)):
         rel = ((got.double().cpu() - want).norm() / want.norm()).item()
         assert rel <= 1e-5, rel
+
+
+# precision="high" on the card: (x NHWC, w OIHW, stride, (row, column)
+# padding, groups) of the model's conv forms at reduced batch: the 7x7
+# stem after its reflect pad, a stride-2 down conv, a reflect band's (p,
+# 0) conv at 256 channels, the phase decoder's grouped ring convs
+HIGH_CASES = {
+    "stem7x7": ((2, 70, 70, 5), (64, 5, 7, 7), 1, (0, 0), 1),
+    "down_s2": ((2, 64, 64, 64), (128, 64, 3, 3), 2, (1, 1), 1),
+    "band": ((2, 32, 34, 256), (256, 256, 3, 3), 1, (1, 0), 1),
+    "ring_rows": ((2, 2, 32, 256), (512, 128, 2, 3), 1, (0, 0), 2),
+    "ring_corners": ((2, 2, 2, 512), (1024, 128, 2, 2), 1, (0, 0), 4),
+    # a ResNet-block conv at 512 channels: hi·hi in four channel pieces
+    "wide": ((2, 18, 18, 512), (512, 512, 3, 3), 1, (0, 0), 1),
+}
+
+
+def _bf16x3_oracle(x, w, g, stride, padding, groups):
+    """float64 on the inputs' device: an NCHW conv of x and w (OIHW) and its
+    grad-input and grad-weight for cotangent g: each as the exact sum of
+    the three bf16x3 products of the fp32 splits, and as the full
+    product."""
+    args = ([stride] * 2, list(padding), [1, 1], False, [0, 0], groups)
+
+    def conv(a, b):
+        return F.conv2d(a, b, None, stride, padding, 1, groups)
+
+    def grad_input(gg, b):
+        return torch.ops.aten.convolution_backward(
+            gg, x64, b, None, *args, [True, False, False])[0]
+
+    def grad_weight(a, gg):
+        return torch.ops.aten.convolution_backward(
+            gg, a, w64, None, *args, [False, True, False])[1]
+
+    def three(f, a, b):
+        return f(a[0], b[0]) + f(a[0], b[1]) + f(a[1], b[0])
+
+    x64, w64, g64 = (t.double() for t in (x, w, g))
+    xs, ws, gs = ([v.double() for v in split_bf16(t.float())]
+                  for t in (x, w, g))
+    return ((three(conv, xs, ws), three(grad_input, gs, ws),
+             three(grad_weight, xs, gs)),
+            (conv(x64, w64), grad_input(g64, w64), grad_weight(x64, g64)))
+
+
+@pytest.mark.parametrize("case", list(HIGH_CASES))
+def test_high_conv_is_bf16x3_on_the_card(dev, case):
+    """precision="high" on a CUDA tensor, forward (with its fp32 bias),
+    grad-input and grad-weight, against float64 of the exact bf16x3 sums
+    at chip_smoke.py `--high`'s 1e-5 relative L2; TF32 (~3e-4) fails
+    this, and so would a dropped product."""
+    xs, ws, stride, padding, groups = HIGH_CASES[case]
+    gen = torch.Generator(device="cpu").manual_seed(len(case))
+    x = torch.randn(*xs, generator=gen)
+    wt = torch.randn(*ws, generator=gen) / (ws[1] * ws[2] * ws[3]) ** 0.5
+    b = torch.randn(ws[0], generator=gen)
+    xd, wd = (v.to(dev).requires_grad_(True) for v in (x, wt))
+    y = conv2d(xd, wd, b.to(dev), stride, padding, precision="high",
+               groups=groups)
+    gy = torch.randn(*y.shape, generator=gen)
+    y.backward(gy.to(dev))
+    three, full = _bf16x3_oracle(x.permute(0, 3, 1, 2).to(dev), wt.to(dev),
+                                 gy.permute(0, 3, 1, 2).to(dev), stride,
+                                 padding, groups)
+    bias = b.double().to(dev)[:, None, None]
+    for i, got in enumerate((y.permute(0, 3, 1, 2),
+                             xd.grad.permute(0, 3, 1, 2), wd.grad)):
+        got = got.detach().double() - (bias if i == 0 else 0)
+        rel, rel_full = (((got - want).norm() / want.norm()).item()
+                         for want in (three[i], full[i]))
+        # bf16x3, not fp32 either: nearer the three products' sum than
+        # the full product, which differs by the dropped lo·lo terms
+        assert rel <= 1e-5 and rel < rel_full, (i, rel, rel_full)
 
 
 def _toy_batch(cfg, bs=2, seed=0):

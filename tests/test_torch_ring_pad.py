@@ -15,7 +15,10 @@ features is near one-hot, and the pad path's reconstruction alone moves
 by 1.8e-4 relative under a 1e-6 input nudge, above the 1e-4 bar; the
 train test prints that and the ring path against the pad path at 100
 (1.2e-4) beside what it holds at 10 (tests/test_torch_train_step.py
-runs both temperatures). `pytest -s` prints each measured error.
+runs both temperatures). The op's range (p >= 1, H and W > 2p) is held
+at its edge against the padded conv, refused outside it, and shown to
+hold every reflect conv of the toy, face and pose configs with
+`ring_pad` on. `pytest -s` prints each measured error.
 """
 
 import dataclasses
@@ -36,9 +39,10 @@ from wacv23_tsnet_tpu.nn.blocks import ResnetBlock as JResnetBlock
 from wacv23_tsnet_tpu.ops.reflectconv import (
     conv2d_reflect_dp as j_conv2d_reflect_dp)
 from wacv23_tsnet_tpu_torch.compat import load_flax_params, state_dict_to_flax
-from wacv23_tsnet_tpu_torch.configs import toy_config
+from wacv23_tsnet_tpu_torch.configs import face_config, pose_config, toy_config
 from wacv23_tsnet_tpu_torch.models import (TSNetModules, tsnet_forward,
                                            tsnet_forward_clip)
+from wacv23_tsnet_tpu_torch.nn import blocks
 from wacv23_tsnet_tpu_torch.nn.blocks import ResnetBlock, conv2d, reflect_pad
 from wacv23_tsnet_tpu_torch.ops.reflectconv import conv2d_reflect_dp
 from wacv23_tsnet_tpu_torch.train import GEN_SUBNETS
@@ -282,3 +286,57 @@ def test_split_ring_conv_matches_the_whole(dtype):
     _report(split_vs_whole=err)
     assert got.dtype == dt
     assert err < (1e-5 if dtype == "float32" else 2.0 ** -7), err
+
+
+@pytest.mark.parametrize("p,h,w", [(1, 3, 3), (2, 5, 9), (3, 7, 7),
+                                   (3, 8, 7)])
+def test_reflect_conv_takes_its_edge_shapes(p, h, w):
+    """H or W = 2p + 1, the smallest the op takes, against the padded
+    conv at the bar of test_reflect_conv_matches_padded."""
+    rng = np.random.default_rng(p * 10 + h + w)
+    x = torch.from_numpy(rng.standard_normal((2, h, w, 4)).astype(np.float32))
+    k = _oihw(rng.standard_normal((2 * p + 1, 2 * p + 1, 4, 5))
+              .astype(np.float32))
+    err = _rel(conv2d_reflect_dp(x, k, p), conv2d(reflect_pad(x, p), k))
+    _report(vs_pad=err)
+    assert err < 1e-5
+
+
+@pytest.mark.parametrize("p,h,w", [(0, 6, 6), (1, 2, 5), (1, 5, 2),
+                                   (2, 4, 9), (3, 6, 9), (3, 9, 6)])
+def test_reflect_conv_refuses_shapes_outside_its_range(p, h, w):
+    x = torch.zeros(1, h, w, 3)
+    k = torch.zeros(4, 3, 2 * p + 1, 2 * p + 1)
+    with pytest.raises(ValueError, match="needs p >= 1"):
+        conv2d_reflect_dp(x, k, p)
+
+
+@pytest.mark.parametrize("config", [toy_config, face_config, pose_config])
+def test_no_model_path_reaches_a_refused_shape(config, monkeypatch):
+    """Every reflect conv of the train forward and the clip with
+    `ring_pad` on, on the `meta` device (shapes only, full width), lies
+    in the op's range."""
+    seen = set()
+    ring = blocks.conv2d_reflect_dp
+
+    def spy(x, weight, p, *args, **kwargs):
+        seen.add((p, x.shape[1], x.shape[2]))
+        return ring(x, weight, p, *args, **kwargs)
+
+    monkeypatch.setattr(blocks, "conv2d_reflect_dp", spy)
+    cfg = dataclasses.replace(config(), ring_pad=True)
+    mods = TSNetModules(cfg, device="meta", train=True)
+    s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
+
+    def meta(*shape):
+        return torch.zeros(*shape, device="meta")
+
+    tsnet_forward(mods, meta(1, s, hw, hw, 3), meta(1, s, hw, hw, nl),
+                  meta(1, s, hw, hw), meta(1, hw, hw, nl), meta(1, hw, hw),
+                  tar_img=meta(1, hw, hw, 3), train=True, use_kernels=False)
+    tsnet_forward_clip(mods, meta(s, hw, hw, 3), meta(s, hw, hw, nl),
+                       meta(s, hw, hw), meta(2, hw, hw, nl), meta(2, hw, hw),
+                       use_kernels=False, device="meta")
+    print(f"[ring_pad] {config.__name__}: (p, H, W) {sorted(seen)}")
+    assert {p for p, _, _ in seen} == {1, 3}
+    assert all(min(h, w) > 2 * p for p, h, w in seen), seen

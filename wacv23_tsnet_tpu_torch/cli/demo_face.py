@@ -73,7 +73,7 @@ def main(argv=None, base_config: TSNetConfig | None = None, device="cuda"):
     p.add_argument("--chunk", type=int, default=32)
     p.add_argument("--precision", default="high",
                    choices=["highest", "high", "default"],
-                   help="conv precision (high = TF32)")
+                   help="conv precision (high = three bf16 passes)")
     p.add_argument("--fast-trunk", action="store_true",
                    help="encoders in one bf16 pass")
     p.add_argument("--fast-tail", action="store_true",

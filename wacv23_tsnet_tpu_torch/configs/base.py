@@ -10,9 +10,11 @@ Precision tiers on the GPU (see `nn.blocks.conv2d`):
 
 - `precision="highest"`: fp32 convolutions with TF32 off in cuDNN and
   cuBLAS (torch's cuDNN default is TF32, which keeps ~3 decimal digits).
-- `precision="high"`: fp32 convolutions with TF32 on. In the JAX bench
-  tier "high" reaches no convolution (`fast_trunk` and `fast_tail` send
-  trunk and tail to "default"); the port still maps it to TF32.
+- `precision="high"`: fp32 convolutions as three bf16 passes (bf16x3,
+  `ops.dpconv.conv_bf16x3`), the JAX package's `Precision.HIGH`; on a
+  CPU tensor the fp32 conv, as XLA's CPU backend computes it. In the
+  bench tier "high" reaches no convolution (`fast_trunk` and
+  `fast_tail` send trunk and tail to "default" and bf16).
 - `fast_trunk`: the encoders' convolutions take one bf16 pass (input and
   kernel in bf16, output back to fp32, bias added in fp32).
 - `fast_tail`: FuseNet and the decoder run in bf16 with fp32

@@ -10,7 +10,8 @@ the tier's activation dtype and precision (see `configs/base.py`):
 - dtype bf16 (`fast_tail`): input, kernel and bias in bf16, bf16 out;
 - dtype f32, precision "default" (`fast_trunk`): one bf16 pass, output
   back to f32, bias added in f32;
-- dtype f32, precision "high": TF32;
+- dtype f32, precision "high": three bf16 passes with fp32 accumulation
+  on the card (`ops.dpconv.conv_bf16x3`), the fp32 conv on the CPU;
 - dtype f32, precision "highest": full fp32, TF32 off.
 
 The f32 tiers hold in both directions: autograd would dispatch a

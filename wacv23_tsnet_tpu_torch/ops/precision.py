@@ -3,8 +3,10 @@
 PyTorch runs fp32 matmuls in full fp32 by default but fp32 convolutions
 through cuDNN in TF32 (~3 decimal digits). The port states the tier of
 every fp32 product where it is made: `with tf32(False)` for the
-bit-parity tier and the similarity logits, `with tf32(True)` for the
-`precision="high"` convolutions. The flags are read when an operation is
+bit-parity tier and the similarity logits, `with tf32(True)` only
+around the three products of a `precision="high"` convolution on the
+card (`ops.dpconv.conv_bf16x3`), whose operands hold bf16 values that
+TF32 represents exactly. The flags are read when an operation is
 dispatched, so restoring them after the call is enough.
 """
 

@@ -34,13 +34,19 @@ def conv2d_reflect_dp(x: torch.Tensor, weight: torch.Tensor, p: int,
                       ) -> torch.Tensor:
     """`conv2d(reflect_pad(x, p), weight, bias)` with no padded tensor.
 
-    x (B, H, W, Ci) NHWC with H, W > p; weight (Co, Ci, 2p+1, 2p+1) OIHW;
-    the tier's `dtype`, `precision` and `bwd_precision` as in
-    `ops.dpconv.conv2d`. Returns (B, H, W, Co)."""
+    x (B, H, W, Ci) NHWC; weight (Co, Ci, 2p+1, 2p+1) OIHW; the tier's
+    `dtype`, `precision` and `bwd_precision` as in `ops.dpconv.conv2d`.
+    Returns (B, H, W, Co). Takes p >= 1 and H, W > 2p, so that an interior
+    row and column lie between the output bands that the top and bottom,
+    left and right corrections write (`reflect_pad` itself takes H, W >
+    p); raises ValueError otherwise."""
     kh, kw = weight.shape[2:]
     if kh != 2 * p + 1 or kw != 2 * p + 1:
         raise ValueError(f"kernel {(kh, kw)} does not match pad {p}")
     b, h, w, c = x.shape
+    if p < 1 or min(h, w) <= 2 * p:
+        raise ValueError(f"pad {p} needs p >= 1 and H, W > {2 * p}; "
+                         f"got H, W = {h}, {w}")
     y = conv2d(x, weight, bias, 1, p, precision, dtype, bwd_precision)
 
     def cols_reflected(band):
