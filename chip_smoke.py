@@ -49,9 +49,9 @@ non-zero, printing no result, where CUDA or the package is missing.
    shape (G=15 samples, NS=3 sources, NF=1, T=32x32, C=512): K3-flow
    (warped features and flow, temp 100) and K4 (six cotangents at temps
    10 and 100, against the plain version in fp32 and in float64, and
-   given the plain version's own flow; two calls the same bits outside
-   da; its five launches, warp_bwd, logits, gtn, gsn and reduce, each
-   timed alone).
+   given the plain version's own flow; two calls the same bits in all six,
+   da included; its seven launches, warp_bwd, da_sort, da_sum, logits,
+   gtn, gsn and reduce, each timed alone).
 6. Drives the GAN train step (`train.make_train_step`) at the full width
    of `face_config()`, bit-parity tier, batch 15: the first step from one
    seeded state through the kernels and through the plain versions
@@ -61,6 +61,14 @@ non-zero, printing no result, where CUDA or the package is missing.
    (one K3-flow, one K4 and one K2 a step; no inference kernel), with
    ms/step, samples/s, the CUDA-event stage split, peak memory and a
    profile; the metrics must stay finite and G_VGG must fall.
+   After `[serve]`, `[determinism]`: the face bit-parity step at batch
+   15, the pose bit-parity step at batch 10 and the face fast train tier
+   ("high" + `bwd_precision="default"` + `fast_tail`), each called twice
+   from one seeded state and batch: every gradient, updated parameter and
+   Adam moment, the metrics and the reconstruction bit-equal (the first
+   that differs is printed); then each step's ms/step as it runs (under
+   `ops.precision.deterministic_cudnn`) against the same step with
+   cuDNN's default flags, in alternated blocks of 2 timed steps.
 7. Serves from a saved model (`[serve]`): the train state after those
    steps saved as a trainer snapshot (flax msgpack, the JAX package's
    format) and restored into a fresh state bit for bit (parameters, Adam
@@ -190,9 +198,8 @@ non-zero, printing no result, where CUDA or the package is missing.
 13. Runs the multi-device wrappers (`[parallel]`, after
    `[pose_data]`): a (1, 1) mesh over NCCL in this process, the
    bit-parity train step at batch 15 through `make_parallel_train_step`
-   against `make_train_step` from the same seeded state (rec bit for bit,
-   metrics and gradients within the train bars, beside what two
-   single-process steps differ by) and `make_parallel_clip_infer` in the
+   against `make_train_step` from the same seeded state (rec, metrics and
+   every gradient bit for bit) and `make_parallel_clip_infer` in the
    bit-parity and bench tiers bit for bit against `tsnet_forward_clip`
    over 64 frames; then two spawned ranks on the one card over gloo
    (NCCL refuses two ranks on one device; the mesh stages collectives
@@ -271,7 +278,11 @@ the phase-decomposed decoder decoding, and
 
     python3 chip_smoke.py --high
 
-`[high]` alone (no kernel build).
+`[high]` alone (no kernel build), and
+
+    python3 chip_smoke.py --determinism
+
+builds the kernels and runs `[determinism]` alone.
 """
 
 from __future__ import annotations
@@ -279,7 +290,9 @@ from __future__ import annotations
 import base64
 import collections
 import contextlib
+import copy
 import dataclasses
+import functools
 import hashlib
 import io
 import json
@@ -348,7 +361,7 @@ from wacv23_tsnet_tpu_torch.ops import norm_kernels as nk
 from wacv23_tsnet_tpu_torch.ops import warp_kernels as wk
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
 from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
-from wacv23_tsnet_tpu_torch.ops.precision import tf32
+from wacv23_tsnet_tpu_torch.ops.precision import deterministic_cudnn, tf32
 from wacv23_tsnet_tpu_torch.ops.similarity import transformation_warp
 from wacv23_tsnet_tpu_torch.ops.warp import space_to_depth
 from wacv23_tsnet_tpu_torch.parallel import (init_distributed, make_mesh,
@@ -361,6 +374,7 @@ from wacv23_tsnet_tpu_torch.train import (GEN_SUBNETS, create_train_state,
                                           make_train_step,
                                           restore_checkpoint,
                                           save_checkpoint)
+from wacv23_tsnet_tpu_torch.train import step as train_step_module
 from wacv23_tsnet_tpu_torch.utils import StepTimer
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at 700 W)
@@ -392,8 +406,8 @@ CLIP_FRAMES = 64
 CHUNK = 32
 
 # K4 against autograd through the plain forward: each cotangent within
-# BWD_RTOL * max(1, max |reference|) (sums over target rows and sources in
-# another order, and the scatter into da by fp32 atomics). At temp 10,
+# BWD_RTOL * max(1, max |reference|) (sums over target rows, sources and,
+# for da, each source pixel's bucket in another order). At temp 10,
 # K4 on K3-flow's flow against the plain version in fp32 and in float64.
 # At temp 100 the flow of random features sits near pixel centres, where
 # the bilinear warp's gradient jumps, and an fp32 flow (K3-flow's or the
@@ -1502,10 +1516,14 @@ def train_kernel_checks(line: str, g: int = TRAIN_BATCH) -> dict:
                                       for a, b in zip(got, want)),
                    "rel_err": max(rel["kernel_vs_plain"].values())}
         del want, exact, flow64, flow32, lse32, same_flow
-    # two calls give the same bits but in da (a scatter by atomics)
+    # two calls give the same bits in all six cotangents: every sum, da's
+    # too, runs in a fixed order
     again = bwd()
-    check(all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])),
-          "transform_warp_pairs_bwd: two calls differ outside da")
+    differ = [n for n, a, b in zip(names, got, again) if not torch.equal(a, b)]
+    print(f"[kernel] transform_warp_pairs_bwd (K4) G={g}: two calls, "
+          f"cotangents that differ in bits: {differ} | {line}", flush=True)
+    check(not differ,
+          f"transform_warp_pairs_bwd: two calls differ in {differ}")
     del again
     # timed at the config's temp 100, the whole call and each launch alone
     res["ms"] = time_ms(bwd)
@@ -1718,6 +1736,169 @@ def train_phase(line: str):
     return {"launches": launches, "ms_per_step": ms,
             "samples_per_s": TRAIN_BATCH / ms * 1e3, "peak_mem_gb": peak_gb,
             "stage_ms": split, **prof}, state
+
+
+DETERMINISM = "determinism"
+DET_TIMED = 2             # timed steps a block; blocks alternated
+DET_BLOCKS = ("deterministic", "default", "default", "deterministic")
+DET_COST_NAMED = 0.05     # a step share past which the convs are named
+DET_CONVS_SHOWN = 8
+
+
+def step_bits(state, metrics, rec) -> dict:
+    """Everything a train step leaves, on the card: each parameter, its
+    gradient and its Adam moments by (param group, index), the metrics
+    and the reconstruction."""
+    out = {f"metric/{k}": v for k, v in metrics.items()}
+    out["rec"] = rec
+    for opt in (state.gen_opt, state.disc_opt):
+        for group in opt.param_groups:
+            for i, p in enumerate(group["params"]):
+                name = f"{group['name']}/{i}"
+                out[f"param/{name}"] = p.detach().clone()
+                out[f"grad/{name}"] = p.grad.clone()
+                for k in ("exp_avg", "exp_avg_sq"):
+                    out[f"{k}/{name}"] = opt.state[p][k].clone()
+    return out
+
+
+def cudnn_flags(mode: str):
+    """The step as it runs ("deterministic") or, for a measurement, with
+    cuDNN's default flags ("default": its context manager a no-op)."""
+    if mode == "deterministic":
+        return contextlib.nullcontext()
+    return patched(train_step_module, "deterministic_cudnn",
+                   contextlib.nullcontext)
+
+
+def same_bits(name: str, mode: str, states: list, batch: dict) -> dict:
+    """One step on each of two equal states: what differs in bits."""
+    runs = []
+    for state in states:
+        step = make_train_step(state)
+        with cudnn_flags(mode):
+            (_, metrics, rec), launches = counted(
+                lambda: step(state, batch, TRAIN_LR))
+        check(launches == TRAIN_KERNEL_LAUNCHES,
+              f"{DETERMINISM}: {name} launched {launches}")
+        runs.append(step_bits(state, metrics, rec))
+    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    res = {"compared": len(runs[0]), "differ": len(differ)}
+    if differ:
+        a, b = runs[0][differ[0]], runs[1][differ[0]]
+        res["first_differing"] = differ[0]
+        res["its_max_abs_diff"] = (a - b).abs().max().item()
+        res["differing_kinds"] = sorted({k.split("/")[0] for k in differ})
+    return res
+
+
+def conv_census(state, batch: dict) -> list:
+    """The convs one step runs through `ops.dpconv` (fp32 tiers), each
+    timed in both cuDNN modes: (its deterministic ms - default ms) x its
+    calls, largest first."""
+    calls = collections.Counter()
+    fwd, bwd = dp._forward, dp._backward
+
+    def rec_fwd(x, w, bias, stride, padding, groups, precision):
+        calls[("fwd", tuple(x.shape), tuple(w.shape), stride, padding,
+               groups, precision, bias is not None, None)] += 1
+        return fwd(x, w, bias, stride, padding, groups, precision)
+
+    def rec_bwd(grad, x, w, has_bias, stride, padding, groups, precision,
+                need):
+        calls[("bwd", tuple(x.shape), tuple(w.shape), stride, padding,
+               groups, precision, has_bias, tuple(need))] += 1
+        return bwd(grad, x, w, has_bias, stride, padding, groups, precision,
+                   need)
+
+    with patched(dp, "_forward", rec_fwd), patched(dp, "_backward", rec_bwd):
+        make_train_step(state)(state, batch, TRAIN_LR)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for key, n in calls.items():
+        kind, xs, ws, stride, padding, groups, tier, bias, need = key
+        x = torch.randn(xs, device="cuda", generator=gen)
+        w = torch.randn(ws, device="cuda", generator=gen)
+        b = torch.randn(ws[0], device="cuda", generator=gen) if bias else None
+        if kind == "fwd":
+            call = functools.partial(fwd, x, w, b, stride, padding, groups,
+                                     tier)
+        else:
+            g = torch.randn_like(fwd(x, w, None, stride, padding, groups,
+                                     tier))
+            call = functools.partial(bwd, g, x, w, bias, stride, padding,
+                                     groups, tier, need)
+        ms = {}
+        for mode in ("deterministic", "default"):
+            with (deterministic_cudnn() if mode == "deterministic"
+                  else contextlib.nullcontext()):
+                ms[mode] = time_ms(call, iters=3)
+        rows.append({"conv": kind, "x": xs, "w": ws, "stride": stride,
+                     "padding": padding, "groups": groups, "tier": tier,
+                     "calls": n, "ms": ms, "cost_ms": n * (
+                         ms["deterministic"] - ms["default"])})
+    return sorted(rows, key=lambda r: -r["cost_ms"])
+
+
+def determinism_phase(line: str, diagnose: bool = False) -> dict:
+    """`[determinism]`: the face bit-parity step (batch 15), the pose
+    bit-parity step (batch 10) and the face fast train tier, each called
+    on two equal copies of one seeded state with one batch, held bit for
+    bit. With `diagnose` (`--determinism`), also: two steps with cuDNN's
+    default flags (what the step would give without
+    `deterministic_cudnn`), the ms/step of the step as it runs against
+    the same step with the default flags in alternated blocks, and where
+    that costs more than DET_COST_NAMED of a step, the convs it costs in
+    (`conv_census`)."""
+    face, pose = face_config(), pose_config()
+    cases = {"face_bit_parity": (face, train_batch(face, TRAIN_BATCH)),
+             "pose_bit_parity": (pose, pose_batch(pose, POSE_BATCH, seed=8)),
+             "face_fast": (dataclasses.replace(face, **FAST_TIER),
+                           train_batch(face, TRAIN_BATCH))}
+    modes = ("deterministic", "default") if diagnose else ("deterministic",)
+    report = {}
+    for name, (cfg, batch) in cases.items():
+        first = create_train_state(cfg, device="cuda", seed=0)
+        states = [first] + [copy.deepcopy(first)
+                            for _ in range(2 * len(modes) - 1)]
+        res = {mode: same_bits(name, mode, states[2 * i:2 * i + 2], batch)
+               for i, mode in enumerate(modes)}
+        if diagnose:
+            # the cost of deterministic cuDNN, on the first state (both
+            # modes' cuDNN plans made by the steps above)
+            ms = {mode: [] for mode in modes}
+            for mode in DET_BLOCKS:
+                with cudnn_flags(mode):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(DET_TIMED):
+                        make_train_step(first)(first, batch, TRAIN_LR)
+                    torch.cuda.synchronize()
+                ms[mode].append(1e3 * (time.perf_counter() - t0) / DET_TIMED)
+            res["ms_per_step"] = ms
+            res["cost"] = float(np.mean(ms["deterministic"])
+                                / np.mean(ms["default"]) - 1.0)
+            if res["cost"] > DET_COST_NAMED:
+                res["convs"] = conv_census(first, batch)[:DET_CONVS_SHOWN]
+        del first, states
+        torch.cuda.empty_cache()
+        report[name] = res
+        print(f"[{DETERMINISM}] {name}: one step on each of two equal "
+              f"states, {json.dumps(res)} | {line}", flush=True)
+        check(res["deterministic"]["differ"] == 0,
+              f"{DETERMINISM}: {name} differs in bits over two calls: {res}")
+    return report
+
+
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    """module.name set to value for the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
 
 def _http(url: str, payload: dict | None = None) -> dict:
@@ -3965,51 +4146,42 @@ TRAIN_KERNEL_LAUNCHES = {"transform_warp_pairs": 1,
 def parallel_one_rank(line: str, store: str) -> dict:
     """A (1, 1) mesh over NCCL in this process: the bit-parity train step
     at batch 15 through `make_parallel_train_step` against
-    `make_train_step` from the same seeded state (the reconstruction bit
-    for bit; the metrics within 1e-4 relative and the gradients within
-    1e-3 relative L2, or twice what two single-process steps differ by:
-    K4's da is a scatter by atomics, so no two steps agree bit for bit
-    after the first backward), and
-    `make_parallel_clip_infer` in the bit-parity and bench tiers bit for
-    bit against `tsnet_forward_clip` over 64 frames. Launches counted."""
+    `make_train_step` from the same seeded state (the reconstruction, the
+    metrics and every gradient bit for bit: the step sums in a fixed
+    order), and `make_parallel_clip_infer` in the bit-parity and bench
+    tiers bit for bit against `tsnet_forward_clip` over 64 frames.
+    Launches counted."""
     cfg = face_config()
     batch = train_batch(cfg, TRAIN_BATCH)
     runs = {}
     init_distributed(0, 1, f"file://{store}")
     try:
         mesh = make_mesh()
-        for name in ("single", "parallel", "single_again"):
+        for name in ("single", "parallel"):
             state = create_train_state(cfg, seed=0)
             step = (make_parallel_train_step(state, mesh) if name == "parallel"
                     else make_train_step(state))
             runs[name] = step_once(state, step, batch)
             del state, step
             torch.cuda.empty_cache()
-        one, par, again = (runs[k] for k in ("single", "parallel",
-                                             "single_again"))
+        one, par = runs["single"], runs["parallel"]
         report = {"launches": par["launches"],
-                  "rec_bit_equal": bool(torch.equal(par["rec"], one["rec"]))}
-        for key, diff, tol in (
-                ("metrics", lambda a, b: max(
-                    abs(a["metrics"][k] - b["metrics"][k])
-                    / max(1.0, abs(b["metrics"][k])) for k in a["metrics"]),
-                 STEP_METRIC_RTOL),
-                ("grads", lambda a, b: ((a["grads"] - b["grads"]).norm()
-                                        / b["grads"].norm()).item(),
-                 STEP_GRAD_RTOL)):
-            got, spread = diff(par, one), diff(again, one)
-            report[f"{key}_vs_single"] = got
-            report[f"{key}_single_vs_single"] = spread
-            check(got <= max(tol, 2.0 * spread),
-                  f"{PARALLEL}: (1, 1) step {key} {got} against one "
-                  f"process (bar {tol}; its own spread {spread})")
-        check(report["rec_bit_equal"], f"{PARALLEL}: (1, 1) step rec differs")
+                  "rec_bit_equal": bool(torch.equal(par["rec"], one["rec"])),
+                  "metrics_bit_equal": par["metrics"] == one["metrics"],
+                  "grads_bit_equal": bool(torch.equal(par["grads"],
+                                                      one["grads"]))}
+        if not report["grads_bit_equal"]:
+            report["grads_rel_l2"] = ((par["grads"] - one["grads"]).norm()
+                                      / one["grads"].norm()).item()
+        print(f"[{PARALLEL}] (1, 1) NCCL train step, batch {TRAIN_BATCH}, "
+              f"bit-parity: {json.dumps(report)} | {line}", flush=True)
+        for key in ("rec", "metrics", "grads"):
+            check(report[f"{key}_bit_equal"],
+                  f"{PARALLEL}: (1, 1) step {key} differ from one process")
         check(par["launches"] == TRAIN_KERNEL_LAUNCHES
               and one["launches"] == TRAIN_KERNEL_LAUNCHES,
               f"{PARALLEL}: (1, 1) step launched {par['launches']}")
-        print(f"[{PARALLEL}] (1, 1) NCCL train step, batch {TRAIN_BATCH}, "
-              f"bit-parity: {json.dumps(report)} | {line}", flush=True)
-        del runs, one, par, again
+        del runs, one, par
         src = clip_src(cfg, cfg.n_source, PAR_FRAMES)
         bench = dataclasses.replace(cfg, precision="high", fast_tail=True,
                                     fast_trunk=True)
@@ -4746,6 +4918,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--pose-first-step"]:
         return pose_first_step_forms(line)
+    if sys.argv[1:] == ["--determinism"]:
+        t0 = time.perf_counter()
+        determinism_phase(line, diagnose=True)
+        print(f"[{DETERMINISM}] phase {time.perf_counter() - t0:.1f} s | "
+              f"{line}", flush=True)
+        return 0
     if sys.argv[1:] == ["--pose"]:
         t0 = time.perf_counter()
         pose = pose_phase(line)
@@ -4787,6 +4965,11 @@ def main() -> int:
     report["serve"] = serve_phase(line, state)
     print(f"[serve] phase {time.perf_counter() - t0:.1f} s", flush=True)
     del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report[DETERMINISM] = determinism_phase(line)
+    print(f"[{DETERMINISM}] phase {time.perf_counter() - t0:.1f} s | {line}",
+          flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     report["pose"] = pose_phase(line)

@@ -22,8 +22,11 @@ chunks, views off a 16-byte boundary, more than one 256-chunk slab, units
 that fill a cluster of 16 blocks, N ragged across a cluster's blocks and a
 unit past the cluster, on both its paths, its phase identity at 2 and 4
 groups, and its cluster path as one kernel that gives the same bits),
-and the train shape of the backward, with its own ragged edges and a
-check that two calls give the same bits; the pose train step's shapes
+and the train shape of the backward, with its own ragged edges, every
+target on one source pixel (cell edges, corners off the canvas) and a
+check that two calls give the same bits in all six cotangents; the toy
+face (bit-parity and fast tier) and pose train steps twice for the same
+bits; the pose train step's shapes
 (K3-flow and K4 at G=10, K2 at (3, 10, 32, 32, 1024)), `crop_faces` with
 no host sync, and the toy pose step's kernel path; the pose keypoint
 rasterizer on the card against the CPU, and pose `push_keypoints` through
@@ -262,7 +265,7 @@ def test_warp_pairs_flow_kernel(dev, shape):
 
 def _assert_cotangents_close(got, want, rtol=2e-4):
     """Each cotangent within rtol * max(1, max |reference|): sums over T
-    rows and sources in another order (and da's scatter by atomics)."""
+    rows, sources and each source pixel's bucket in another order."""
     names = ("src_fea", "tar_fea_n", "src_fea_n", "tar_mask", "src_mask",
              "grid")
     for name, a, b in zip(names, got, want):
@@ -322,11 +325,13 @@ def test_warp_pairs_bwd_kernel(dev, shape, temp):
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 3, 9, 15, 40),
-                                   (15, 3, 1, 32, 32, 512)],
-                         ids=["ragged", "train"])
+                                   (15, 3, 1, 32, 32, 512),
+                                   (10, 3, 1, 32, 32, 512)],
+                         ids=["ragged", "train", "pose_train"])
 def test_warp_pairs_bwd_kernel_is_deterministic(dev, shape):
-    """Every cotangent but da (a scatter by atomics) is summed in a fixed
-    order: two calls give the same bits."""
+    """Every cotangent, da too (a stable counting sort by source pixel,
+    then each pixel's sum in that order), is summed in a fixed order: two
+    calls give the same bits."""
     g, ns, nf, h, w, c = shape
     args = _pairs_inputs(dev, *shape, seed=12)
     gen = torch.Generator(device="cpu").manual_seed(13)
@@ -336,9 +341,74 @@ def test_warp_pairs_bwd_kernel_is_deterministic(dev, shape):
     first, second = (transform_warp_pairs_bwd(*args, flow, lse, g_warped,
                                               g_flow, h, w)
                      for _ in range(2))
-    for a, b in zip(first[1:], second[1:]):
+    for a, b in zip(first, second):
         assert torch.equal(a, b)
-    _assert_cotangents_close(first, second)
+
+
+def test_warp_pairs_bwd_kernel_counts_past_shared_memory(dev):
+    """T = 96 x 96 = 9216, past the 8192 source pixels whose bucket
+    counts da_sort keeps in shared memory: the counts and their scan go
+    through the offsets array instead. da against the plain version, and
+    all six cotangents the same bits twice. (The other five are not held
+    to 2e-4 here: at a reduction depth of 9216 the 3xTF32 gtn product
+    drifts past it from float64, where the plain fp32 version stays
+    inside; at the model's T = 1024 both are within it.)"""
+    g, ns, nf, h, w, c = 1, 1, 1, 96, 96, 8
+    args = _pairs_inputs(dev, g, ns, nf, h, w, c, seed=16)
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    g_warped = torch.randn(g, ns, nf, h * w, c, generator=gen).to(dev)
+    g_flow = torch.randn(g, ns, nf, h * w, 2, generator=gen).to(dev)
+    _, flow, lse = transform_warp_pairs_plain(*args, h, w, 10.0)
+    want = transform_warp_pairs_bwd_plain(*args, g_warped, g_flow, h, w,
+                                          10.0)
+    first, second = (transform_warp_pairs_bwd(*args, flow, lse, g_warped,
+                                              g_flow, h, w, 10.0)
+                     for _ in range(2))
+    _assert_cotangents_close(first[:1], want[:1])
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _one_pixel_inputs(dev, g, ns, nf, h, w, c, seed=14):
+    """Pairs inputs whose every target row attends to one source pixel of
+    its (group, source) alone: that pixel's normalised feature equals the
+    targets' common one and every other pixel's is its negative, so at
+    temp 100 the softmax is exactly one-hot and the flow is that pixel's
+    grid point (integer sample positions: cell edges, wx = wy = 0). The
+    pixels are on the last row or column, where corners fall off the
+    canvas."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    t = h * w
+    v = l2_normalize(torch.randn(g, 1, 1, c, generator=gen))
+    src_n = -v.expand(g, ns, t, c).clone()
+    for gi in range(g):
+        for si in range(ns):
+            u = (h - 1) * w + (gi + si) % w if (gi + si) % 2 else \
+                ((gi + si) % h) * w + w - 1
+            src_n[gi, si, u] = v[gi, 0, 0]
+    args = (torch.randn(g, ns, t, c, generator=gen), v.expand(g, nf, t, c),
+            src_n, torch.ones(g, nf, t), torch.ones(g, ns, t),
+            normalized_grid(h, w).reshape(t, 2))
+    return tuple(x.to(dev).contiguous() for x in args)
+
+
+def test_warp_pairs_bwd_kernel_da_on_one_source_pixel(dev):
+    """Every target on one source pixel, on a cell edge with corners off
+    the canvas (F = 2, C % 4 != 0): one bucket of 4 F T items a (group,
+    source), against the plain version, and the same bits twice."""
+    g, ns, nf, h, w, c = 2, 2, 2, 8, 8, 37
+    args = _one_pixel_inputs(dev, g, ns, nf, h, w, c)
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    g_warped = torch.randn(g, ns, nf, h * w, c, generator=gen).to(dev)
+    g_flow = torch.randn(g, ns, nf, h * w, 2, generator=gen).to(dev)
+    _, flow, lse = transform_warp_pairs_plain(*args, h, w)
+    want = transform_warp_pairs_bwd_plain(*args, g_warped, g_flow, h, w)
+    first, second = (transform_warp_pairs_bwd(*args, flow, lse, g_warped,
+                                              g_flow, h, w)
+                     for _ in range(2))
+    _assert_cotangents_close(first, want)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_warp_pairs_autograd_runs_both_kernels(dev):
@@ -515,6 +585,48 @@ def test_toy_train_step_kernel_path_matches_plain_path(dev):
         assert rel <= 1e-3, (name, rel)
 
 
+def _step_bits(state, metrics, rec) -> dict:
+    """Everything a train step leaves: each parameter, its gradient and
+    its Adam moments, the metrics and the reconstruction."""
+    out = {f"metric/{k}": v for k, v in metrics.items()}
+    out["rec"] = rec
+    for opt in (state.gen_opt, state.disc_opt):
+        for group in opt.param_groups:
+            for i, p in enumerate(group["params"]):
+                name = f"{group['name']}/{i}"
+                out[f"param/{name}"] = p.detach().clone()
+                out[f"grad/{name}"] = p.grad.clone()
+                for k in ("exp_avg", "exp_avg_sq"):
+                    out[f"{k}/{name}"] = opt.state[p][k].clone()
+    return out
+
+
+def _step_twice(cfg, batch) -> list[str]:
+    """Two train steps, each from the seeded initial state on `batch`:
+    the names of what differs in bits."""
+    from wacv23_tsnet_tpu_torch.train import (create_train_state,
+                                              make_train_step)
+    runs = []
+    for _ in range(2):
+        state = create_train_state(cfg, device="cuda", seed=0)
+        state, metrics, rec = make_train_step(state)(state, batch, 2e-4)
+        runs.append(_step_bits(state, metrics, rec))
+    torch.cuda.synchronize()
+    return [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+
+
+@pytest.mark.parametrize("tier", ["bit-parity", "fast"])
+def test_toy_train_step_gives_the_same_bits(dev, tier):
+    """Face: every gradient, parameter, Adam moment, metric and the
+    reconstruction bit-equal over two calls, in the bit-parity tier and
+    the fast train tier ("high" + bwd_precision="default" + fast_tail)."""
+    cfg = dataclasses.replace(toy_config(), image_size=128)
+    if tier == "fast":
+        cfg = dataclasses.replace(cfg, precision="high",
+                                  bwd_precision="default", fast_tail=True)
+    assert _step_twice(cfg, _toy_batch(cfg)) == []
+
+
 def _pose_labels(n, hw, nl, seed=0):
     """One-hot pose label maps: body blocks of class 5 and, by sample
     i % 4, a face (class nl-1) in a head (class 2), a head only, neither,
@@ -595,6 +707,19 @@ def test_toy_pose_train_step_kernel_path_matches_plain_path(dev):
     for name in gk:
         rel = ((gk[name] - gp[name]).norm() / gp[name].norm()).item()
         assert rel <= 1e-3, (name, rel)
+
+
+def test_toy_pose_train_step_gives_the_same_bits(dev):
+    """Pose: the same bits over two calls, netDF on the face crops (whose
+    gradient goes back through `sample_separable`) included."""
+    from wacv23_tsnet_tpu_torch.configs import toy_pose_config
+    cfg = dataclasses.replace(toy_pose_config(), image_size=128,
+                              d_n_layers=3)
+    batch = _toy_batch(cfg)
+    batch["tar_lbl"] = _pose_labels(2, 128, cfg.label_nc, seed=1)
+    batch["src_lbl"] = _pose_labels(4, 128, cfg.label_nc, seed=2).reshape(
+        2, 2, 128, 128, cfg.label_nc)
+    assert _step_twice(cfg, batch) == []
 
 
 def _assert_bf16_close(got, want, atol=1e-3):

@@ -9,7 +9,7 @@
 // bilinear 4-tap gather of the un-normalised source a at the flow:
 //
 //   gflow[t] = gf[t] + (W/2, H/2) * sum_q <gw[t], a[corner_q]> dweight_q
-//   da[u]   += sum over the rows t whose corners hit u of weight * gw[t]
+//   da[u]    = sum over the rows t whose corners hit u of weight * gw[t]
 //   gP       = gflow_x gx^T + gflow_y gy^T (rank 2), and since flow = P grid,
 //              rowsum(gP o P) = gflow . flow, so
 //   gz[t, u] = P[t, u] (gflow_x[t] (gx[u] - flow_x[t])
@@ -29,11 +29,21 @@
 // tensor-core products, about fp32 accuracy (sgemm_tile_sm90.cuh). Bytes
 // are small beside that.
 //
-// Design: five launches, exactly three products, atomics only for da.
+// Design: seven launches, exactly three products, no atomics.
 //   warp_bwd   one warp per (pair, target row): the 4-tap dot products
-//              give gflow (written for the next launch), and da is a 4-tap
-//              scatter-add into a zeroed da (16-byte fp32 atomics where
-//              C % 4 == 0: a lane owns 4 channels of each corner).
+//              give gflow (written for the logits launch).
+//   da_sort    one block per (g, s): its 4 F T corner contributions (item
+//              k = 4 (f T + t) + q) keyed by the source pixel they hit,
+//              corners off the canvas dropped, and placed by a stable
+//              counting sort: counts, an exclusive scan, and each item's
+//              rank among the earlier items of its pixel, taken by one
+//              warp that walks the items in k order 32 at a time
+//              (__match_any_sync groups a step's equal keys).
+//   da_sum     one warp per (g, s, source pixel u): the sum of weight *
+//              gw row over u's bucket, in k order, written whole (a lane
+//              owns 4 channels where C % 4 == 0). So da is summed in a
+//              fixed order, as the JAX kernel sums it in its fixed grid
+//              order, and needs no zeroed buffer.
 //   logits     one block per (pair, 64-row target tile), on the logit tile
 //              of attention_tile_sm90.cuh (the forward's: 8 x 8 register
 //              blocks, cp.async double buffer; each logit the same in-order
@@ -54,9 +64,9 @@
 //   reduce     the per-pair partials into gmt (over s), gms and the
 //              per-(g, s) ggrid partial (over f and row tiles), in a fixed
 //              order.
-// The gL scratch is 2 * G*S*F*T*TP floats (0.38 GB at the train shape). All
-// sums except da's run in a fixed order, so two calls give the same bits
-// apart from da.
+// The gL scratch is 2 * G*S*F*T*TP floats (0.38 GB at the train shape);
+// da's is 3 ints an item and T + 1 offsets a (g, s) (2.4 MB). Every sum
+// runs in a fixed order, so two calls give the same bits.
 //
 // Any T and C: rows, columns and channels past the edge are masked; where
 // C % 4 != 0 or a plane is not 16-byte aligned the same kernels copy 4
@@ -77,16 +87,44 @@ using tsnet_attn::tile_row;
 using tsnet_attn::TM;
 using tsnet_attn::TN;
 
-constexpr int WARP_ROWS = 8;            // warp_bwd: rows (warps) per block
+constexpr int WARP_ROWS = 8;            // warp_bwd, da_sum: warps per block
 constexpr int STAGE_LD = TM + 4;        // transposing stage: row stride
 constexpr int REDUCE_THREADS = 256;
+constexpr int SORT_THREADS = 512;       // da_sort
+constexpr int SORT_SMEM_COUNTS = 8192;  // counts in shared memory up to T
+constexpr unsigned FULL = 0xffffffffu;
 
 // Per target row of a tile: what the softmax backward needs.
 struct RowData {
   float mt, lse, flx, fly, gfx, gfy;
 };
 
-// ---- warp backward: gflow and the da scatter, one warp per row ----------
+// The bilinear taps of one flow row as grid_sample takes them
+// (align_corners=False, zeros outside): corner q is (y0 + q / 2,
+// x0 + q % 2).
+struct Taps {
+  int xi, yi;
+  float wx, wy;
+  __device__ __forceinline__ Taps(const float* fl, int H, int W) {
+    const float ix = ((fl[0] + 1.f) * W - 1.f) * 0.5f;
+    const float iy = ((fl[1] + 1.f) * H - 1.f) * 0.5f;
+    const float x0 = floorf(ix), y0 = floorf(iy);
+    wx = ix - x0;
+    wy = iy - y0;
+    xi = (int)x0;
+    yi = (int)y0;
+  }
+  // the source pixel of corner q, or -1 off the canvas
+  __device__ __forceinline__ int pixel(int q, int H, int W) const {
+    const int x = xi + (q & 1), y = yi + (q >> 1);
+    return x >= 0 && x <= W - 1 && y >= 0 && y <= H - 1 ? y * W + x : -1;
+  }
+  __device__ __forceinline__ float weight(int q) const {
+    return ((q >> 1) ? wy : 1.f - wy) * ((q & 1) ? wx : 1.f - wx);
+  }
+};
+
+// ---- warp backward: gflow, one warp per row ------------------------------
 template <bool VEC>
 __global__ void __launch_bounds__(WARP_ROWS * 32) warp_bwd_kernel(
     const float* __restrict__ src,    // (G, S, T, C) un-normalised
@@ -94,7 +132,6 @@ __global__ void __launch_bounds__(WARP_ROWS * 32) warp_bwd_kernel(
     const float* __restrict__ gw,     // (G, S, F, T, C)
     const float* __restrict__ gf,     // (G, S, F, T, 2)
     float* __restrict__ gflow,        // (G, S, F, T, 2) out
-    float* __restrict__ da,           // (G, S, T, C) out, zeroed
     int F, int T, int C, int H, int W) {
   const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * WARP_ROWS + (threadIdx.x >> 5);
@@ -104,17 +141,9 @@ __global__ void __launch_bounds__(WARP_ROWS * 32) warp_bwd_kernel(
   const size_t row = (size_t)pair * T + t;
   const float* a = src + (size_t)gs * T * C;
   const float* gwr = gw + row * C;
-  float* dag = da + (size_t)gs * T * C;
 
-  const float ix = ((flow[2 * row] + 1.f) * W - 1.f) * 0.5f;
-  const float iy = ((flow[2 * row + 1] + 1.f) * H - 1.f) * 0.5f;
-  const float x0 = floorf(ix), y0 = floorf(iy);
-  const float wx = ix - x0, wy = iy - y0;
-  const int xi = (int)x0, yi = (int)y0;
-  const int cy[4] = {yi, yi, yi + 1, yi + 1};
-  const int cx[4] = {xi, xi + 1, xi, xi + 1};
-  const float cw[4] = {(1.f - wy) * (1.f - wx), (1.f - wy) * wx,
-                       wy * (1.f - wx), wy * wx};
+  const Taps tap(flow + 2 * row, H, W);
+  const float wx = tap.wx, wy = tap.wy;
   // d weight / d ix and d weight / d iy of each corner
   const float dwx[4] = {-(1.f - wy), 1.f - wy, -wy, wy};
   const float dwy[4] = {-(1.f - wx), -wx, 1.f - wx, wx};
@@ -122,8 +151,9 @@ __global__ void __launch_bounds__(WARP_ROWS * 32) warp_bwd_kernel(
   bool in[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    in[q] = cx[q] >= 0 && cx[q] <= W - 1 && cy[q] >= 0 && cy[q] <= H - 1;
-    idx[q] = in[q] ? cy[q] * W + cx[q] : 0;
+    const int u = tap.pixel(q, H, W);
+    in[q] = u >= 0;
+    idx[q] = in[q] ? u : 0;
   }
 
   float dot[4] = {0.f, 0.f, 0.f, 0.f};
@@ -139,9 +169,6 @@ __global__ void __launch_bounds__(WARP_ROWS * 32) warp_bwd_kernel(
         dot[q] = fmaf(g.y, v.y, dot[q]);
         dot[q] = fmaf(g.z, v.z, dot[q]);
         dot[q] = fmaf(g.w, v.w, dot[q]);
-        atomicAdd(reinterpret_cast<float4*>(dag + (size_t)idx[q] * C + c),
-                  make_float4(cw[q] * g.x, cw[q] * g.y, cw[q] * g.z,
-                              cw[q] * g.w));
       }
     }
   } else {
@@ -151,7 +178,6 @@ __global__ void __launch_bounds__(WARP_ROWS * 32) warp_bwd_kernel(
       for (int q = 0; q < 4; ++q) {
         if (!in[q]) continue;
         dot[q] = fmaf(g, a[(size_t)idx[q] * C + c], dot[q]);
-        atomicAdd(dag + (size_t)idx[q] * C + c, cw[q] * g);
       }
     }
   }
@@ -159,7 +185,7 @@ __global__ void __launch_bounds__(WARP_ROWS * 32) warp_bwd_kernel(
   for (int q = 0; q < 4; ++q)
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      dot[q] += __shfl_xor_sync(0xffffffffu, dot[q], off);
+      dot[q] += __shfl_xor_sync(FULL, dot[q], off);
   if (lane == 0) {
     float gix = 0.f, giy = 0.f;
 #pragma unroll
@@ -170,6 +196,130 @@ __global__ void __launch_bounds__(WARP_ROWS * 32) warp_bwd_kernel(
     }
     gflow[2 * row] = gf[2 * row] + gix * (W * 0.5f);
     gflow[2 * row + 1] = gf[2 * row + 1] + giy * (H * 0.5f);
+  }
+}
+
+// ---- da, first: a stable counting sort by source pixel, a block a (g, s) --
+__global__ void __launch_bounds__(SORT_THREADS) da_sort_kernel(
+    const float* __restrict__ flow,  // (G, S, F, T, 2)
+    int* __restrict__ keys,    // (G, S, N) scratch: item k's pixel, or -1
+    int* __restrict__ ranks,   // (G, S, N) scratch: k's place in its bucket
+    int* __restrict__ order,   // (G, S, N) out: the items, bucket by bucket
+    int* __restrict__ offs,    // (G, S, T + 1) out: bucket u's range
+    int F, int T, int H, int W, int smem_counts) {
+  extern __shared__ int counts_smem[];
+  __shared__ int warp_sums[SORT_THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gs = blockIdx.x, N = 4 * F * T;
+  const float* fl = flow + (size_t)gs * F * T * 2;
+  int* key = keys + (size_t)gs * N;
+  int* rank = ranks + (size_t)gs * N;
+  int* ord = order + (size_t)gs * N;
+  int* off = offs + (size_t)gs * (T + 1);
+  int* cnt = smem_counts ? counts_smem : off;  // off is scanned in place
+
+  for (int k = tid; k < N; k += SORT_THREADS)
+    key[k] = Taps(fl + 2 * (k >> 2), H, W).pixel(k & 3, H, W);
+  for (int u = tid; u < T; u += SORT_THREADS) cnt[u] = 0;
+  __syncthreads();
+
+  // ranks: one warp walks the items in k order, 32 at a time; a step's
+  // equal keys rank among themselves by lane, after the earlier steps'
+  if (warp == 0) {
+    const unsigned below = (1u << lane) - 1u;
+    int next = lane < N ? key[lane] : -1;
+    for (int base = 0; base < N; base += 32) {
+      const int k = base + lane, u = next;
+      next = k + 32 < N ? key[k + 32] : -1;
+      const unsigned peers = __match_any_sync(FULL, u);
+      const int c = u >= 0 ? cnt[u] : 0;
+      __syncwarp();
+      if (u >= 0) {
+        rank[k] = c + __popc(peers & below);
+        if (lane == __ffs(peers) - 1) cnt[u] = c + __popc(peers);
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // offsets: the exclusive scan of the counts, SORT_THREADS at a time
+  int carry = 0;
+  for (int u0 = 0; u0 < T; u0 += SORT_THREADS) {
+    const int u = u0 + tid;
+    const int v = u < T ? cnt[u] : 0;
+    int x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_sums[warp] = x;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < SORT_THREADS / 32; ++w) {
+      const int sw = warp_sums[w];
+      before += w < warp ? sw : 0;
+      total += sw;
+    }
+    if (u < T) off[u] = carry + before + x - v;
+    carry += total;
+    __syncthreads();  // warp_sums and cnt are read before the next writes
+  }
+  if (tid == 0) off[T] = carry;
+  __syncthreads();
+
+  for (int k = tid; k < N; k += SORT_THREADS) {
+    const int u = key[k];
+    if (u >= 0) ord[off[u] + rank[k]] = k;
+  }
+}
+
+// ---- da, second: each source pixel's bucket summed in order, a warp each --
+template <bool VEC>
+__global__ void __launch_bounds__(WARP_ROWS * 32) da_sum_kernel(
+    const float* __restrict__ flow,   // (G, S, F, T, 2)
+    const float* __restrict__ gw,     // (G, S, F, T, C)
+    const int* __restrict__ order,    // (G, S, N) from da_sort
+    const int* __restrict__ offs,     // (G, S, T + 1) from da_sort
+    float* __restrict__ da,           // (G, S, T, C) out
+    int F, int T, int C, int H, int W) {
+  const int lane = threadIdx.x & 31;
+  const int u = blockIdx.x * WARP_ROWS + (threadIdx.x >> 5);
+  const int gs = blockIdx.y;
+  if (u >= T) return;
+  const size_t row0 = (size_t)gs * F * T;      // the (g, s)'s first row
+  const int* ord = order + row0 * 4;
+  const int b = offs[(size_t)gs * (T + 1) + u];
+  const int e = offs[(size_t)gs * (T + 1) + u + 1];
+  float* out = da + ((size_t)gs * T + u) * C;
+  if (VEC) {  // C % 4 == 0, 16-byte aligned planes: 4 channels a lane
+    for (int c = 4 * lane; c < C; c += 128) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = b; i < e; ++i) {
+        const int k = ord[i];
+        const size_t r = row0 + (k >> 2);
+        const float wq = Taps(flow + 2 * r, H, W).weight(k & 3);
+        const float4 g = *reinterpret_cast<const float4*>(gw + r * C + c);
+        acc.x = fmaf(wq, g.x, acc.x);
+        acc.y = fmaf(wq, g.y, acc.y);
+        acc.z = fmaf(wq, g.z, acc.z);
+        acc.w = fmaf(wq, g.w, acc.w);
+      }
+      *reinterpret_cast<float4*>(out + c) = acc;
+    }
+  } else {
+    for (int c = lane; c < C; c += 32) {
+      float acc = 0.f;
+      for (int i = b; i < e; ++i) {
+        const int k = ord[i];
+        const size_t r = row0 + (k >> 2);
+        acc = fmaf(Taps(flow + 2 * r, H, W).weight(k & 3), gw[r * C + c],
+                   acc);
+      }
+      out[c] = acc;
+    }
   }
 }
 
@@ -372,42 +522,64 @@ cudaError_t launch_gemm(tsnet_sgemm::Operand a, tsnet_sgemm::Operand b,
 
 extern "C" {
 
-// Every pointer is a contiguous f32 tensor on the device; da must be
-// zeroed by the caller (the scatter adds into it). Scratch: gflow of the
-// shape of flow; gl (G, S, F, T, TP) and glt (G, F, S, T, TP) with
-// TP = T rounded up to a multiple of 4; gmt_part (G, S, F, T); col_part
-// (G, S, F, NRT, T, 3) with NRT = ceil(T / 64). `phases` selects the
-// launches by bit (1 warp_bwd, 2 logits, 4 gtn, 8 gsn, 16 reduce; 31 all),
-// so that each can be timed alone.
+// Every pointer is a contiguous f32 tensor on the device but da_part,
+// int32. Scratch: gflow of the shape of flow; da_part 3 G*S*N + G*S*(T + 1)
+// ints with N = 4 F T (da_sort's keys, ranks, order and offsets); gl
+// (G, S, F, T, TP) and glt (G, F, S, T, TP) with TP = T rounded up to a
+// multiple of 4; gmt_part (G, S, F, T); col_part (G, S, F, NRT, T, 3) with
+// NRT = ceil(T / 64). `phases` selects the launches by bit (1 warp_bwd,
+// 2 da_sort, 4 da_sum, 8 logits, 16 gtn, 32 gsn, 64 reduce; 127 all), so
+// that each can be timed alone once the launches before it have run.
 int tsnet_transform_warp_bwd(
     const void* src, const void* src_n, const void* src_mask,
     const void* tar_n, const void* tar_mask, const void* grid,
     const void* flow, const void* lse, const void* gw, const void* gf,
     void* gflow, void* da, void* gtn, void* gsn, void* gmt, void* gms,
-    void* gg_part, void* gl, void* glt, void* gmt_part, void* col_part,
-    int G, int S, int F, int T, int C, int H, int W, float temp, int phases,
-    void* stream) {
+    void* gg_part, void* da_part, void* gl, void* glt, void* gmt_part,
+    void* col_part, int G, int S, int F, int T, int C, int H, int W,
+    float temp, int phases, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* fsrc_n = static_cast<const float*>(src_n);
   const float* ftar_n = static_cast<const float*>(tar_n);
+  const float* fflow = static_cast<const float*>(flow);
+  const float* fgw = static_cast<const float*>(gw);
   float* fgl = static_cast<float*>(gl);
   float* fglt = static_cast<float*>(glt);
   const int TP = (T + 3) / 4 * 4;
   const int NRT = (T + TM - 1) / TM;
+  const size_t items = (size_t)G * S * 4 * F * T;
+  int* keys = static_cast<int*>(da_part);
+  int* ranks = keys + items;
+  int* order = ranks + items;
+  int* offs = order + items;
   cudaError_t e = cudaSuccess;
 
   if (phases & 1) {
     const dim3 blocks((T + WARP_ROWS - 1) / WARP_ROWS, G * S * F);
-    const bool vec = C % 4 == 0 && aligned16(src) && aligned16(gw) &&
-                     aligned16(da);
+    const bool vec = C % 4 == 0 && aligned16(src) && aligned16(gw);
     auto kernel = vec ? warp_bwd_kernel<true> : warp_bwd_kernel<false>;
     kernel<<<blocks, WARP_ROWS * 32, 0, st>>>(
-        static_cast<const float*>(src), static_cast<const float*>(flow),
-        static_cast<const float*>(gw), static_cast<const float*>(gf),
-        static_cast<float*>(gflow), static_cast<float*>(da), F, T, C, H, W);
+        static_cast<const float*>(src), fflow, fgw,
+        static_cast<const float*>(gf), static_cast<float*>(gflow), F, T, C,
+        H, W);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   if (phases & 2) {
+    const int smem_counts = T <= SORT_SMEM_COUNTS;
+    da_sort_kernel<<<G * S, SORT_THREADS,
+                     smem_counts ? T * sizeof(int) : 0, st>>>(
+        fflow, keys, ranks, order, offs, F, T, H, W, smem_counts);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if (phases & 4) {
+    const dim3 blocks((T + WARP_ROWS - 1) / WARP_ROWS, G * S);
+    const bool vec = C % 4 == 0 && aligned16(gw) && aligned16(da);
+    auto kernel = vec ? da_sum_kernel<true> : da_sum_kernel<false>;
+    kernel<<<blocks, WARP_ROWS * 32, 0, st>>>(
+        fflow, fgw, order, offs, static_cast<float*>(da), F, T, C, H, W);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if (phases & 8) {
     auto kernel = tsnet_attn::vector_loads(C, src_n, tar_n)
                       ? logits_bwd_kernel<true>
                       : logits_bwd_kernel<false>;
@@ -421,14 +593,14 @@ int tsnet_transform_warp_bwd(
     kernel<<<dim3(NRT, G * S * F), tsnet_attn::THREADS, dyn, st>>>(
         fsrc_n, static_cast<const float*>(src_mask), ftar_n,
         static_cast<const float*>(tar_mask), static_cast<const float*>(grid),
-        static_cast<const float*>(flow), static_cast<const float*>(lse),
+        fflow, static_cast<const float*>(lse),
         static_cast<const float*>(gflow), fgl, fglt,
         static_cast<float*>(gmt_part), static_cast<float*>(col_part), S, F,
         T, C, TP, temp);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   const long long TT = (long long)T * TP, TC = (long long)T * C;
-  if (phases & 4) {  // gtn per (g, f): A = glt rows (s, u), B = sn rows
+  if (phases & 16) {  // gtn per (g, f): A = glt rows (s, u), B = sn rows
     const tsnet_sgemm::Operand a = {fglt, F * S * TT, S * TT, TP};
     const tsnet_sgemm::Operand b = {fsrc_n, S * TC, 0, C};
     e = tsnet_attn::vector_loads(C, src_n, gtn)
@@ -438,7 +610,7 @@ int tsnet_transform_warp_bwd(
                                  T, C, S * T, G, F, st);
     if (e != cudaSuccess) return (int)e;
   }
-  if (phases & 8) {  // gsn per (g, s): A = gl rows (f, t), B = tn rows
+  if (phases & 32) {  // gsn per (g, s): A = gl rows (f, t), B = tn rows
     const tsnet_sgemm::Operand a = {fgl, S * F * TT, F * TT, TP};
     const tsnet_sgemm::Operand b = {ftar_n, F * TC, 0, C};
     e = tsnet_attn::vector_loads(C, tar_n, gsn)
@@ -448,7 +620,7 @@ int tsnet_transform_warp_bwd(
                                  T, C, F * T, G, S, st);
     if (e != cudaSuccess) return (int)e;
   }
-  if (phases & 16) {
+  if (phases & 64) {
     const int n = G * T * (S > F ? S : F);
     reduce_bwd_kernel<<<(n + REDUCE_THREADS - 1) / REDUCE_THREADS,
                         REDUCE_THREADS, 0, st>>>(

@@ -242,8 +242,10 @@ def transform_warp_pairs_fwd(src_fea, tar_fea_n, src_fea_n, tar_mask,
     return out, flow, lse
 
 
-# K4's launches, by the bit that selects each (csrc/transform_warp_bwd.cu)
-BWD_PHASES = ("warp_bwd", "logits", "gtn", "gsn", "reduce")
+# K4's launches in the order they run, by the bit that selects each
+# (csrc/transform_warp_bwd.cu); each reads what the ones before it wrote
+BWD_PHASES = ("warp_bwd", "da_sort", "da_sum", "logits", "gtn", "gsn",
+              "reduce")
 _BWD_ALL = (1 << len(BWD_PHASES)) - 1
 _BWD_TM = 64   # target rows per logit block (TM of the logit tile)
 
@@ -277,7 +279,7 @@ def bwd_launcher(src_fea, tar_fea_n, src_fea_n, tar_mask, src_mask, grid,
     outputs filled once every launch has run (gg_part: ggrid's partial per
     (group, source)). launch(phases) runs the launches whose bits `phases`
     sets (bit i: BWD_PHASES[i]; all by default) and counts nothing, so a
-    caller may time them apart."""
+    caller may time them apart, each after the ones before it have run."""
     g, ns, nf, t, c = _pairs_shapes(src_fea, tar_fea_n, h, w)
     _check_cuda("transform_warp_bwd", {
         **_pairs_specs(src_fea, tar_fea_n, src_fea_n, tar_mask, src_mask,
@@ -289,12 +291,16 @@ def bwd_launcher(src_fea, tar_fea_n, src_fea_n, tar_mask, src_mask, grid,
     tp = -(-t // 4) * 4                  # gL rows padded to 16 bytes
     nrt = -(-t // _BWD_TM)
     gflow = torch.empty((g, ns, nf, t, 2), **kw)
-    da = torch.zeros((g, ns, t, c), **kw)
+    da = torch.empty((g, ns, t, c), **kw)
     gtn = torch.empty((g, nf, t, c), **kw)
     gsn = torch.empty((g, ns, t, c), **kw)
     gmt = torch.empty((g, nf, t), **kw)
     gms = torch.empty((g, ns, t), **kw)
     gg_part = torch.empty((g, ns, t, 2), **kw)
+    # da's counting sort: keys, ranks and order of the 4 NF T corner
+    # contributions of each (group, source), and its T + 1 bucket offsets
+    da_part = torch.empty(g * ns * (3 * 4 * nf * t + t + 1),
+                          dtype=torch.int32, device=src_fea.device)
     gl = torch.empty((g, ns, nf, t, tp), **kw)
     glt = torch.empty((g, nf, ns, t, tp), **kw)
     gmt_part = torch.empty((g, ns, nf, t), **kw)
@@ -308,8 +314,8 @@ def bwd_launcher(src_fea, tar_fea_n, src_fea_n, tar_mask, src_mask, grid,
                 p(src_fea), p(src_fea_n), p(src_mask), p(tar_fea_n),
                 p(tar_mask), p(grid), p(flow), p(lse), p(g_warped),
                 p(g_flow), p(gflow), p(da), p(gtn), p(gsn), p(gmt), p(gms),
-                p(gg_part), p(gl), p(glt), p(gmt_part), p(col_part), g, ns,
-                nf, t, c, h, w, float(temp), phases,
+                p(gg_part), p(da_part), p(gl), p(glt), p(gmt_part),
+                p(col_part), g, ns, nf, t, c, h, w, float(temp), phases,
                 cuda_build.stream_of(src_fea))
         cuda_build.check_launch(lib, err, "transform_warp_bwd")
 
@@ -382,7 +388,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib = cuda_build.load_library("transform_warp_bwd")
     fn = lib.tsnet_transform_warp_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib

@@ -8,6 +8,10 @@ real branch is detached. The pose variant (`use_face_d`) adds the face
 discriminator netDF to both phases, on `crop_faces` of the
 reconstruction and of the target (DF_* and GF_* terms, the GF VGG loss on
 the crops). The metrics carry the JAX package's names.
+
+As the JAX package's step, it gives the same bits on every call from the
+same state and batch: it runs under `deterministic_cudnn()`, and the
+kernels (K3-flow, K4, K2) and the crops' backward sum in a fixed order.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from ..losses import (feature_matching_loss, gradient_loss, lsgan_loss,
                       vgg_perceptual_loss)
 from ..models.tsnet import crop_faces, disc_subnets, tsnet_forward
+from ..ops.precision import deterministic_cudnn
 from .state import TrainState
 
 BATCH_KEYS = ("src_img", "src_lbl", "src_bbox", "tar_img", "tar_lbl",
@@ -65,6 +70,10 @@ def make_train_step(state: TrainState, lambda_dec: float = 1.0,
             group["lr"] = subnet_lr[group["name"]] * lr
 
     def step(state: TrainState, batch: dict, lr: float):
+        with deterministic_cudnn():
+            return run(state, batch, lr)
+
+    def run(state: TrainState, batch: dict, lr: float):
         b = {k: torch.as_tensor(batch[k], device=mods.device).float()
              for k in BATCH_KEYS}
         state.gen_opt.zero_grad(set_to_none=True)
