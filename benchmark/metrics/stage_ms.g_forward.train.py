@@ -1,0 +1,11 @@
+"""Device ms a train step spends in the program's span
+`tsnet.train.g_forward`: the generator forward
+(`tsnet_forward(train=True)`) (layer: train step)."""
+
+from benchmark import program_spans
+
+
+def read(rec):
+    return program_spans.per_unit_ms(rec, program_spans.registry(),
+                                     ["tsnet.train.g_forward"],
+                                     "tsnet.train.step", "train_shape")

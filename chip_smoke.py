@@ -602,7 +602,8 @@ def device_parts(call, iters: int = 5) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
     parts = {}
     for e in prof.key_averages():
-        if e.device_type == cuda and e.self_device_time_total > 0:
+        if (e.device_type == cuda and not e.is_user_annotation
+                and e.self_device_time_total > 0):
             name = re.sub(r"\(anonymous namespace\)::|^void ", "",
                           e.key).split("(")[0][:48]
             parts[name] = {"ms": e.self_device_time_total / 1e3 / e.count,
@@ -915,12 +916,15 @@ def device_breakdown(forward, tier: str, top: int = 12) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
-    rows = [e for e in prof.key_averages() if e.device_type == cuda]
+    # the device's own operations, not the port's spans projected there
+    rows = [e for e in prof.key_averages()
+            if e.device_type == cuda and not e.is_user_annotation]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     # busy time: the union of the kernels' intervals, so that kernels
     # that overlap (another stream) are not counted twice
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == cuda)
+                   for e in prof.events()
+                   if e.device_type == cuda and not e.is_user_annotation)
     busy_us, last_end = 0.0, float("-inf")
     for start, end in spans:
         if end > last_end:

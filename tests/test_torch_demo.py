@@ -53,8 +53,7 @@ from wacv23_tsnet_tpu_torch.infer import save_gif
 from wacv23_tsnet_tpu_torch.models import TSNet, TSNetModules
 from wacv23_tsnet_tpu_torch.models.tsnet import (encode_sources,
                                                  tsnet_forward_clip)
-from wacv23_tsnet_tpu_torch.utils.profiling import (StepProfiler, annotate,
-                                                    trace)
+from wacv23_tsnet_tpu_torch.utils.profiling import span, spans, trace
 
 torch.set_num_threads(2)
 RNG = np.random.default_rng(31)
@@ -502,14 +501,12 @@ def test_entry_points_refuse_cuda_less_device(face_pair, snapshot_dir,
 def test_profiling_helpers(tmp_path):
     log_dir = str(tmp_path / "trace")
     with trace(log_dir) as prof:
-        with annotate("tsnet_region"):
+        with span("tsnet_region"):
             torch.ones(8).sum()
     assert "tsnet_region" in open(os.path.join(log_dir, "trace.json")).read()
     assert any(e.key == "tsnet_region" for e in prof.key_averages())
-    p = StepProfiler(window=3)
-    assert p.summary() == {}
-    for _ in range(5):
-        p.start()
-        p.stop()
-    s = p.summary()
-    assert len(p.samples) == 3 and s["p50_s"] <= s["max_s"]
+    got = spans()["tsnet_region"]
+    assert got["count"] == 1 and got["self_ms"] == got["ms"] >= 0.0
+    with span("tsnet_region"):          # no profiler: not recorded
+        torch.ones(8).sum()
+    assert spans()["tsnet_region"]["count"] == 1

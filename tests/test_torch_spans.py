@@ -1,0 +1,201 @@
+"""The port's spans and set-up counters (`utils.profiling`) on the CPU:
+off without a profiler, and under one the clip's and the train step's
+stages, each once a job, chunk or step, nested under the unit's span and
+placed among the profiler's host events."""
+
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from wacv23_tsnet_tpu_torch.configs import toy_config, toy_pose_config
+from wacv23_tsnet_tpu_torch.infer.pipeline import ClipInference
+from wacv23_tsnet_tpu_torch.models.tsnet import TSNetModules
+from wacv23_tsnet_tpu_torch.train import create_train_state, make_train_step
+from wacv23_tsnet_tpu_torch.utils import profiling
+from wacv23_tsnet_tpu_torch.utils.profiling import (SETUP_S, reset_spans,
+                                                    setup_time, span,
+                                                    span_records, spans)
+
+torch.set_num_threads(2)
+
+CLIP_STAGES = ("tsnet.encode_sources", "tsnet.lbl_enc", "tsnet.warp",
+               "tsnet.fuse", "tsnet.decode")
+TRAIN_STAGES = ("tsnet.train.g_forward", "tsnet.train.d_phase",
+                "tsnet.train.d_opt", "tsnet.train.g_loss_forward",
+                "tsnet.train.g_backward", "tsnet.train.g_opt")
+
+
+def clip_job(cfg, frames, seed=0):
+    """`ClipInference.run`'s host arrays for one toy job."""
+    rng = np.random.default_rng(seed)
+    s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
+    return (rng.random((s, 3, hw, hw), np.float32) * 255.0,
+            rng.integers(0, nl, (s, hw, hw)).astype(np.uint8),
+            np.ones((s, hw, hw), np.float32),
+            rng.integers(0, nl, (frames, hw, hw)).astype(np.uint8),
+            np.ones((frames, hw, hw), np.float32))
+
+
+def train_batch(cfg, bs=2, seed=0):
+    rng = np.random.default_rng(seed)
+    s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
+    onehot = np.eye(nl, dtype=np.float32)
+    return {"src_img": rng.random((bs, s, hw, hw, 3), np.float32),
+            "src_lbl": onehot[rng.integers(0, nl, (bs, s, hw, hw))],
+            "src_bbox": np.ones((bs, s, hw, hw), np.float32),
+            "tar_img": rng.random((bs, hw, hw, 3), np.float32),
+            "tar_lbl": onehot[rng.integers(0, nl, (bs, hw, hw))],
+            "tar_bbox": np.ones((bs, hw, hw), np.float32)}
+
+
+@pytest.fixture(scope="module")
+def engine():
+    cfg = toy_config()
+    return ClipInference(cfg, TSNetModules(cfg, device="cpu"), chunk=3,
+                         device="cpu")
+
+
+@pytest.fixture(scope="module")
+def trainer():
+    state = create_train_state(toy_config(), device="cpu", seed=0)
+    return state, make_train_step(state)
+
+
+def profiled(fn):
+    """Run `fn` under `torch.profiler` on a clean span registry; the host
+    events as (name, start_us, end_us)."""
+    reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return [(e.name(), e.start_ns() / 1e3,
+             (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()]
+
+
+def test_span_off_opens_no_region_and_no_event(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("touched with no profiler running")
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    reset_spans()
+    assert span("a", "cuda") is span("b")       # one shared no-op
+    with span("tsnet.off", "cuda"), span("tsnet.off.inner"):
+        pass
+    assert spans() == {} and span_records() == []
+
+
+def test_no_profiler_no_spans(engine, trainer):
+    reset_spans()
+    engine.run(*clip_job(engine.cfg, 4))
+    state, step = trainer
+    step(state, train_batch(state.mods.cfg), 2e-4)
+    assert spans() == {} and span_records() == []
+
+
+def test_clip_spans_under_a_profiler(engine):
+    host = profiled(lambda: engine.run(*clip_job(engine.cfg, 5)))  # 2 chunks
+    got = spans()
+    assert got["tsnet.clip.run"]["count"] == 1
+    assert got["tsnet.clip.upload"]["count"] == 1
+    assert got["tsnet.clip.copy_back"]["count"] == 1
+    for name in CLIP_STAGES:            # encode_sources too: once a chunk
+        assert got[name]["count"] == 2, name
+    recs = span_records()
+    assert {r["unit"] for r in recs} == {recs[0]["unit"]}
+    for r in recs:
+        assert r["parent"] == (None if r["name"] == "tsnet.clip.run"
+                               else "tsnet.clip.run"), r
+        assert r["ms"] >= 0.0
+    run = [(s, e) for n, s, e in host if n == "tsnet.clip.run"]
+    assert len(run) == 1
+    lo, hi = run[0]
+    for name in got:
+        inside = [(s, e) for n, s, e in host
+                  if n == name and lo <= s and e <= hi]
+        assert len(inside) == got[name]["count"], name
+    covered = sum(got[n]["ms"] for n in got if n != "tsnet.clip.run")
+    assert covered <= got["tsnet.clip.run"]["ms"] * (1 + 1e-9)
+    assert got["tsnet.clip.run"]["self_ms"] == pytest.approx(
+        got["tsnet.clip.run"]["ms"] - covered, abs=1e-6)
+
+
+@pytest.mark.parametrize("cfg", [toy_config, toy_pose_config])
+def test_train_spans_under_a_profiler(cfg, trainer):
+    if cfg is toy_config:
+        state, step = trainer
+    else:
+        state = create_train_state(cfg(), device="cpu", seed=0)
+        step = make_train_step(state)
+    batch = train_batch(state.mods.cfg)
+    step(state, batch, 2e-4)            # warm, unprofiled
+    host = profiled(lambda: [step(state, batch, 2e-4) for _ in range(2)])
+    got = spans()
+    assert got["tsnet.train.step"]["count"] == 2
+    assert set(got) == {"tsnet.train.step", *TRAIN_STAGES}
+    for name in TRAIN_STAGES:
+        assert got[name]["count"] == 2, name
+    recs = span_records()
+    units = [r["unit"] for r in recs if r["name"] == "tsnet.train.step"]
+    assert len(set(units)) == 2
+    for r in recs:
+        if r["name"] != "tsnet.train.step":
+            assert r["parent"] == "tsnet.train.step", r
+            assert r["unit"] in units
+    assert sum(r["unit"] == units[0] for r in recs) == 7
+    step_s = got["tsnet.train.step"]
+    assert 0.0 <= step_s["self_ms"] < 0.05 * step_s["ms"], step_s
+    steps = [(s, e) for n, s, e in host if n == "tsnet.train.step"]
+    assert len(steps) == 2
+    for name in TRAIN_STAGES:
+        inside = [n for n, s, e in host if n == name
+                  and any(lo <= s and e <= hi for lo, hi in steps)]
+        assert len(inside) == 2, name
+
+
+def test_span_units_and_self_time():
+    """A span's self ms is its ms less its children's; every span of one
+    outermost span shares its unit, and the next outermost opens another."""
+    reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            with span("outer", "cpu"):
+                with span("inner", "cpu"):
+                    time.sleep(0.02)
+                with span("inner", "cpu"):
+                    with span("leaf", "cpu"):
+                        time.sleep(0.01)
+                time.sleep(0.01)
+    got = spans()
+    assert {k: v["count"] for k, v in got.items()} == {
+        "outer": 2, "inner": 4, "leaf": 2}
+    for v in got.values():
+        assert 0.0 <= v["self_ms"] <= v["ms"]
+    assert got["inner"]["self_ms"] == pytest.approx(
+        got["inner"]["ms"] - got["leaf"]["ms"], abs=1e-6)
+    assert got["outer"]["self_ms"] == pytest.approx(
+        got["outer"]["ms"] - got["inner"]["ms"], abs=1e-6)
+    assert got["outer"]["self_ms"] >= 15.0        # the two 10-ms sleeps
+    recs = span_records()
+    assert [r["parent"] for r in recs[:4]] == [None, "outer", "outer",
+                                               "inner"]
+    assert len({r["unit"] for r in recs[:4]}) == 1
+    assert recs[4]["unit"] != recs[0]["unit"]
+    reset_spans()
+    assert spans() == {}
+
+
+def test_setup_counters():
+    before = SETUP_S.get("modules", 0.0)
+    TSNetModules(toy_config(), device="cpu")
+    assert SETUP_S["modules"] > before
+    before = SETUP_S["modules"]
+    t0 = time.perf_counter()
+    create_train_state(toy_config(), device="cpu", seed=0)
+    assert 0.0 < SETUP_S["modules"] - before <= time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with setup_time("tsnet.test"):
+        time.sleep(0.02)
+    assert 0.02 <= SETUP_S.pop("tsnet.test") <= time.perf_counter() - t0

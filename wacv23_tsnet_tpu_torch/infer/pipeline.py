@@ -5,6 +5,10 @@ package's `infer/pipeline.py`).
 one padded by wrapping round the clip, as the JAX package does so that
 jit compiles one program), each chunk through `tsnet_forward_clip`:
 K3-nf + K2 in the bit-parity tier, K1 + K2 in the bench tier (`fast_tail`).
+Under a profiler a job is the span `tsnet.clip.run` (the unit), holding
+`tsnet.clip.upload` (the sources, one-hot labels and boxes to the device),
+each chunk's model stages (`models.tsnet`) and `tsnet.clip.copy_back`
+(the frames to the host).
 `run_renormalized` also renormalizes each frame to the first reference's
 mean and unbiased std on the device (reference demo/demo_face.py:178-198).
 `to_display_rgb` and `montage_row` make the uint8 frames that
@@ -25,6 +29,7 @@ from ..configs import TSNetConfig
 from ..data.gif import write_gif
 from ..device import resolve_device
 from ..models.tsnet import GEN_SUBNETS, TSNetModules, tsnet_forward_clip
+from ..utils.profiling import span
 
 
 class ClipInference:
@@ -80,19 +85,23 @@ class ClipInference:
 
     def _run_chunks(self, fn, src_imgs, src_lbls, src_bboxes, tar_lbls,
                     tar_bboxes) -> np.ndarray:
-        src = self.prepare_sources(src_imgs, src_lbls, src_bboxes)
-        tar_lbl = self._onehot(tar_lbls)
-        tar_bbox = torch.as_tensor(np.asarray(tar_bboxes, np.float32),
-                                   device=self.device)
-        f = tar_lbl.shape[0]
-        outs = []
-        with torch.inference_mode():
-            for lo in range(0, f, self.chunk):
-                idx = torch.arange(lo, lo + self.chunk,
-                                   device=self.device) % f   # pad by wrapping
-                rec = fn(src, tar_lbl[idx], tar_bbox[idx])
-                outs.append(rec[:min(self.chunk, f - lo)])
-            rec = torch.cat(outs).permute(0, 3, 1, 2).cpu().numpy()
+        dev = self.device
+        with span("tsnet.clip.run", dev):
+            with span("tsnet.clip.upload", dev):
+                src = self.prepare_sources(src_imgs, src_lbls, src_bboxes)
+                tar_lbl = self._onehot(tar_lbls)
+                tar_bbox = torch.as_tensor(np.asarray(tar_bboxes, np.float32),
+                                           device=dev)
+            f = tar_lbl.shape[0]
+            outs = []
+            with torch.inference_mode():
+                for lo in range(0, f, self.chunk):
+                    idx = torch.arange(lo, lo + self.chunk,
+                                       device=dev) % f   # pad by wrapping
+                    rec = fn(src, tar_lbl[idx], tar_bbox[idx])
+                    outs.append(rec[:min(self.chunk, f - lo)])
+                with span("tsnet.clip.copy_back", dev):
+                    rec = torch.cat(outs).permute(0, 3, 1, 2).cpu().numpy()
         return rec
 
     def run(self, src_imgs, src_lbls, src_bboxes, tar_lbls, tar_bboxes):

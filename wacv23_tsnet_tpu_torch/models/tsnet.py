@@ -54,6 +54,7 @@ from ..ops.similarity import (transformation_warp_clip,
                               transformation_warp_clip_mean,
                               transformation_warp_sources)
 from ..ops.warp import patch_warp
+from ..utils.profiling import setup_time, span
 
 GEN_SUBNETS = ("img_enc", "lbl_enc", "fuse_net", "dec")
 
@@ -77,7 +78,8 @@ class TSNetModules(nn.Module):
     (initialised from `seed + 1`) and, with `cfg.use_face_d`, the face
     discriminator `netDF` on 3-channel face crops (initialised from
     `seed + 3`; `seed + 2` is the train state's random VGG19), and keeps
-    gradients on.
+    gradients on. Construction counts toward
+    `utils.profiling.SETUP_S["modules"]`.
 
     Every conv of the encoders, FuseNet, the decoder and the
     discriminators runs its backward at `cfg.bwd_precision`
@@ -86,6 +88,7 @@ class TSNetModules(nn.Module):
     decoder, netD, netDF) in the backward pass instead of keeping them.
     """
 
+    @setup_time("modules")
     def __init__(self, cfg: TSNetConfig, device="cuda", seed: int = 0,
                  train: bool = False):
         super().__init__()
@@ -296,7 +299,7 @@ def encode_sources(mods: TSNetModules, src_img: torch.Tensor,
     """Encode the S reference frames once: the source pack reused by
     every chunk of driving frames. src_img (S, H, W, 3), src_lbl
     (S, H, W, L), src_bbox (S, H, W), on the modules' device."""
-    with torch.inference_mode():
+    with torch.inference_mode(), span("tsnet.encode_sources", mods.device):
         enc_in = torch.cat([src_img, src_lbl], dim=-1).to(mods.dtype)
         src_fea = mods.img_enc(enc_in)
         hw = src_fea.shape[1:3]
@@ -312,10 +315,11 @@ def label_features(mods: TSNetModules, tar_lbl: torch.Tensor,
     """The label encoder's stage of `decode_with_sources`: the driving
     frames' label features (F, h, w, C) in the encoders' dtype, their
     f32 L2-normalised form, and the bbox masks at (h, w)."""
-    tar_fea = mods.lbl_enc(tar_lbl.to(mods.dtype))
-    h, w = tar_fea.shape[1:3]
-    return (tar_fea, l2_normalize(tar_fea.float()),
-            resize_nearest(tar_bbox[..., None].float(), (h, w))[..., 0])
+    with span("tsnet.lbl_enc", mods.device):
+        tar_fea = mods.lbl_enc(tar_lbl.to(mods.dtype))
+        h, w = tar_fea.shape[1:3]
+        return (tar_fea, l2_normalize(tar_fea.float()),
+                resize_nearest(tar_bbox[..., None].float(), (h, w))[..., 0])
 
 
 def propagate(mods: TSNetModules, src_pack: dict, tar_fea_n: torch.Tensor,
@@ -324,18 +328,19 @@ def propagate(mods: TSNetModules, src_pack: dict, tar_fea_n: torch.Tensor,
     """The transformation stage of `decode_with_sources`: the source
     features warped to each driving frame and averaged over the sources,
     (F, h, w, C) in the decoder's dtype."""
-    src_fea = src_pack["fea"].float()
-    temp = mods.cfg.softmax_temp
-    if mods.dec.dtype == torch.bfloat16:
-        # fast tail: K1 folds the mean over sources in and writes bf16
-        return transformation_warp_clip_mean(
+    with span("tsnet.warp", mods.device):
+        src_fea = src_pack["fea"].float()
+        temp = mods.cfg.softmax_temp
+        if mods.dec.dtype == torch.bfloat16:
+            # fast tail: K1 folds the mean over sources in and writes bf16
+            return transformation_warp_clip_mean(
+                src_fea, src_pack["fea_n"], src_pack["mask"], tar_fea_n,
+                tar_mask, temp=temp, out_dtype=torch.bfloat16,
+                use_kernels=use_kernels)
+        warped = transformation_warp_clip(
             src_fea, src_pack["fea_n"], src_pack["mask"], tar_fea_n,
-            tar_mask, temp=temp, out_dtype=torch.bfloat16,
-            use_kernels=use_kernels)
-    warped = transformation_warp_clip(
-        src_fea, src_pack["fea_n"], src_pack["mask"], tar_fea_n, tar_mask,
-        temp=temp, use_kernels=use_kernels)
-    return warped.mean(dim=0).to(mods.dtype)
+            tar_mask, temp=temp, use_kernels=use_kernels)
+        return warped.mean(dim=0).to(mods.dtype)
 
 
 def decode(mods: TSNetModules, prop_fea: torch.Tensor, syn_fea: torch.Tensor,
@@ -364,18 +369,25 @@ def decode_with_sources(mods: TSNetModules, src_pack: dict,
     is in the JAX package); on CPU tensors the two are the same path.
     `fused_blocks=True` runs a bf16 decoder's ResNet blocks through K7
     (the JAX package hard-codes False here).
+
+    Under a profiler each stage is a span (`utils.profiling.span`):
+    `tsnet.lbl_enc`, `tsnet.warp`, `tsnet.fuse`, `tsnet.decode` (with the
+    cast to f32 and the foreground composite), as `encode_sources` is
+    `tsnet.encode_sources`.
     """
     with torch.inference_mode():
         tar_fea, tar_fea_n, tar_mask = label_features(mods, tar_lbl,
                                                       tar_bbox)
         prop_fea = propagate(mods, src_pack, tar_fea_n, tar_mask,
                              use_kernels=use_kernels)
-        syn_fea = fuse_clip(mods.fuse_net, src_pack["fea"].float(),
-                            tar_fea.float(), use_kernels=use_kernels)
-        rec = decode(mods, prop_fea, syn_fea, use_kernels,
-                     fused_blocks=fused_blocks).float()
-        if mods.cfg.use_fg_mask:
-            rec = composite_foreground(rec, mods.cfg)
+        with span("tsnet.fuse", mods.device):
+            syn_fea = fuse_clip(mods.fuse_net, src_pack["fea"].float(),
+                                tar_fea.float(), use_kernels=use_kernels)
+        with span("tsnet.decode", mods.device):
+            rec = decode(mods, prop_fea, syn_fea, use_kernels,
+                         fused_blocks=fused_blocks).float()
+            if mods.cfg.use_fg_mask:
+                rec = composite_foreground(rec, mods.cfg)
         return rec
 
 

@@ -15,6 +15,9 @@ library as `<name>-<hash>.log`. Nothing is built when a module is
 imported, and a failed build raises: no caller falls back to a plain
 version on the GPU.
 
+The seconds spent building and loading count toward
+`utils.profiling.SETUP_S["kernels"]`.
+
 `LAUNCHES` counts, per kernel, the launches its wrapper made; a wrapper
 adds one where it launches and nowhere else, one per call even where the
 call runs several CUDA kernels (a statistics pass and the main kernel).
@@ -34,6 +37,8 @@ import weakref
 from pathlib import Path
 
 import torch
+
+from ..utils.profiling import setup_time
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -100,6 +105,7 @@ def build(name: str) -> Path:
     return out
 
 
+@setup_time("kernels")
 def build_all(names=SOURCES) -> dict[str, float]:
     """Build every kernel source, one nvcc each, all started together.
 
@@ -116,6 +122,7 @@ def build_all(names=SOURCES) -> dict[str, float]:
 
 
 @functools.cache
+@setup_time("kernels")
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of `csrc/<name>.cu`."""
     lib = ctypes.CDLL(str(build(name)))

@@ -23,6 +23,7 @@ from ..configs import TSNetConfig
 from ..device import resolve_device
 from ..models.tsnet import GEN_SUBNETS, TSNetModules, disc_subnets
 from ..nn.vgg import VGG19Features, load_vgg19_npz
+from ..utils.profiling import setup_time
 
 
 @dataclasses.dataclass
@@ -41,22 +42,24 @@ def create_train_state(cfg: TSNetConfig, device="cuda", seed: int = 0,
     netDF from `seed + 3`), the
     VGG19 from `vgg_params` (a flax-layout tree), else from
     `weights/vgg19_features.npz`, else a seeded random init (`seed + 2`),
-    and fresh Adam moments. Runs on the GPU unless `device="cpu"`."""
+    and fresh Adam moments. Runs on the GPU unless `device="cpu"`.
+    Construction counts toward `utils.profiling.SETUP_S["modules"]`."""
     dev = resolve_device(device)
     mods = TSNetModules(cfg, device=dev, seed=seed, train=True)
-    vgg = VGG19Features(dtype=mods.dtype, precision=cfg.precision)
-    tree = vgg_params if vgg_params is not None else load_vgg19_npz()
-    if tree is not None:
-        load_flax_params(vgg, tree.get("params", tree))
-    else:
-        vgg.reset_parameters(torch.Generator().manual_seed(seed + 2))
-    vgg.requires_grad_(False)
-    vgg.to(dev)
-    kw = dict(betas=(beta1, beta2), eps=eps)
-    gen_opt = torch.optim.Adam(
-        [{"params": list(getattr(mods, name).parameters()), "name": name}
-         for name in GEN_SUBNETS], **kw)
-    disc_opt = torch.optim.Adam(
-        [{"params": list(getattr(mods, name).parameters()), "name": name}
-         for name in disc_subnets(cfg)], **kw)
+    with setup_time("modules"):
+        vgg = VGG19Features(dtype=mods.dtype, precision=cfg.precision)
+        tree = vgg_params if vgg_params is not None else load_vgg19_npz()
+        if tree is not None:
+            load_flax_params(vgg, tree.get("params", tree))
+        else:
+            vgg.reset_parameters(torch.Generator().manual_seed(seed + 2))
+        vgg.requires_grad_(False)
+        vgg.to(dev)
+        kw = dict(betas=(beta1, beta2), eps=eps)
+        gen_opt = torch.optim.Adam(
+            [{"params": list(getattr(mods, name).parameters()), "name": name}
+             for name in GEN_SUBNETS], **kw)
+        disc_opt = torch.optim.Adam(
+            [{"params": list(getattr(mods, name).parameters()), "name": name}
+             for name in disc_subnets(cfg)], **kw)
     return TrainState(mods, vgg, gen_opt, disc_opt)
