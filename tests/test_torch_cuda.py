@@ -31,8 +31,9 @@ bits; the pose train step's shapes
 no host sync, and the toy pose step's kernel path; the pose keypoint
 rasterizer on the card against the CPU, and pose `push_keypoints` through
 the kernels against the plain path; the `precision="high"` convs (bf16x3)
-against a float64 oracle, grouped forms too; chip_smoke.py checks the
-main paths' shapes.
+against a float64 oracle, grouped forms too; `ClipInference`'s frames
+through its pinned slots against the plain copy back, bit for bit;
+chip_smoke.py checks the main paths' shapes.
 """
 
 import dataclasses
@@ -1148,6 +1149,77 @@ def test_demo_face_toy_on_the_card(dev, tmp_path, tier):
               for name in res["names"]]
     with open(res["gif"], "rb") as f:
         assert f.read() == encode_gif(frames)
+
+
+def _clip_job(cfg, frames, seed):
+    """`ClipInference.run`'s host arrays for one toy job."""
+    rng = np.random.default_rng(seed)
+    s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
+    return (rng.random((s, 3, hw, hw), np.float32) * 255.0,
+            rng.integers(0, nl, (s, hw, hw)).astype(np.uint8),
+            np.ones((s, hw, hw), np.float32),
+            rng.integers(0, nl, (frames, hw, hw)).astype(np.uint8),
+            np.ones((frames, hw, hw), np.float32))
+
+
+@pytest.mark.parametrize("frames", [8, 7, 3, 13],
+                         ids=["multiple", "ragged", "below", "four-chunks"])
+@pytest.mark.parametrize("method", ["run", "run_renormalized"])
+def test_clip_inference_stages_frames_through_pinned_slots(
+        dev, monkeypatch, method, frames):
+    """On the card `ClipInference` copies each 4-frame chunk back through
+    its two pinned slots on its copy stream: the frames are the plain
+    path's bits (the same chunks kept on the card, `torch.cat` and
+    `.cpu()`), every chunk is counted as staged, more chunks than slots
+    pass through them intact, and a second job leaves the first one's
+    array as it was."""
+    from wacv23_tsnet_tpu_torch.infer import pipeline
+    from wacv23_tsnet_tpu_torch.models import TSNetModules
+    from wacv23_tsnet_tpu_torch.utils.profiling import CLIP_COPIES
+
+    cfg = toy_config()
+    engine = pipeline.ClipInference(cfg, TSNetModules(cfg, device="cuda"),
+                                    chunk=4, device="cuda")
+    run = getattr(engine, method)
+    chunks = -(-frames // 4)
+    before = dict(CLIP_COPIES)
+    got = [run(*_clip_job(cfg, frames, seed)) for seed in (1, 2)]
+    assert CLIP_COPIES == {"staged": before["staged"] + 2 * chunks,
+                           "plain": before["plain"]}
+    kept = got[0].copy()
+    third = run(*_clip_job(cfg, frames, 3))
+    np.testing.assert_array_equal(got[0], kept)
+    assert not np.shares_memory(got[0], got[1])
+    assert not np.shares_memory(got[1], third)
+    monkeypatch.setattr(pipeline, "_StagedFrames",
+                        lambda *a: pipeline._PlainFrames())
+    want = [run(*_clip_job(cfg, frames, seed)) for seed in (1, 2)]
+    assert CLIP_COPIES["plain"] == before["plain"] + 2 * chunks
+    hw = cfg.image_size
+    for g, w in zip(got, want):
+        assert g.shape == (frames, 3, hw, hw) and g.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+    assert not np.array_equal(got[0], got[1])
+
+
+def test_clip_inference_pinned_slots_follow_the_chunk(dev):
+    """One engine run at chunk 4, then 2, then 4 again: the slots are
+    remade for each new frame shape and the frames stay those of an
+    engine made at that chunk."""
+    from wacv23_tsnet_tpu_torch.infer import ClipInference
+    from wacv23_tsnet_tpu_torch.models import TSNetModules
+
+    cfg = toy_config()
+    mods = TSNetModules(cfg, device="cuda")
+    engine = ClipInference(cfg, mods, chunk=4, device="cuda")
+    job = _clip_job(cfg, 7, 4)
+    for chunk in (4, 2, 4):
+        engine.chunk = chunk
+        got = engine.run(*job)
+        assert engine._staging.slots[0].shape[0] == chunk
+        assert engine._staging.slots[0].is_pinned()
+        want = ClipInference(cfg, mods, chunk=chunk, device="cuda").run(*job)
+        np.testing.assert_array_equal(got, want)
 
 
 def _pose_keypoints(f, hw, seed=4):

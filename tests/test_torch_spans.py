@@ -15,9 +15,9 @@ from wacv23_tsnet_tpu_torch.infer.pipeline import ClipInference
 from wacv23_tsnet_tpu_torch.models.tsnet import TSNetModules
 from wacv23_tsnet_tpu_torch.train import create_train_state, make_train_step
 from wacv23_tsnet_tpu_torch.utils import profiling
-from wacv23_tsnet_tpu_torch.utils.profiling import (SETUP_S, reset_spans,
-                                                    setup_time, span,
-                                                    span_records, spans)
+from wacv23_tsnet_tpu_torch.utils.profiling import (CLIP_COPIES, SETUP_S,
+                                                    reset_spans, setup_time,
+                                                    span, span_records, spans)
 
 torch.set_num_threads(2)
 
@@ -120,6 +120,38 @@ def test_clip_spans_under_a_profiler(engine):
     assert covered <= got["tsnet.clip.run"]["ms"] * (1 + 1e-9)
     assert got["tsnet.clip.run"]["self_ms"] == pytest.approx(
         got["tsnet.clip.run"]["ms"] - covered, abs=1e-6)
+
+
+@pytest.mark.parametrize("method", ["run", "run_renormalized"])
+def test_one_copy_back_span_a_job(engine, method):
+    run = getattr(engine, method)
+    profiled(lambda: [run(*clip_job(engine.cfg, f)) for f in (7, 2)])
+    got = spans()
+    assert got["tsnet.clip.run"]["count"] == 2
+    assert got["tsnet.clip.copy_back"]["count"] == 2
+
+
+@pytest.mark.parametrize("frames", [6, 5, 2],
+                         ids=["multiple", "ragged", "below"])
+@pytest.mark.parametrize("method", ["run", "run_renormalized"])
+def test_clip_copies_back_plain_chunks_on_the_cpu(engine, method, frames):
+    """On the CPU every chunk takes the plain path, counted once a chunk,
+    and a job returns an (F, 3, H, W) f32 array of its own: a second job
+    leaves the first one's frames as they were."""
+    before = dict(CLIP_COPIES)
+    run = getattr(engine, method)
+    first = run(*clip_job(engine.cfg, frames, seed=1))
+    kept = first.copy()
+    second = run(*clip_job(engine.cfg, frames, seed=2))
+    chunks = -(-frames // engine.chunk)
+    assert CLIP_COPIES == {"staged": before["staged"],
+                           "plain": before["plain"] + 2 * chunks}
+    hw = engine.cfg.image_size
+    assert first.shape == second.shape == (frames, 3, hw, hw)
+    assert first.dtype == second.dtype == np.float32
+    assert not np.shares_memory(first, second)
+    np.testing.assert_array_equal(first, kept)
+    assert not np.array_equal(first, second)
 
 
 @pytest.mark.parametrize("cfg", [toy_config, toy_pose_config])

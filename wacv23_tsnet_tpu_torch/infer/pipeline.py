@@ -9,6 +9,12 @@ Under a profiler a job is the span `tsnet.clip.run` (the unit), holding
 `tsnet.clip.upload` (the sources, one-hot labels and boxes to the device),
 each chunk's model stages (`models.tsnet`) and `tsnet.clip.copy_back`
 (the frames to the host).
+On a CUDA device each chunk's frames go to the host while the next chunk
+computes: a copy stream of the engine's own copies them into one of two
+pinned host slots, which the host empties into the job's array once the
+next chunk is enqueued, so `tsnet.clip.copy_back` holds only the last
+chunk's copy and move. Elsewhere the frames stay on the device until the
+clip is done and go to the host in one copy.
 `run_renormalized` also renormalizes each frame to the first reference's
 mean and unbiased std on the device (reference demo/demo_face.py:178-198).
 `to_display_rgb` and `montage_row` make the uint8 frames that
@@ -18,6 +24,7 @@ mean and unbiased std on the device (reference demo/demo_face.py:178-198).
 
 from __future__ import annotations
 
+import mmap
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -29,7 +36,7 @@ from ..configs import TSNetConfig
 from ..data.gif import write_gif
 from ..device import resolve_device
 from ..models.tsnet import GEN_SUBNETS, TSNetModules, tsnet_forward_clip
-from ..utils.profiling import span
+from ..utils.profiling import CLIP_COPIES, span
 
 
 class ClipInference:
@@ -55,6 +62,7 @@ class ClipInference:
             load_flax_params(self.mods, {k: params[k] for k in GEN_SUBNETS})
         self.use_kernels = use_kernels
         self.chunk = chunk
+        self._staging: _PinnedSlots | None = None
 
     def _onehot(self, lbl) -> torch.Tensor:
         lbl = torch.as_tensor(np.asarray(lbl), device=self.device).long()
@@ -93,16 +101,20 @@ class ClipInference:
                 tar_bbox = torch.as_tensor(np.asarray(tar_bboxes, np.float32),
                                            device=dev)
             f = tar_lbl.shape[0]
-            outs = []
+            if dev.type == "cuda":
+                if self._staging is None:
+                    self._staging = _PinnedSlots(dev)
+                frames = _StagedFrames(self._staging, f, self.chunk)
+            else:
+                frames = _PlainFrames()
             with torch.inference_mode():
                 for lo in range(0, f, self.chunk):
                     idx = torch.arange(lo, lo + self.chunk,
                                        device=dev) % f   # pad by wrapping
                     rec = fn(src, tar_lbl[idx], tar_bbox[idx])
-                    outs.append(rec[:min(self.chunk, f - lo)])
+                    frames.put(rec[:min(self.chunk, f - lo)])
                 with span("tsnet.clip.copy_back", dev):
-                    rec = torch.cat(outs).permute(0, 3, 1, 2).cpu().numpy()
-        return rec
+                    return frames.finish()
 
     def run(self, src_imgs, src_lbls, src_bboxes, tar_lbls, tar_bboxes):
         """The whole driving clip -> (F, 3, H, W) model-space frames."""
@@ -115,6 +127,101 @@ class ClipInference:
         reference's mean and std."""
         return self._run_chunks(self._renormalized, src_imgs, src_lbls,
                                 src_bboxes, tar_lbls, tar_bboxes)
+
+
+# pages touched between two looks at a chunk's copy (1 MiB at 4-KiB pages)
+FAULT_PIECE_PAGES = 256
+
+
+class _PlainFrames:
+    """A clip's frames kept on the device chunk by chunk, then copied to
+    fresh host memory in one copy when the clip is done."""
+
+    def __init__(self):
+        self.outs: list[torch.Tensor] = []
+
+    def put(self, rec: torch.Tensor) -> None:
+        self.outs.append(rec)
+
+    def finish(self) -> np.ndarray:
+        CLIP_COPIES["plain"] += len(self.outs)
+        return torch.cat(self.outs).permute(0, 3, 1, 2).cpu().numpy()
+
+
+class _PinnedSlots:
+    """Two pinned host slots of one chunk's (chunk, H, W, C) frames and a
+    CUDA stream for the copies into them, made at an engine's first job
+    on the card and again only when the chunk's frame shape or dtype
+    changes."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.slots: tuple[torch.Tensor, ...] = ()
+
+    def get(self, shape: tuple, dtype: torch.dtype) -> tuple:
+        if (not self.slots or self.slots[0].shape != shape
+                or self.slots[0].dtype != dtype):
+            self.slots = tuple(torch.empty(shape, dtype=dtype,
+                                           pin_memory=True) for _ in range(2))
+        return self.slots
+
+
+class _StagedFrames:
+    """A clip's frames on their way to the host while the next chunk
+    computes. Each chunk, once enqueued, is copied on the slots' stream
+    (after the compute stream's work so far) into slot i % 2. Once the
+    next chunk is enqueued and its copy issued, the host waits for this
+    chunk's copy: meanwhile it touches the fresh pages of the chunk's
+    share of the job's array a piece at a time, so that page faults hold
+    up the move less, and stops as soon as the copy is done. Then it
+    moves the slot into the array: a slot is refilled only once emptied.
+    The chunk's device frames are held until then, so their memory is
+    not reused while the copy reads it. `finish` makes the compute
+    stream wait for the last copy and moves the last slot: all that is
+    left once the last chunk is computed."""
+
+    def __init__(self, staging: _PinnedSlots, frames: int, chunk: int):
+        self.staging, self.frames, self.chunk = staging, frames, chunk
+        self.out: torch.Tensor | None = None
+        self.pending = None     # (slot, lo, n, copy done, device frames)
+        self.lo = self.count = 0
+
+    def put(self, rec: torch.Tensor) -> None:
+        if self.out is None:
+            self.out = torch.empty((self.frames, *rec.shape[1:]),
+                                   dtype=rec.dtype)
+        slots = self.staging.get((self.chunk, *rec.shape[1:]), rec.dtype)
+        slot, n = slots[self.count % 2], rec.shape[0]
+        copy = self.staging.stream
+        copy.wait_stream(torch.cuda.current_stream(self.staging.device))
+        with torch.cuda.stream(copy):
+            slot[:n].copy_(rec, non_blocking=True)
+        done = copy.record_event()
+        if self.pending is not None:
+            self._drain()
+        self.pending = (slot, self.lo, n, done, rec)
+        self.lo += n
+        self.count += 1
+
+    def _drain(self) -> None:
+        slot, lo, n, done, _ = self.pending
+        dst = self.out[lo:lo + n]
+        pages = dst.view(-1)[::mmap.PAGESIZE // dst.element_size()]
+        for piece in pages.split(FAULT_PIECE_PAGES):
+            if done.query():
+                break
+            piece.zero_()
+        done.synchronize()
+        dst.copy_(slot[:n])
+        self.pending = None
+
+    def finish(self) -> np.ndarray:
+        torch.cuda.current_stream(self.staging.device).wait_event(
+            self.pending[3])
+        self._drain()
+        CLIP_COPIES["staged"] += self.count
+        return self.out.permute(0, 3, 1, 2).numpy()
 
 
 def to_display_rgb(img_chw: np.ndarray, mean) -> np.ndarray:

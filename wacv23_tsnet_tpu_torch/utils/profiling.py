@@ -18,6 +18,11 @@ job or step share. Nothing waits on the device until `spans()` or
 process): `kernels`, building or loading the `csrc/` libraries
 (`ops.cuda_build`); `modules`, constructing modules (`TSNetModules`,
 `create_train_state`).
+
+`CLIP_COPIES` counts, always, the chunks of frames `ClipInference` copied
+back to the host: `staged`, through its pinned slots on a copy stream
+(CUDA), and `plain`, kept on the device until the clip is done and copied
+with it (any other device).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch.autograd.profiler as autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
 SETUP_S: dict[str, float] = {}
+CLIP_COPIES: dict[str, int] = {"staged": 0, "plain": 0}
 
 _RECORDS: list = []
 _UNITS = itertools.count()
