@@ -29,7 +29,8 @@ non-zero, printing no result, where CUDA or the package is missing.
    products; then, against that oracle and the float64 full product and
    timed forward and backward, the port's bf16x3 (hi·hi summed in
    pieces), the three products one call each, one conv over 3x the
-   channels, TF32 and "highest".
+   channels, TF32 and "highest", and at the stem the folded conv that
+   the encoders run under "high" (held within 1e-5 too).
 4. Drives the main path at the full width of `face_config()` with seeded
    random weights, in both tiers (bit-parity; bench = "high" + fast_tail
    + fast_trunk): `tsnet_forward_clip` over a 64-frame clip and four
@@ -358,6 +359,7 @@ from wacv23_tsnet_tpu_torch.ops import dpconv as dp
 from wacv23_tsnet_tpu_torch.ops import flow_kernels as fl
 from wacv23_tsnet_tpu_torch.ops import fuse_kernels as fk
 from wacv23_tsnet_tpu_torch.ops import norm_kernels as nk
+from wacv23_tsnet_tpu_torch.ops import stemconv as sc
 from wacv23_tsnet_tpu_torch.ops import warp_kernels as wk
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
 from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
@@ -1040,8 +1042,12 @@ def high_routes(xc, w, gc, stride, padding, groups) -> dict:
     input channels ([x_hi, x_hi, x_lo] against [w_hi, w_lo, w_hi],
     interleaved within each group; grad-input over 3x the output
     channels, grad-weight over 3x the batch); "tf32", cuDNN's fp32 conv
-    with TF32 on (the port's "high" before bf16x3); "highest", TF32 off.
-    Each bf16x3 route splits its operands inside the call."""
+    with TF32 on (the port's "high" before bf16x3); "highest", TF32 off;
+    at the 7x7 stem's shape also "folded", the route the encoders take
+    under "high" on the card (`ops.stemconv.conv_fold`: the same three
+    products as a 3x3 conv over 16x the channels, the backward the
+    unfolded conv's, timed alone on a kept graph). Each bf16x3 route
+    splits its operands inside the call."""
     args = ([stride] * 2, list(padding), [1, 1], False, [0, 0], groups)
 
     def conv(a, b):
@@ -1101,7 +1107,7 @@ def high_routes(xc, w, gc, stride, padding, groups) -> dict:
                      (False, True))[1]
         return gx, gw
 
-    return {
+    routes = {
         "high": (lambda: dp.conv_bf16x3(xc, w, stride, padding, groups),
                  lambda: dp.conv_bf16x3_backward(gc, xc, w, stride, padding,
                                                  groups)),
@@ -1110,6 +1116,24 @@ def high_routes(xc, w, gc, stride, padding, groups) -> dict:
         "tf32": cudnn(True),
         "highest": cudnn(False),
     }
+    if w.shape[2:] == (7, 7) and (stride, tuple(padding), groups) == (
+            1, (0, 0), 1):
+        xq = xc.permute(0, 2, 3, 1).detach().requires_grad_()
+        wq = w.detach().requires_grad_()
+        with torch.enable_grad():
+            yq = sc.conv_fold(xq, wq, None, "high")
+        gq = sc.space_to_depth(gc.permute(0, 2, 3, 1), 4)
+
+        def fold_fwd():
+            return sc.depth_to_space(sc.conv_fold(xc.permute(0, 2, 3, 1), w,
+                                                  None, "high"),
+                                     4).permute(0, 3, 1, 2)
+
+        def fold_bwd():
+            gx, gw = torch.autograd.grad(yq, (xq, wq), gq, retain_graph=True)
+            return gx.permute(0, 3, 1, 2), gw
+        routes["folded"] = (fold_fwd, fold_bwd)
+    return routes
 
 
 def high_oracle(x, w, g, stride, padding, groups):
@@ -1183,10 +1207,11 @@ def high_phase(line: str) -> dict:
                                 "backward": time_ms(bwd, HIGH_REPEATS)}
         report[name] = res
         print(f"[{HIGH}] {name}: {json.dumps(res)} | {line}", flush=True)
-        for p in parts:
-            check(res["conv2d_dp_high"][p]["vs_bf16x3"] <= HIGH_RTOL,
-                  f"{HIGH}: {name} {p} {res['conv2d_dp_high'][p]} beyond "
-                  f"{HIGH_RTOL} of the bf16x3 oracle")
+        for route in ("conv2d_dp_high", "folded"):
+            for p in parts if route in res else ():
+                check(res[route][p]["vs_bf16x3"] <= HIGH_RTOL,
+                      f"{HIGH}: {name} {route} {p} {res[route][p]} beyond "
+                      f"{HIGH_RTOL} of the bf16x3 oracle")
         del x, w, g, xc, gc, three, full
         torch.cuda.empty_cache()
     return report

@@ -540,6 +540,117 @@ def test_high_conv_is_bf16x3_on_the_card(dev, case):
         assert rel <= 1e-5 and rel < rel_full, (i, rel, rel_full)
 
 
+def test_split_bf16_on_the_card_is_two_roundings(dev):
+    """`split_bf16` on the card: hi = bf16(x) and lo = bf16(x - hi) taken
+    in fp32, bit for bit over every binade, signed zeros, subnormals and
+    infinities, NaN where they are NaN (whose sign the two forms need not
+    share), on a channels-last view (whose layout it keeps)."""
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    bits = torch.randint(-2 ** 31, 2 ** 31, (1 << 20,), generator=gen,
+                         dtype=torch.int64).to(torch.int32)
+    x = torch.cat([torch.tensor(
+        [0.0, -0.0, 1e-40, -1e-45, float("inf"), -float("inf"),
+         float("nan"), 3.3895e38]), bits.view(torch.float32)]).to(dev)
+    x = x[:1 << 20].reshape(4, 64, 64, 64).permute(0, 3, 1, 2)
+    hi, lo = split_bf16(x)
+    want_hi = x.to(torch.bfloat16).float()
+    want_lo = (x - want_hi).to(torch.bfloat16).float()
+    for got, want in ((hi, want_hi), (lo, want_lo)):
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        nan = want.isnan()
+        assert torch.equal(got.isnan(), nan)
+        assert torch.equal(got[~nan].view(torch.int32),
+                           want[~nan].view(torch.int32))
+
+
+# the encoders' 7x7 stems at the clip's shapes: (frames, input channels)
+# of the label encoder's 64-frame chunk (label_nc 2 + 3 CoordConv) and
+# the image encoder's 3 sources (3 + 2 + 3)
+HIGH_STEMS = {"lbl_clip": (64, 5), "img_clip": (3, 8)}
+
+
+@pytest.mark.parametrize("case", list(HIGH_STEMS))
+def test_high_stem_route_is_bf16x3_on_the_card(dev, case):
+    """The route `Encoder.forward` takes for its stem under "high" on the
+    card (the folded conv), forward with its fp32 bias and the grad-weight,
+    against float64 of the exact bf16x3 sums of the 7x7 conv of the
+    reflect-padded input: within 1e-5 relative L2 and nearer them than
+    cuDNN's single TF32 pass of the same conv."""
+    from wacv23_tsnet_tpu_torch.nn.blocks import reflect_pad
+    from wacv23_tsnet_tpu_torch.nn.encoder import folds_stem
+    from wacv23_tsnet_tpu_torch.ops.precision import tf32
+    from wacv23_tsnet_tpu_torch.ops.stemconv import (depth_to_space,
+                                                     stem_conv7_fold4)
+    assert folds_stem("high", torch.float32, dev.type)
+    bs, ci = HIGH_STEMS[case]
+    gen = torch.Generator(device="cpu").manual_seed(ci)
+    x = torch.randn(bs, 256, 256, ci, generator=gen).to(dev)
+    wt = (torch.randn(64, ci, 7, 7, generator=gen) / (ci * 49) ** 0.5).to(dev)
+    b = torch.randn(64, generator=gen).to(dev)
+    wd = wt.clone().requires_grad_(True)
+    y = depth_to_space(stem_conv7_fold4(x, wd, b, "high"), 4)
+    gy = torch.randn(*y.shape, generator=gen).to(dev)
+    y.backward(gy)
+    xp, gc = reflect_pad(x, 3).permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+    three, _ = _bf16x3_oracle(xp, wt, gc, 1, (0, 0), 1)
+    with tf32(True):
+        single = (F.conv2d(xp, wt), torch.ops.aten.convolution_backward(
+            gc, xp, wt, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+            [False, True, False])[1])
+    got = (y.detach().permute(0, 3, 1, 2).double()
+           - b.double()[:, None, None], wd.grad)
+    for i, part in enumerate(("forward", "grad_weight")):
+        want = three[2 * i]
+        rel, rel_tf32 = (((v.double() - want).norm() / want.norm()).item()
+                         for v in (got[i], single[i]))
+        print(f"[high] stem {case} {part}: {rel:.3e} (tf32 {rel_tf32:.3e})")
+        assert rel <= 1e-5 and rel < rel_tf32, (part, rel, rel_tf32)
+
+
+def _face_clip_job(cfg, frames, seed):
+    """`ClipInference.run`'s host arrays for a face job at full width: a
+    disc of class 1 moving across the driving frames and the sources,
+    random images."""
+    rng = np.random.default_rng(seed)
+    s, hw = cfg.n_source, cfg.image_size
+    yy, xx = np.mgrid[:hw, :hw]
+
+    def discs(n):
+        cy, cx = rng.uniform(0.35, 0.65, (2, n, 1, 1)) * hw
+        r = rng.uniform(0.15, 0.3, (n, 1, 1)) * hw
+        return ((yy - cy) ** 2 + (xx - cx) ** 2 < r ** 2).astype(np.uint8)
+
+    return (rng.random((s, 3, hw, hw), np.float32) * 255.0, discs(s),
+            np.ones((s, hw, hw), np.float32), discs(frames),
+            np.ones((frames, hw, hw), np.float32))
+
+
+def test_face_clip_chunk_high_stem_route_against_the_7x7(dev, monkeypatch):
+    """A 64-frame `ClipInference` chunk of `face_config()` in
+    `demo_face --fast-tail`'s tier ("high" encoders, `fast_tail`): the
+    frames with the folded stems against the same engine with the 7x7
+    stems, within the noise of the benchmark's `face.clip-high` cell
+    (its frames' mean gap from the plain reference, 0.0056)."""
+    from wacv23_tsnet_tpu_torch.configs import face_config
+    from wacv23_tsnet_tpu_torch.infer import ClipInference
+    from wacv23_tsnet_tpu_torch.models import TSNetModules
+    from wacv23_tsnet_tpu_torch.nn import encoder as enc_mod
+
+    cfg = dataclasses.replace(face_config(), precision="high",
+                              fast_tail=True)
+    engine = ClipInference(cfg, TSNetModules(cfg, device="cuda", seed=0),
+                           chunk=64, device="cuda")
+    job = _face_clip_job(cfg, 64, 5)
+    got = engine.run(*job)
+    monkeypatch.setattr(enc_mod, "folds_stem", lambda *a: False)
+    want = engine.run(*job)
+    gap = np.abs(got - want).mean(axis=(1, 2, 3))
+    print(f"[high] face clip chunk, folded vs 7x7 stems: mean "
+          f"{gap.mean():.3e}, worst frame {gap.max():.3e}")
+    assert np.isfinite(got).all()
+    assert gap.mean() <= 0.0056 and gap.max() <= 0.0056
+
+
 def _toy_batch(cfg, bs=2, seed=0):
     rng = np.random.default_rng(seed)
     s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc

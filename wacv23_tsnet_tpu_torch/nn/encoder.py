@@ -6,10 +6,19 @@ each followed by IN + ReLU, then `n_blocks` ResNet blocks. `ring_pad`
 runs the stem and the blocks' reflect-pad convs without the padded
 tensor (`ops.reflectconv`).
 
-`encoder_apply_fast` is the same module with its stem conv in 4x4-folded
-space (`ops.stemconv`); no entry point calls it, in the JAX package too
-(its chip measured it slower end to end), and `chip_smoke.py` times it
-against the module.
+The stem's route follows its precision and the input's device
+(`folds_stem`): under `precision="high"` on the card (bf16x3), for H and
+W divisible by 4, the stem conv runs in 4x4-folded space (`folded_stem`,
+`ops.stemconv`), a 3x3 conv over 16x the input channels that cuDNN takes
+to its tensor cores, where the 7x7 over 5 or 8 channels runs its fp32
+FFMA kernel; its instance norm runs in phase layout and only the
+normalised activation is interleaved. Its backward is the 7x7 conv's, at
+the conv's `bwd_precision`. Every other tier, and every CPU tensor, runs
+the reflect-padded 7x7 (with `ring_pad`, without the padded tensor; the
+folded stem pads its few input channels either way).
+`encoder_apply_fast` is the module with the folded stem in any tier (the
+JAX package's function of that name; its TPU measured it slower end to
+end).
 
 Used twice in TS-Net: the image encoder (3 + label_nc input channels,
 9 blocks) and the label encoder (label_nc input channels, no blocks).
@@ -21,7 +30,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.coords import coord_channels
-from ..ops.norms import instance_norm
+from ..ops.norms import instance_norm, instance_norm_phase
 from .blocks import Conv2d, ResnetBlock, reflect_conv
 
 
@@ -52,9 +61,17 @@ class Encoder(nn.Module):
         if self.addcoords:
             x = coord_channels(x)
         c = self.conv_in
-        x = reflect_conv(x, c.weight, c.bias, 3, c.precision, c.dtype,
-                         c.bwd_precision, self.ring_pad)
-        x = torch.relu(instance_norm(x))
+        if (folds_stem(c.precision, c.dtype, x.device.type)
+                and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0):
+            x = folded_stem(c, x)
+        else:
+            x = reflect_conv(x, c.weight, c.bias, 3, c.precision, c.dtype,
+                             c.bwd_precision, self.ring_pad)
+            x = torch.relu(instance_norm(x))
+        return self.trunk(x)
+
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """The layers after the stem: the stride-2 convs, then the blocks."""
         for i in range(self.n_downsampling):
             x = torch.relu(instance_norm(getattr(self, f"down{i}")(x)))
         for j in range(self.n_blocks):
@@ -62,28 +79,32 @@ class Encoder(nn.Module):
         return x
 
 
-def encoder_apply_fast(enc: Encoder, x: torch.Tensor) -> torch.Tensor:
-    """`enc(x)` with the stem conv computed in 4x4-folded space.
+def folds_stem(precision: str, dtype, device_type: str) -> bool:
+    """Whether `Encoder.forward` runs its stem folded: bf16x3 ("high" on
+    an fp32 tensor) on the card. On the CPU "high" is the fp32 conv, and
+    the bf16 and "default" tiers take one bf16 pass, which cuDNN already
+    runs on its tensor cores, as it does "highest"'s plain fp32."""
+    return (precision == "high" and dtype == torch.float32
+            and device_type == "cuda")
 
-    The same parameters and math (the JAX package's
-    `encoder_apply_fast`): `ops.stemconv.stem_conv7_fold4` runs the 7x7
-    stem as a 3x3 conv over 16x the input channels, its instance norm
-    runs grouped in phase layout, and only the normalised activation is
-    interleaved; the rest is the module's own composition. H and W
-    divisible by 4."""
-    from ..ops.stemconv import (depth_to_space, instance_norm_grouped,
-                                stem_conv7_fold4)
+
+def folded_stem(c: Conv2d, x: torch.Tensor, fold: int = 4) -> torch.Tensor:
+    """relu(instance_norm(stem conv `c` of reflect_pad(x, 3))), the stem
+    conv in `fold`x`fold`-folded space (`ops.stemconv.stem_conv7_fold4`,
+    at the conv's precision, backward at its `bwd_precision`), the norm
+    in phase layout, then interleaved. H and W divisible by `fold`."""
+    from ..ops.stemconv import depth_to_space, stem_conv7_fold4
+    yf = stem_conv7_fold4(x.to(c.dtype), c.weight.to(c.dtype),
+                          c.bias.to(c.dtype), c.precision, fold,
+                          c.bwd_precision)
+    y = instance_norm_phase(yf, groups=fold * fold)
+    return depth_to_space(torch.relu(y), fold)
+
+
+def encoder_apply_fast(enc: Encoder, x: torch.Tensor) -> torch.Tensor:
+    """`enc(x)` with the stem conv computed in 4x4-folded space in any
+    tier (`folded_stem`), then the module's own layers: the JAX
+    package's `encoder_apply_fast`. H and W divisible by 4."""
     if enc.addcoords:
         x = coord_channels(x)
-    c = enc.conv_in
-    fold = 4
-    yf = stem_conv7_fold4(x.to(c.dtype), c.weight.to(c.dtype),
-                          c.bias.to(c.dtype), precision=c.precision,
-                          fold=fold)
-    x = depth_to_space(torch.relu(instance_norm_grouped(yf, fold * fold)),
-                       fold)
-    for i in range(enc.n_downsampling):
-        x = torch.relu(instance_norm(getattr(enc, f"down{i}")(x)))
-    for j in range(enc.n_blocks):
-        x = getattr(enc, f"block{j}")(x)
-    return x
+    return enc.trunk(folded_stem(enc.conv_in, x))

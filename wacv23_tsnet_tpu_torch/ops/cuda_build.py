@@ -148,28 +148,32 @@ def check_aligned(what: str, *tensors) -> None:
                              "boundary (take a .clone() of a sliced view)")
 
 
+def kept_weight(w: torch.Tensor, kind: str, make) -> torch.Tensor:
+    """`make(w.detach())`, kept while `w` lives and is not changed in place
+    (its version counter), one for each `kind`: a module's weight is
+    transformed once, not at every call. An inference tensor has no
+    version counter and is transformed at each call."""
+    if w.is_inference():
+        return make(w.detach())
+    key = (id(w), kind)
+    hit = _KEPT_WEIGHTS.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    out = make(w.detach())
+    ref = weakref.ref(w, lambda _, key=key: _KEPT_WEIGHTS.pop(key, None))
+    _KEPT_WEIGHTS[key] = (ref, w._version, out)
+    return out
+
+
+_KEPT_WEIGHTS: dict = {}
+
+
 def gemm_weight(w: torch.Tensor) -> torch.Tensor:
     """A 3x3 conv weight (Co, C, 3, 3) repacked as the implicit GEMMs read
-    it: bf16 (Co, 3, 3, C), contiguous.
-
-    The repack is kept while `w` lives and is not changed in place (its
-    version counter), so a module's weight is repacked once, not at every
-    call.
-    """
-    if not w.is_inference():   # else no version counter to key on
-        hit = _GEMM_WEIGHTS.get(id(w))
-        if hit is not None and hit[0]() is w and hit[1] == w._version:
-            return hit[2]
-    packed = w.detach().to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
-    if w.is_inference():
-        return packed
-    key = id(w)
-    ref = weakref.ref(w, lambda _, key=key: _GEMM_WEIGHTS.pop(key, None))
-    _GEMM_WEIGHTS[key] = (ref, w._version, packed)
-    return packed
-
-
-_GEMM_WEIGHTS: dict = {}
+    it: bf16 (Co, 3, 3, C), contiguous; kept while `w` lives unchanged
+    (`kept_weight`)."""
+    return kept_weight(w, "gemm", lambda v: v.to(torch.bfloat16).permute(
+        0, 2, 3, 1).contiguous())
 
 
 def ptr(t) -> ctypes.c_void_p:

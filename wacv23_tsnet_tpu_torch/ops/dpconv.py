@@ -15,7 +15,13 @@ tiers are the JAX package's:
   dropped. On a CUDA tensor `conv_bf16x3` runs the three products
   through cuDNN with TF32 on: TF32 holds every bf16 value, so each
   product is exact, and the hi·hi sums are taken in pieces short enough
-  for the tensor cores' accumulation (`CHAIN`). On a CPU tensor "high"
+  for the tensor cores' accumulation (`CHAIN`). cuDNN runs the products
+  on its TF32 tensor-core kernels where the input channels allow; over
+  the encoders' 5 or 8 stem channels a 7x7 conv falls to its fp32 FFMA
+  kernel (CUDA cores, 3x "highest"'s time), so the encoders take their
+  stems through `ops.stemconv.conv_fold` under "high" on the card (a
+  3x3 conv over 16x the channels, the same products; `nn.encoder.
+  folds_stem`). On a CPU tensor "high"
   is the fp32 conv, as XLA's CPU backend computes `Precision.HIGH`;
 - "default": operands cast to bf16, result back to fp32.
 
@@ -45,9 +51,14 @@ PRECISIONS = ("highest", "high", "default")
 def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """fp32 x -> (hi, lo), fp32 tensors holding bf16 values: hi = bf16(x),
     lo = bf16(x - hi), so hi + lo is x to about 2^-16 relative (the JAX
-    package's `_split_bf16`, kept in fp32 for the TF32 products)."""
-    hi = x.to(torch.bfloat16).float()
-    return hi, (x - hi).to(torch.bfloat16).float()
+    package's `_split_bf16`, kept in fp32 for the TF32 products).
+
+    Four passes: x - hi is taken in fp32 from the bf16 head and rounded to
+    bf16 as it is stored (`out=`), the same bits as rounding an fp32
+    difference."""
+    hi = x.to(torch.bfloat16)
+    lo = torch.sub(x, hi, out=torch.empty_like(hi))
+    return hi.float(), lo.float()
 
 
 # On the card the tensor cores sum a long reduction less exactly than
@@ -149,8 +160,8 @@ def _forward(x, w, bias, stride, padding, groups, precision):
         return F.conv2d(x, w, bias, stride, padding, 1, groups)
 
 
-def _backward(grad, x, w, has_bias, stride, padding, groups, precision,
-              need):
+def conv_backward(grad, x, w, has_bias, stride, padding, groups, precision,
+                  need):
     """(grad-input, grad-weight, grad-bias) of an NCHW conv at `precision`."""
     args = ([stride] * 2, list(padding), [1, 1], False, [0, 0], groups)
     if precision == "default":
@@ -187,8 +198,9 @@ class _ConvDP(torch.autograd.Function):
     def backward(ctx, grad):
         x, w = ctx.saved_tensors
         stride, padding, groups, bwd_precision, has_bias = ctx.conf
-        gx, gw, gb = _backward(grad, x, w, has_bias, stride, padding, groups,
-                               bwd_precision, ctx.needs_input_grad[:3])
+        gx, gw, gb = conv_backward(grad, x, w, has_bias, stride, padding,
+                                   groups, bwd_precision,
+                                   ctx.needs_input_grad[:3])
         return gx, gw, gb, None, None, None, None, None
 
 

@@ -8,8 +8,8 @@ the JAX package's two numerics forms (its `ops/norms.py:16-42`):
   clamped at 0 (the cancellation can dip below 0 for a near-constant
   channel with a large mean, which would NaN the rsqrt).
 
-`instance_norm_phase` is the same norm for a tensor in the 2x2 phase
-layout of `ops/warp.py:space_to_depth`.
+`instance_norm_phase` is the same norm for a tensor in a phase layout:
+the 2x2 of `ops/warp.py:space_to_depth` or the 4x4 of the folded stem.
 
 `l2_normalize` is `F.normalize(p=2)`: x / max(||x||, eps).
 """
@@ -35,21 +35,23 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (d * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def instance_norm_phase(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm_phase(x: torch.Tensor, eps: float = 1e-5,
+                        groups: int = 4) -> torch.Tensor:
     """`instance_norm` of the interleaved tensor, computed in phase layout.
 
     Copy of the JAX package's `ops/upconv.py:instance_norm_phase`. x is
-    (B, H, W, 4C) with channel ((py*2+px)*C + c), the layout of
-    `ops/warp.py:space_to_depth(y, 2)` for an interleaved y (B, 2H, 2W, C);
-    statistics reduce over space and the 4 phase copies of each channel,
-    in `instance_norm`'s two numerics forms (two-pass for f32, one-pass
-    clamped for bf16).
+    (B, H, W, groups·C) with channel (phase * C + c): with 4 groups the
+    layout of `ops/warp.py:space_to_depth(y, 2)` for an interleaved y
+    (B, 2H, 2W, C), with 16 that of `ops/stemconv.py:space_to_depth(y,
+    4)`; statistics reduce over space and the `groups` phase copies of
+    each channel, in `instance_norm`'s two numerics forms (two-pass for
+    f32, one-pass clamped for bf16).
     """
-    b, h, w, c4 = x.shape
-    xf = x.float().reshape(b, h, w, 4, c4 // 4)
+    b, h, w, cg = x.shape
+    xf = x.float().reshape(b, h, w, groups, cg // groups)
     dims = (1, 2, 3)
     if x.dtype == torch.bfloat16:
-        n = h * w * 4
+        n = h * w * groups
         mean = xf.sum(dim=dims, keepdim=True) / n
         var = torch.clamp((xf * xf).sum(dim=dims, keepdim=True) / n
                           - mean * mean, min=0.0)
@@ -58,7 +60,7 @@ def instance_norm_phase(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
         d = xf - mean
         var = (d * d).mean(dim=dims, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    return y.reshape(b, h, w, c4).to(x.dtype)
+    return y.reshape(b, h, w, cg).to(x.dtype)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

@@ -18,9 +18,17 @@ zeros.
 Borders: the reflect pad happens before folding, then the padded map is
 zero-extended to a multiple of the fold; the placement never reaches the
 extension (tap t = 4q + r - p <= 6). The result stays in phase layout,
-so the instance norm behind it runs grouped (`instance_norm_grouped`:
-statistics over the 16 phase copies of each channel, those of the
-interleaved tensor) and only its output is interleaved.
+so the instance norm behind it runs grouped (`ops.norms.
+instance_norm_phase` with 16 groups: statistics over the 16 phase copies
+of each channel, those of the interleaved tensor, in the module's own
+two-pass fp32 form where the JAX package takes one pass) and only its
+output is interleaved.
+
+On the card this is how the encoders run their stems under
+`precision="high"` (`nn.encoder.Encoder.forward`): a 7x7 conv over 5 or
+8 channels falls to cuDNN's fp32 FFMA kernel, while the folded 3x3 conv
+over 80 or 128 channels takes its TF32 tensor-core kernels, and its
+9 x 16 Ci products a sum stay within bf16x3's `CHAIN` for Ci <= 8.
 
 Kernels are OIHW, tensors NHWC; the conv is the tier's
 `ops.dpconv.conv2d` in the input's dtype.
@@ -32,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.blocks import reflect_pad
-from .dpconv import conv2d
+from . import cuda_build
+from .dpconv import conv2d, conv2d_dp, conv_backward
 
 
 def fold_kernel(kernel: torch.Tensor, fold: int = 4) -> torch.Tensor:
@@ -71,9 +80,70 @@ def depth_to_space(x: torch.Tensor, fold: int) -> torch.Tensor:
     return x.reshape(b, h * fold, w * fold, cc)
 
 
+def _fold_input(xp: torch.Tensor, fold: int) -> torch.Tensor:
+    """xp zero-extended to a multiple of the fold, then `space_to_depth`."""
+    hp, wp = xp.shape[1:3]
+    xp = F.pad(xp, (0, 0, 0, (-wp) % fold, 0, (-hp) % fold))
+    return space_to_depth(xp, fold)
+
+
+class _FoldedConvDP(torch.autograd.Function):
+    """`conv_fold` of an fp32 xp: the folded conv forward (the folded
+    kernel kept while the weight lives unchanged,
+    `cuda_build.kept_weight`), and as backward the plain K x K conv's
+    (`ops.dpconv.conv_backward` at `bwd_precision`, the cotangent
+    interleaved): for one cotangent the gradients are the unfolded
+    conv's, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, xp, kernel, bias, precision, bwd_precision, fold):
+        ctx.save_for_backward(xp, kernel)
+        ctx.conf = (bias is not None, bwd_precision, fold)
+        kf = cuda_build.kept_weight(kernel, f"fold{fold}",
+                                    lambda k: fold_kernel(k, fold))
+        return conv2d_dp(_fold_input(xp, fold), kf,
+                         None if bias is None else bias.repeat(fold * fold),
+                         precision=precision)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xp, kernel = ctx.saved_tensors
+        has_bias, bwd_precision, fold = ctx.conf
+        g = depth_to_space(grad, fold).permute(0, 3, 1, 2)
+        gx, gw, gb = conv_backward(g, xp.permute(0, 3, 1, 2), kernel,
+                                   has_bias, 1, (0, 0), 1, bwd_precision,
+                                   ctx.needs_input_grad[:3])
+        if gx is not None:
+            gx = gx.permute(0, 2, 3, 1)
+        return gx, gw, gb, None, None, None
+
+
+def conv_fold(xp: torch.Tensor, kernel: torch.Tensor, bias,
+              precision: str = "highest", fold: int = 4,
+              bwd_precision=None) -> torch.Tensor:
+    """VALID K x K conv of xp (B, Hp, Wp, Ci) in `fold`x`fold`-folded space:
+    xp zero-extended to a multiple of the fold, `space_to_depth`, a VALID
+    S x S conv with `fold_kernel(kernel)` at the tier's `precision` in
+    xp's dtype. Hp - K + 1 and Wp - K + 1 divisible by `fold`. Returns the
+    phase-layout output (B, (Hp - K + 1) / fold, (Wp - K + 1) / fold,
+    fold² Co).
+
+    The backward is at `bwd_precision` (None: `precision`). An fp32 xp
+    takes the unfolded conv's backward (`_FoldedConvDP`): no gradient
+    sums over the structural zeros, and a bf16x3 grad-weight summed as
+    the module's own; a bf16 xp, the folded conv's through the fold."""
+    if xp.dtype == torch.float32:
+        return _FoldedConvDP.apply(xp, kernel, bias, precision,
+                                   bwd_precision or precision, fold)
+    return conv2d(_fold_input(xp, fold), fold_kernel(kernel, fold),
+                  None if bias is None else bias.repeat(fold * fold),
+                  precision=precision, dtype=xp.dtype,
+                  bwd_precision=bwd_precision)
+
+
 def stem_conv7_fold4(x: torch.Tensor, kernel: torch.Tensor,
                      bias: torch.Tensor, precision: str = "highest",
-                     fold: int = 4) -> torch.Tensor:
+                     fold: int = 4, bwd_precision=None) -> torch.Tensor:
     """[reflect_pad(3) -> 7x7 VALID conv] in `fold`x`fold`-folded space.
 
     x (B, H, W, Ci), H and W divisible by `fold`; kernel (Co, Ci, 7, 7);
@@ -81,25 +151,8 @@ def stem_conv7_fold4(x: torch.Tensor, kernel: torch.Tensor,
     fold² Co) in x's dtype; `depth_to_space(y, fold)` interleaves it."""
     if kernel.shape[2:] != (7, 7):
         raise ValueError(f"stem kernel {tuple(kernel.shape[2:])} is not 7x7")
-    h = x.shape[1]
-    xp = reflect_pad(x, 3)
-    ext = (-(h + 6)) % fold
-    xp = F.pad(xp, (0, 0, 0, ext, 0, ext))
-    return conv2d(space_to_depth(xp, fold), fold_kernel(kernel, fold),
-                  bias.repeat(fold * fold),
-                  precision=precision, dtype=x.dtype)
-
-
-def instance_norm_grouped(x: torch.Tensor, groups: int,
-                          eps: float = 1e-5) -> torch.Tensor:
-    """Instance norm of a phase-layout tensor: statistics per (sample,
-    base channel) over space and the `groups` phase copies, one pass in
-    fp32 (E[x²] - E[x]², clamped at 0), as the JAX package's form. The
-    instance norm of the interleaved tensor."""
-    b, h, w, c = x.shape
-    xf = x.float().reshape(b, h * w * groups, c // groups)
-    mean = xf.mean(dim=1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dim=1, keepdim=True) - mean * mean,
-                      min=0.0)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return y.reshape(b, h, w, c).to(x.dtype)
+    if x.shape[1] % fold or x.shape[2] % fold:
+        raise ValueError(f"H, W = {tuple(x.shape[1:3])} are not divisible "
+                         f"by the fold {fold}")
+    return conv_fold(reflect_pad(x, 3), kernel, bias, precision, fold,
+                     bwd_precision)
