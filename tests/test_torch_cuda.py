@@ -32,7 +32,9 @@ no host sync, and the toy pose step's kernel path; the pose keypoint
 rasterizer on the card against the CPU, and pose `push_keypoints` through
 the kernels against the plain path; the `precision="high"` convs (bf16x3)
 against a float64 oracle, grouped forms too; `ClipInference`'s frames
-through its pinned slots against the plain copy back, bit for bit;
+through its pinned slots against the plain copy back, bit for bit, and
+on a source pack encoded once a job against `tsnet_forward_clip` chunk
+by chunk at full width, bit for bit;
 chip_smoke.py checks the main paths' shapes.
 """
 
@@ -649,6 +651,46 @@ def test_face_clip_chunk_high_stem_route_against_the_7x7(dev, monkeypatch):
           f"{gap.mean():.3e}, worst frame {gap.max():.3e}")
     assert np.isfinite(got).all()
     assert gap.mean() <= 0.0056 and gap.max() <= 0.0056
+
+
+@pytest.mark.parametrize("tier", [
+    {"precision": "high", "fast_trunk": True, "fast_tail": True},
+    {"precision": "high", "fast_tail": True}], ids=["bench", "fast-tail"])
+def test_face_clip_encodes_the_sources_once_a_job(dev, tier):
+    """A 130-frame `ClipInference` job of `face_config()` at chunk 64 (3
+    chunks, the last wrapped) in the benchmark's clip tier and in
+    `demo_face --fast-tail`'s: the frames, on a source pack encoded once
+    a job, are the bits of `tsnet_forward_clip` run chunk by chunk, which
+    encodes the sources again for every chunk."""
+    from wacv23_tsnet_tpu_torch.configs import face_config
+    from wacv23_tsnet_tpu_torch.infer import ClipInference
+    from wacv23_tsnet_tpu_torch.models import TSNetModules
+    from wacv23_tsnet_tpu_torch.models.tsnet import tsnet_forward_clip
+    from wacv23_tsnet_tpu_torch.utils.profiling import CLIP_PACKS
+
+    cfg = dataclasses.replace(face_config(), **tier)
+    engine = ClipInference(cfg, TSNetModules(cfg, device="cuda", seed=0),
+                           chunk=64, device="cuda")
+    job = _face_clip_job(cfg, 130, 6)
+    before = dict(CLIP_PACKS)
+    got = engine.run(*job)
+    assert CLIP_PACKS == {"encoded": before["encoded"] + 1,
+                          "reused": before["reused"] + 2}
+    src = engine.prepare_sources(*job[:3])
+    tar_lbl = engine._onehot(job[3])
+    tar_bbox = torch.as_tensor(job[4], device=dev)
+    outs = []
+    with torch.inference_mode():
+        for lo in range(0, 130, 64):
+            idx = torch.arange(lo, lo + 64, device=dev) % 130
+            rec = tsnet_forward_clip(engine.mods, *src, tar_lbl[idx],
+                                     tar_bbox[idx], device=dev)
+            outs.append(rec[:min(64, 130 - lo)])
+    want = torch.cat(outs).permute(0, 3, 1, 2).cpu().numpy()
+    assert got.shape == want.shape == (130, 3, cfg.image_size,
+                                       cfg.image_size)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
 
 
 def _toy_batch(cfg, bs=2, seed=0):

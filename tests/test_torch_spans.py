@@ -1,7 +1,8 @@
 """The port's spans and set-up counters (`utils.profiling`) on the CPU:
 off without a profiler, and under one the clip's and the train step's
 stages, each once a job, chunk or step, nested under the unit's span and
-placed among the profiler's host events."""
+placed among the profiler's host events; the clip's source pack, encoded
+once a job and counted by `CLIP_PACKS`."""
 
 import time
 
@@ -11,13 +12,16 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from wacv23_tsnet_tpu_torch.configs import toy_config, toy_pose_config
+from wacv23_tsnet_tpu_torch.infer import pipeline
 from wacv23_tsnet_tpu_torch.infer.pipeline import ClipInference
-from wacv23_tsnet_tpu_torch.models.tsnet import TSNetModules
+from wacv23_tsnet_tpu_torch.models.tsnet import (TSNetModules, encode_sources,
+                                                 tsnet_forward_clip)
 from wacv23_tsnet_tpu_torch.train import create_train_state, make_train_step
 from wacv23_tsnet_tpu_torch.utils import profiling
-from wacv23_tsnet_tpu_torch.utils.profiling import (CLIP_COPIES, SETUP_S,
-                                                    reset_spans, setup_time,
-                                                    span, span_records, spans)
+from wacv23_tsnet_tpu_torch.utils.profiling import (CLIP_COPIES, CLIP_PACKS,
+                                                    SETUP_S, reset_spans,
+                                                    setup_time, span,
+                                                    span_records, spans)
 
 torch.set_num_threads(2)
 
@@ -101,7 +105,8 @@ def test_clip_spans_under_a_profiler(engine):
     assert got["tsnet.clip.run"]["count"] == 1
     assert got["tsnet.clip.upload"]["count"] == 1
     assert got["tsnet.clip.copy_back"]["count"] == 1
-    for name in CLIP_STAGES:            # encode_sources too: once a chunk
+    assert got["tsnet.encode_sources"]["count"] == 1    # once a job
+    for name in CLIP_STAGES[1:]:                       # once a chunk
         assert got[name]["count"] == 2, name
     recs = span_records()
     assert {r["unit"] for r in recs} == {recs[0]["unit"]}
@@ -152,6 +157,55 @@ def test_clip_copies_back_plain_chunks_on_the_cpu(engine, method, frames):
     assert not np.shares_memory(first, second)
     np.testing.assert_array_equal(first, kept)
     assert not np.array_equal(first, second)
+
+
+def per_chunk_frames(engine, job, renormalize=False):
+    """A job's frames with the sources encoded again for every chunk:
+    `tsnet_forward_clip` over the engine's chunks, the last wrapped round
+    the clip, then each frame renormalized to the first reference as
+    `run_renormalized` does where `renormalize`."""
+    src = engine.prepare_sources(*job[:3])
+    tar_lbl = engine._onehot(job[3])
+    tar_bbox = torch.as_tensor(job[4])
+    f, outs = tar_lbl.shape[0], []
+    with torch.inference_mode():
+        for lo in range(0, f, engine.chunk):
+            idx = torch.arange(lo, lo + engine.chunk) % f
+            rec = tsnet_forward_clip(engine.mods, *src, tar_lbl[idx],
+                                     tar_bbox[idx],
+                                     use_kernels=engine.use_kernels,
+                                     device=engine.device)
+            if renormalize:
+                ref = src[0][0]
+                rec = ((rec - rec.mean(dim=(1, 2), keepdim=True))
+                       / rec.std(dim=(1, 2), keepdim=True)
+                       * ref.std(dim=(0, 1)) + ref.mean(dim=(0, 1)))
+            outs.append(rec[:min(engine.chunk, f - lo)])
+    return torch.cat(outs).permute(0, 3, 1, 2).numpy()
+
+
+@pytest.mark.parametrize("method", ["run", "run_renormalized"])
+def test_clip_encodes_the_sources_once_a_job(engine, monkeypatch, method):
+    """7 frames at chunk 3 (3 chunks, the last wrapped): the sources are
+    encoded once a job, the pack counted as encoded for the first chunk
+    and reused by the other two, and the frames are the bits of
+    `tsnet_forward_clip` run chunk by chunk."""
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return encode_sources(*a, **k)
+    monkeypatch.setattr(pipeline, "encode_sources", counted)
+    run = getattr(engine, method)
+    for seed in (1, 2):
+        job = clip_job(engine.cfg, 7, seed=seed)
+        before, n = dict(CLIP_PACKS), len(calls)
+        got = run(*job)
+        assert len(calls) == n + 1
+        assert CLIP_PACKS == {"encoded": before["encoded"] + 1,
+                              "reused": before["reused"] + 2}
+        np.testing.assert_array_equal(
+            got, per_chunk_frames(engine, job, method == "run_renormalized"))
 
 
 @pytest.mark.parametrize("cfg", [toy_config, toy_pose_config])

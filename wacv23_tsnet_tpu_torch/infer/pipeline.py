@@ -1,14 +1,18 @@
 """Whole-clip inference and its output helpers (counterpart of the JAX
 package's `infer/pipeline.py`).
 
-`ClipInference` runs a driving clip in fixed chunks of frames (the last
-one padded by wrapping round the clip, as the JAX package does so that
-jit compiles one program), each chunk through `tsnet_forward_clip`:
-K3-nf + K2 in the bit-parity tier, K1 + K2 in the bench tier (`fast_tail`).
+`ClipInference` encodes a job's S source frames once (`encode_sources`)
+and runs the driving clip against that pack in fixed chunks of frames
+(the last one padded by wrapping round the clip, as the JAX package does
+so that jit compiles one program), each chunk through
+`decode_with_sources`: K3-nf + K2 in the bit-parity tier, K1 + K2 in the
+bench tier (`fast_tail`). The pack lives for the job only; the next job
+encodes its own. `utils.profiling.CLIP_PACKS` counts the chunks decoded
+on a pack encoded for them (a job's first) and on one reused.
 Under a profiler a job is the span `tsnet.clip.run` (the unit), holding
 `tsnet.clip.upload` (the sources, one-hot labels and boxes to the device),
-each chunk's model stages (`models.tsnet`) and `tsnet.clip.copy_back`
-(the frames to the host).
+`tsnet.encode_sources` once, each chunk's model stages (`models.tsnet`)
+and `tsnet.clip.copy_back` (the frames to the host).
 On a CUDA device each chunk's frames go to the host while the next chunk
 computes: a copy stream of the engine's own copies them into one of two
 pinned host slots, which the host empties into the job's array once the
@@ -35,8 +39,9 @@ from ..compat.flax_params import load_flax_params
 from ..configs import TSNetConfig
 from ..data.gif import write_gif
 from ..device import resolve_device
-from ..models.tsnet import GEN_SUBNETS, TSNetModules, tsnet_forward_clip
-from ..utils.profiling import CLIP_COPIES, span
+from ..models.tsnet import (GEN_SUBNETS, TSNetModules, decode_with_sources,
+                            encode_sources)
+from ..utils.profiling import CLIP_COPIES, CLIP_PACKS, span
 
 
 class ClipInference:
@@ -77,13 +82,12 @@ class ClipInference:
                 torch.as_tensor(np.asarray(src_bboxes, np.float32),
                                 device=self.device))
 
-    def _forward(self, src, tar_lbl, tar_bbox) -> torch.Tensor:
-        return tsnet_forward_clip(self.mods, *src, tar_lbl, tar_bbox,
-                                  use_kernels=self.use_kernels,
-                                  device=self.device)
+    def _forward(self, src, pack, tar_lbl, tar_bbox) -> torch.Tensor:
+        return decode_with_sources(self.mods, pack, tar_lbl, tar_bbox,
+                                   use_kernels=self.use_kernels)
 
-    def _renormalized(self, src, tar_lbl, tar_bbox) -> torch.Tensor:
-        rec = self._forward(src, tar_lbl, tar_bbox)
+    def _renormalized(self, src, pack, tar_lbl, tar_bbox) -> torch.Tensor:
+        rec = self._forward(src, pack, tar_lbl, tar_bbox)
         ref = src[0][0]
         ref_mean = ref.mean(dim=(0, 1))
         ref_std = ref.std(dim=(0, 1))                 # unbiased, as torch
@@ -108,10 +112,12 @@ class ClipInference:
             else:
                 frames = _PlainFrames()
             with torch.inference_mode():
+                pack = encode_sources(self.mods, *src)     # once a job
                 for lo in range(0, f, self.chunk):
                     idx = torch.arange(lo, lo + self.chunk,
                                        device=dev) % f   # pad by wrapping
-                    rec = fn(src, tar_lbl[idx], tar_bbox[idx])
+                    rec = fn(src, pack, tar_lbl[idx], tar_bbox[idx])
+                    CLIP_PACKS["reused" if lo else "encoded"] += 1
                     frames.put(rec[:min(self.chunk, f - lo)])
                 with span("tsnet.clip.copy_back", dev):
                     return frames.finish()

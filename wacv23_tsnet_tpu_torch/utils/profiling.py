@@ -23,6 +23,10 @@ process): `kernels`, building or loading the `csrc/` libraries
 back to the host: `staged`, through its pinned slots on a copy stream
 (CUDA), and `plain`, kept on the device until the clip is done and copied
 with it (any other device).
+
+`CLIP_PACKS` counts, always, the chunks `ClipInference` decoded, by the
+source pack they ran on: `encoded`, a pack encoded for the chunk (a
+job's first), and `reused`, the job's pack encoded for an earlier chunk.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 SETUP_S: dict[str, float] = {}
 CLIP_COPIES: dict[str, int] = {"staged": 0, "plain": 0}
+CLIP_PACKS: dict[str, int] = {"encoded": 0, "reused": 0}
 
 _RECORDS: list = []
 _UNITS = itertools.count()
