@@ -1,289 +1,131 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port (`wacv23_tsnet_tpu_torch`) on one GPU.
+"""Correctness run of the PyTorch port (`wacv23_tsnet_tpu_torch`) on one
+GPU.
 
     python3 chip_smoke.py
 
 Needs one NVIDIA Hopper GPU, nvcc and the repository around it; exits
-non-zero, printing no result, where CUDA or the package is missing.
+non-zero, printing no result, where CUDA or the package is missing. It
+holds the port at full width on the card and times nothing end to end:
+the benchmark (`benchmark/run.py`) measures the cells, and
+`cli.profile_stages` prints the port's stage spans. In the order it runs:
 
 1. Prints the card's name and power limit and the torch/CUDA versions.
 2. Builds every CUDA kernel from `wacv23_tsnet_tpu_torch/csrc/` (one nvcc
-   per source, all started together) and prints ptxas's resource lines,
-   and the sha256 of K6's output bits on seeded inputs.
-3. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (S=3 sources, T=32x32 pixels, C=512, F=32 frames;
-   K2 at (3, 32, 32, 32, 1024) and, past its cluster, (3, 8, 64, 64,
-   1024); K6 at S=3, F=32, 32x32, K=1024; K7 with relu and with skip at
-   (32, 32, 32, 512), and at the clip's B=64), and times both with CUDA
-   events; for K6 and K7 also cuDNN's bf16 conv alone, as a yardstick;
-   for K6 its two launches (statistics, conv) each alone, for K7 and K2
-   the launches of their two-pass paths each alone, and what one call
-   launches by CUDA kernel (a torch.profiler trace) with its cluster.
-   Then `[high]`: `precision="high"` convs (bf16x3, three bf16 products
-   with TF32 on over the splits, `ops.dpconv.conv_bf16x3`) at the model's
-   shapes at full width and the train batch (the 7x7 stem at 256², a
-   stride-2 down conv, a 512-channel ResNet-block conv at 32², FuseNet's
-   1024-channel conv on 45 pairs, a grouped ring conv of the phase
-   decoder): forward, grad-input and grad-weight through `conv2d_dp`
-   within 1e-5 relative L2 of a float64 oracle of the same three
-   products; then, against that oracle and the float64 full product and
-   timed forward and backward, the port's bf16x3 (hi·hi summed in
-   pieces), the three products one call each, one conv over 3x the
-   channels, TF32 and "highest", and at the stem the folded conv that
-   the encoders run under "high" (held within 1e-5 too).
-4. Drives the main path at the full width of `face_config()` with seeded
-   random weights, in both tiers (bit-parity; bench = "high" + fast_tail
-   + fast_trunk): `tsnet_forward_clip` over a 64-frame clip and four
-   32-frame `RetargetSession.push_labels` requests (one with
-   output="display"). Launch counts are zeroed just before each tier's
-   run and read just after; each tier must launch its kernels. The
-   kernel path is compared with the same model run through the plain
-   versions, and frames/s, stage times and a profile are printed; last,
-   how far the bench tier (and the bf16 tail alone) moves the output
-   from the bit-parity tier ("high" + fast_tail held within 0.01 mean
-   L1). Then the `bench+fused` tier: the bench
-   config with TSNET_FUSE_PAIR_KERNEL=1 (K6 in FuseNet) and
-   `fused_blocks=True` (K7 in the decoder), a 64-frame clip and two
-   32-frame `decode_with_sources` requests on one source pack, held
-   against its plain path and against the unfused bench tier's clip.
-5. Holds the training kernels against their plain versions at the train
-   shape (G=15 samples, NS=3 sources, NF=1, T=32x32, C=512): K3-flow
-   (warped features and flow, temp 100) and K4 (six cotangents at temps
-   10 and 100, against the plain version in fp32 and in float64, and
-   given the plain version's own flow; two calls the same bits in all six,
-   da included; its seven launches, warp_bwd, da_sort, da_sum, logits,
-   gtn, gsn and reduce, each timed alone).
-6. Drives the GAN train step (`train.make_train_step`) at the full width
-   of `face_config()`, bit-parity tier, batch 15: the first step from one
-   seeded state through the kernels and through the plain versions
-   (metrics and per-subnet gradients compared, at temp 10 and at the
-   config's 100), then 10 steps on a fixed
-   batch with the launch counts zeroed just before and read just after
-   (one K3-flow, one K4 and one K2 a step; no inference kernel), with
-   ms/step, samples/s, the CUDA-event stage split, peak memory and a
-   profile; the metrics must stay finite and G_VGG must fall.
-   After `[serve]`, `[determinism]`: the face bit-parity step at batch
-   15, the pose bit-parity step at batch 10 and the face fast train tier
-   ("high" + `bwd_precision="default"` + `fast_tail`), each called twice
-   from one seeded state and batch: every gradient, updated parameter and
-   Adam moment, the metrics and the reconstruction bit-equal (the first
-   that differs is printed); then each step's ms/step as it runs (under
-   `ops.precision.deterministic_cudnn`) against the same step with
-   cuDNN's default flags, in alternated blocks of 2 timed steps.
-7. Serves from a saved model (`[serve]`): the train state after those
-   steps saved as a trainer snapshot (flax msgpack, the JAX package's
-   format) and restored into a fresh state bit for bit (parameters, Adam
-   moments, step counts, step), the generator saved as a reference `.pth`
-   and loaded back bit for bit; the keypoint rasterizer on the card held
-   against its CPU run and timed a 32-frame chunk; then in the bench tier
-   (the CLI's defaults) and the bit-parity tier, the snapshot loaded by
-   `cli.demo_face.load_params` and served by `cli.serve.Server` on
-   127.0.0.1 from a thread: a session of 3 references, a 64-frame base64
-   keypoint request with the launch counts zeroed just before and read
-   just after (one K1 and one K2 a chunk in bench, one K3-nf and one K2
-   in bit-parity, nothing else), five timed 32-frame requests (client
-   wall and server ms, peak memory) and a 2-frame int-list request, all
-   within 1 LSB of an in-process `push_keypoints`, and the model-space
-   kernel path against the plain path (bit-parity <=1e-3 max abs, bench
-   <=0.01 mean L1). Two frames decoded alone against the same frames in
-   a 32-frame chunk, on the kernel path (held to the same limit) and on
-   the plain path (printed beside it). One 32-frame request split into
-   its stages, each timed alone (rasterize, extent bbox, decode, copy
-   back, RGB copy, base64, JSON both ways), and profiled: its CUDA
-   launches and the device's busy share. Files go to a temporary
-   directory in the checkout.
-8. Trains from files on disk (`[loop]`): a synthetic face dataset (15
-   videos x 10 seeded-noise PNG frames at 320x320, written by the port's
-   PNG writer, with 68-point landmark files) in a temporary directory of
-   the checkout; `cli.train_face.main` at the full width of
-   `face_config()`, bit-parity tier, batch 15, 14 steps (two clip batches
-   of 7) with the launch counts zeroed just before and read just after
-   (one K3-flow, one K4 and one K2 a step, nothing else), ms/step over
-   steps 2-14, the loader's data wait as a share of the loop's wall, peak
-   memory; the final snapshot restored and held equal to the trained
-   state, then one more step through `--restore-from --set-start` (its
-   launches counted under torch.profiler). The fast train tier
-   (`precision="high"`, `bwd_precision="default"`, `fast_tail`): the
-   full-generator gradient cosines of the bf16 backward against the f32
-   backward and of the bf16 tail against the f32 tail (each >= 0.99, the
-   plain path's beside it), 5 timed steps of it and of the bit-parity
-   tier; `remat=True`'s peak memory and gradients (within the plain
-   path's own 1e-6-nudge spread). `ClipInference` on a 64-frame clip of
-   the dataset in both tiers: bit-equal to `tsnet_forward_clip` over the
-   same 32-frame chunks, one warp kernel and one K2 a chunk,
-   `run_renormalized` against its plain path, `l1`/`psnr`/`ssim` on the
-   card against the CPU.
-9. Runs the face test-time workflow (`[demo]`): a synthetic test set (a
-   subject and a driving clip of 40 ramp-and-noise PNG frames at 320x320,
-   faces of different sizes, so the retargeter rescales) through
-   `cli.demo_face.main` at the full width of `face_config()` with seeded
-   random weights, in its default tier (K3-nf) and with `--fast-tail`
-   (K1): 40 frames in two 32-frame chunks, the second padded by wrapping,
-   with the launch counts zeroed just before and read just after (one
-   warp kernel and one K2 a chunk, nothing else); the reconstruction
-   against `ClipInference(use_kernels=False)` on the same sample and
-   weights (0.01 mean L1), each montage PNG decoded by the port against
-   the frames it was built from, the GIF's header, frame count and
-   delays; the CLI's frames/s, the PNGs' wall time and the GIF's encode
-   time. Then `cli.eval_snapshots.main` over `[loop]`'s snapshots (one CSV
-   row each, finite metrics, restore and inference seconds),
-   `cli.quick_start.main([])` (one step at batch 4, 256x256, under
-   torch.profiler: one K3-flow, K4 and K2; finite losses; ms and peak
-   memory) and `cli.profile_stages` on a 64-frame clip in the bit-parity
-   tier (its SUM of stages within 15% of `[fps]`'s clip) and its default
-   tier, and the train stages at batch 15.
-10. Drives the two kernels that no model path reaches through their own
-   entry points at full width, launch counts zeroed just before each call
-   and read just after (exactly one launch a call): K5 through
+   per source, all started together), prints ptxas's resource lines and
+   the sha256 of K6's output bits on two seeded inputs.
+3. `[kernel]`: each kernel against its plain PyTorch version at the main
+   path's shapes (S=3 sources, T=32x32 pixels, C=512, F=32 frames; K2 at
+   (3, 32, 32, 32, 1024) and, past its cluster, (3, 8, 64, 64, 1024); K6
+   at S=3, F=32, 32x32, K=1024; K7 with relu and with skip at
+   (32, 32, 32, 512), and at the clip's B=64), then K3-flow (warped
+   features and flow, temp 100) and K4 (six cotangents at temps 10 and
+   100, against the plain version in fp32 and in float64, and given the
+   plain version's own flow; two calls the same bits) at the train shape
+   (G=15, NS=3, NF=1, T=32x32, C=512). Each prints the kernel's ms and
+   its plain version's, by CUDA events: PERF.md's kernel table.
+4. `[high]`: `precision="high"` (bf16x3) through `conv2d_dp` at the
+   model's conv shapes and the train batch, forward, grad-input and
+   grad-weight within 1e-5 relative L2 of a float64 oracle of the same
+   three bf16 products; at the 7x7 stem also the folded conv that the
+   encoders run under "high", held the same way.
+5. `[main]`: `face_config()` with seeded random weights in the bit-parity
+   and bench ("high" + fast_tail + fast_trunk) tiers: `tsnet_forward_clip`
+   over a 64-frame clip and four 32-frame `RetargetSession.push_labels`
+   requests (one with output="display"), the tier's kernels counted,
+   against the plain path and the clip over the same chunks; then
+   `bench+fused` (K6 in FuseNet under TSNET_FUSE_PAIR_KERNEL=1, set for
+   that tier only; K7 in the decoder), a clip and two
+   `decode_with_sources` requests on one source pack, launches counted
+   per decode call. `[tiers]`: how far the bench tier and "high" +
+   fast_tail move the clip from the bit-parity tier (the latter held
+   within 0.01 mean L1).
+6. `[train]`: the GAN train step, bit-parity, batch 15: the first step
+   from one seeded state through the kernels, the plain versions and the
+   plain versions on nudged inputs (metrics and per-subnet gradients, at
+   temps 10 and 100), then 10 steps (one K3-flow, K4 and K2 a step; the
+   metrics finite; G_VGG falls).
+7. `[serve]`: that state saved as a trainer snapshot (flax msgpack) and
+   restored bit for bit, the generator as a reference `.pth` and loaded
+   bit for bit; the keypoint rasterizer on the card against its CPU run;
+   per tier (bench, bit-parity) the snapshot served by `cli.serve.Server`
+   on 127.0.0.1 from a thread: a 64-frame base64 request (one warp kernel
+   and one K2 a chunk) and a 2-frame int-list request within 1 LSB of an
+   in-process `push_keypoints`, the model-space kernel path against the
+   plain path, 2 frames alone against the same frames in a 32-frame
+   chunk, one request through the server's stages in this process.
+8. `[determinism]`: the face bit-parity step (batch 15), the pose
+   bit-parity step (batch 10) and the face fast train tier, each called
+   on two `copy.deepcopy`s of one seeded state: every gradient, updated
+   parameter, Adam moment, metric and the reconstruction bit-equal.
+9. `[pose]`: `pose_config()` (label_nc=25, netD and netDF) with seeded
+   one-hot pose label maps: K3-flow and K4 at G=10 and K2 at
+   (3, 10, 32, 32, 1024); a 64-frame clip per tier against the plain path
+   (background columns exact) and a 32-frame session request;
+   `crop_faces` with no host sync (card against CPU); the first step at
+   batch 10 at temps 10 and 100 through the kernels, the plain versions
+   and nudged plain versions (the metrics that read the updated
+   discriminators held in their two parts); 20 steps; the snapshot bit
+   for bit with netDF's Adam moments; the fast train tier's
+   generator-gradient cosines.
+10. `[pose_data]`: each committed JPEG fixture decoded to its manifest's
+   sha256 (Pillow's decode; the card's machine has none), a synthetic
+   dance set, `cli.train_pose` 14 steps from step 86 (launches a step,
+   the image shot's label colours, the snapshot), `cli.eval_snapshots
+   --task pose`, `cli.demo_pose` on a same-build and a cross-build pair
+   against the plain path (montage, GIF), `rasterize_pose_clip` on the
+   card bit-equal to the CPU, pose `Server` in two tiers.
+11. `[parallel]`: a (1, 1) NCCL mesh in this process (the step and both
+   clip tiers bit for bit against one process), then two `spawn_ranks`
+   ranks on the one card over gloo: the (2, 1) step at batch 16, the
+   (1, 2) TP+SP plain clip, TP kernel clip and `bench+fused` under TP,
+   launches counted per rank. One card measures no scaling.
+12. `[loop]`: `cli.train_face` on a synthetic dataset (15 videos x 10 PNG
+   frames at 320^2) for 14 steps (one K3-flow, K4 and K2 a step), the
+   snapshot restored equal, a resume stepped once under torch.profiler;
+   the fast train tier's two gradient cosines (>= 0.99) and its steps
+   beside the bit-parity tier's; `remat`'s peak memory (lower) and
+   gradients; `ClipInference` bit for bit against `tsnet_forward_clip`
+   per 32-frame chunk in both tiers, the metrics card against CPU.
+13. `[demo]`: `cli.demo_face` on a synthetic subject/driving pair in its
+   default tier (K3-nf) and with `--fast-tail` (K1), against the plain
+   path (0.01 mean L1), its montage PNGs and GIF; `cli.eval_snapshots`
+   over `[loop]`'s snapshots; `cli.quick_start` under torch.profiler (one
+   K3-flow, K4 and K2); `cli.profile_stages` on a 64-frame clip and on
+   the train step at batch 15, in the bit-parity and default tiers, each
+   stage span once a call or step. `[tools]`: `cli.plot_history`.
+14. The two kernels that no model path reaches, through their own entry
+   points, each call exactly one launch: K5 through
    `transformation_warp(use_kernels=True)` at B=15, 32x32, C=512 (temps
-   100 and 10; flow and warped output against the plain path; the five
-   input gradients under a fixed flow cotangent; SDPA on the mask-folded
-   inputs as a yardstick), and K8 `instance_norm_fused` at
-   (32, 256, 256, 64) and, with `phase_groups=4`, (32, 128, 128, 256), in
-   bf16 and f32, relu on and off (the path its planner chose and its
-   cluster; against its plain version, and so is its three-launch path,
-   forced, with its launches timed apart; the phase identity with
-   `space_to_depth`; `F.instance_norm` on the NCHW or the (B, C/G, N*G)
-   view as a yardstick).
-11. Drives the pose variant (`[pose]`, after `[serve]` has freed the
-   train phase's state) at the full width of `pose_config()` (256²,
-   label_nc=25, 3 sources, netD and netDF) with seeded random weights
-   and seeded one-hot pose label maps (body regions; in each batch a
-   face blob, head classes only, neither, and a face at the border):
-   K3-flow and K4 at G=10 and K2 at (3, 10, 32, 32, 1024) in f32 and
-   bf16 against their plain versions; a 64-frame clip in the bit-parity
-   tier (K3-nf + K2) and the JAX package's pose inference tier ("high" +
-   fast_tail + fast_trunk: K1 + K2), launches counted, against the plain
-   path (1e-3 max abs / 0.01 mean L1), the background columns equal to
-   the mean colour exactly, frames/s, stage split and peak memory, and a
-   32-frame `RetargetSession.push_labels` against `decode_with_sources`;
-   `crop_faces` under `torch.cuda.set_sync_debug_mode("error")`; the
-   first train step at batch 10 through the kernels, the plain versions
-   and the plain versions on nudged inputs (the 16 metrics, netD and
-   netDF gradients, each generator subnet's; the metrics that read the
-   updated discriminators also through the plain path's, with the
-   updated discriminator weights in units of their lr and the sign
-   flips of their gradients); 20 steps (one K3-flow, K4
-   and K2 a step; ms/step over steps 2-20, stage split, peak memory);
-   the trained state saved and restored bit for bit (netDF and its Adam
-   moments); the fast train tier's ms/step, and the cosines of its
-   generator gradient (the G-phase loss at the seeded discriminators, as
-   the JAX package measured its tiers) against "high" at temp 100 and
-   the bit-parity tier at temps 10 and 100 (each >= 0.9), and of "high"
-   against the bit-parity tier at temp 100, printed.
-12. Drives the pose variant from files on disk (`[pose_data]`, after
-   `[pose]`) at the full width of `pose_config()`: each committed JPEG
-   fixture (tests/torch_fixtures/jpeg/) decoded by the port and held to
-   the sha256 of Pillow's decode in its manifest (no Pillow needed),
-   with its decode ms; a synthetic dance set (10 videos x 40
-   frames, copies of the fixtures, with OpenPose JSONs of a moving
-   figure, one video with two people and one with undetected points,
-   the video dicts, and the driving videos smoothed by
-   `cli.smooth_keypoints`) in a temporary directory of the checkout;
-   `cli.train_pose.main` (bit-parity, batch 10, frames 4 apart, 8
-   workers, 14 steps, launches: one K3-flow, K4 and K2 a step; ms/step
-   2-14 beside [pose]'s fixed batch; data-wait share; peak memory; the
-   image shot's label column in the pose palette; the snapshot restored
-   bit for bit); `cli.eval_snapshots --task pose` over its snapshots;
-   `cli.demo_pose.main` on a pair of one build and a pair of two (the
-   retargeted skeleton), 30 frames in one chunk, the first pair in the
-   default tier (K3-nf) and `--fast-tail` (K1), the second in the
-   default tier, one warp kernel and one K2 a chunk, against
-   `ClipInference(use_kernels=False)` (0.01 mean L1), its last montage
-   PNG and its GIF's size, frame count and delays; `rasterize_pose_clip`
-   on the card bit-equal to its CPU run on a 32-frame chunk (time, CUDA
-   launches, peak memory); and `cli.serve.Server` on `pose_config()` in
-   bench and bit-parity: a 64-frame (F, 137, 2) request (one warp kernel
-   and one K2 a chunk), frames within 1 LSB of in-process
-   `push_keypoints`, the server ms of five 32-frame requests.
-13. Runs the multi-device wrappers (`[parallel]`, after
-   `[pose_data]`): a (1, 1) mesh over NCCL in this process, the
-   bit-parity train step at batch 15 through `make_parallel_train_step`
-   against `make_train_step` from the same seeded state (rec, metrics and
-   every gradient bit for bit) and `make_parallel_clip_infer` in the
-   bit-parity and bench tiers bit for bit against `tsnet_forward_clip`
-   over 64 frames; then two spawned ranks on the one card over gloo
-   (NCCL refuses two ranks on one device; the mesh stages collectives
-   through host memory): the (2, 1) step at batch 16 against one process
-   at batch 16 (metrics and rec within 5e-3), and on a (1, 2) mesh the
-   TP+SP clip on the plain path and the TP clip on the kernel path
-   (<=5e-3 max, <=2e-4 mean against one process) and `bench+fused` under
-   TP (<=0.01 mean L1), launches counted per rank. One card measures no
-   scaling.
-14. After `[demo]`, `[tools]`: `cli.plot_history` on `[loop]`'s
-   history.csv, the PNG decoded by the port's reader.
-15. After the standalone phase, `[sweep]`: `cli.bench_sweep.main([])` at
-   full width (8 configs, one K1 and one K2 a clip call), K1 at (S, F) =
-   (1, 64), (5, 64) and (3, 128) against its plain version and timed
-   (S=5 is the JAX package's streamed K1b), and the clip at S=5, F=128
-   against its plain path (<=0.01 mean L1); then `[zoo]`: the zoo's
-   generators and discriminators at 256² and the WGAN-GP penalty, card
-   against CPU.
-16. After `[zoo]`, `[rewrites]` at the full width of `face_config()`: the
-   phase-decomposed decoder that both entry points run
-   (`nn.decoder.decoder_apply_fast`) against the plain `Decoder` on the
-   same prop/syn features of a 64-frame clip in the bit-parity, bench and
-   `bench+fused` tiers (<=1e-3 max abs / <=0.01 mean L1; in
-   `bench+fused` K7's eight launches inside the phase decoder), each
-   form's decoder ms (CUDA events), the clip's frames/s with each form
-   decoding (`models.tsnet.decode` swapped for the plain module; blocks
-   of 3 clips alternated twice) and peak memory; `encoder_apply_fast`
-   against `lbl_enc` on the clip's labels (difference, ms each); the
-   bit-parity and the fast train tier's step at batch 15 with each form
-   (one forward's reconstruction <=1e-3 apart; ms/step over blocks of 3
-   steps alternated twice; a profile of one step each); `ring_pad` on
-   against off (the first step's metrics within 1e-4, ms/step; the
-   64-frame bit-parity clip at softmax temp 10 within 5e-4 relative, at
-   100 within that or twice the pad path's own spread under a 1e-6 input
-   nudge, and its ms); and one pose clip's host rendering (32 OpenPose
-   frames of `[pose_data]`'s figure) through the native `draw_edge` and
-   its numpy tier (ms, pixel agreement >= 0.999).
-17. Prints one `kernels` JSON line (with each kernel's launches on the
-   pose path, `pose_launches`, on the pose data path,
-   `pose_data_launches`, on `[parallel]`'s runs, `parallel_launches`, and
-   in `[sweep]`, `sweep_launches`; for K3-flow, K4 and K2 its check at
-   the pose train shape, `pose`; for K1 its checks at the sweep's
-   shapes, `sweep`; SDPA on the mask-folded inputs as `library_ms` of
-   K1, K3-nf, K3-flow and K4), the card line again, and last
+   100 and 10, the five input gradients), and K8 `instance_norm_fused` at
+   (32, 256, 256, 64) and, with `phase_groups=4`, (32, 128, 128, 256),
+   bf16 and f32, relu on and off (its forced three-launch path too; the
+   phase identity with `space_to_depth`).
+15. `[sweep]`: `cli.bench_sweep.main([])` at full width (one K1 and one K2
+   a clip call), K1 at (S, F) = (1, 64), (5, 64) and (3, 128), the clip
+   at S=5, F=128 against its plain path; `[zoo]`: the zoo's generators,
+   discriminators and WGAN-GP penalty at 256², card against CPU.
+16. `[rewrites]`: the phase-decomposed decoder against the plain `Decoder`
+   in the bit-parity, bench and `bench+fused` tiers and in the train
+   step, `encoder_apply_fast` against `lbl_enc`, `ring_pad` on against
+   off (first-step metrics; the clip at temps 10 and 100), and the native
+   `draw_edge` against its numpy tier on one pose clip.
+17. Prints one `kernels` JSON line (each kernel's error, ms and plain ms,
+   and its launches on each phase's path), the card line again, and last
    `{"ok": true, "device": {...}}`.
 
-    python3 chip_smoke.py --parts
+Modes that run a part alone:
 
-prints only what one call of K7 and of K2 launches at the main paths'
-shapes and of K8 at its two standalone shapes, by CUDA kernel, and K6's
-output bits, and
-
-    python3 chip_smoke.py --requests
-
-only the median of ten 32-frame session requests in the bit-parity and
-bench tiers (the main run times one request, after its kernel checks);
-both through entry points that every version of the port has, so that
-loaded beside an earlier tree's package they read that tree the same way.
-
-    python3 chip_smoke.py --pose
-
-builds the kernels and runs only the pose phases (steps 11 and 12), and
-
-    python3 chip_smoke.py --parallel
-
-the kernel checks, `[parallel]`, `[sweep]` and `[zoo]`, and
-
-    python3 chip_smoke.py --rewrites
-
-builds the kernels and runs `[rewrites]` alone, and
-
-    python3 chip_smoke.py --pose-first-step
-
-`[pose]`'s first-step comparison alone, with the plain `Decoder` and then
-the phase-decomposed decoder decoding, and
-
-    python3 chip_smoke.py --high
-
-`[high]` alone (no kernel build), and
-
-    python3 chip_smoke.py --determinism
-
-builds the kernels and runs `[determinism]` alone.
+    python3 chip_smoke.py --high             # step 4, no kernel build
+    python3 chip_smoke.py --determinism      # step 8, and two steps with
+                                             # cuDNN's default flags
+    python3 chip_smoke.py --pose             # steps 9 and 10
+    python3 chip_smoke.py --parallel         # step 3's kernel checks,
+                                             # steps 11 and 15
+    python3 chip_smoke.py --rewrites         # step 16
+    python3 chip_smoke.py --pose-first-step  # [pose]'s first step with the
+                                             # plain Decoder, then the
+                                             # phase-decomposed decoder
 """
 
 from __future__ import annotations
@@ -293,7 +135,6 @@ import collections
 import contextlib
 import copy
 import dataclasses
-import functools
 import hashlib
 import io
 import json
@@ -313,7 +154,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.nn.attention import SDPBackend
 from torch.profiler import ProfilerActivity, profile
 
 from wacv23_tsnet_tpu_torch.cli import (bench_sweep, demo_face, demo_pose,
@@ -326,12 +166,10 @@ from wacv23_tsnet_tpu_torch.cli.serve import Server, make_handler
 from wacv23_tsnet_tpu_torch.compat import (export_flax_params,
                                            save_reference_checkpoint)
 from wacv23_tsnet_tpu_torch.configs import face_config, pose_config
-from wacv23_tsnet_tpu_torch.data import datasets as pose_datasets
 from wacv23_tsnet_tpu_torch.data.codecs import POSE_PALETTE, labels_to_image
 from wacv23_tsnet_tpu_torch.data.datasets import (FaceDatasetTest,
                                                   FaceDatasetTrain,
-                                                  PoseDatasetTest,
-                                                  PoseDatasetTrain)
+                                                  PoseDatasetTest)
 from wacv23_tsnet_tpu_torch.data.image_io import read_png, read_rgb, write_png
 from wacv23_tsnet_tpu_torch.data.rasterize import (render_openpose,
                                                   valid_keypoints)
@@ -363,7 +201,6 @@ from wacv23_tsnet_tpu_torch.ops import stemconv as sc
 from wacv23_tsnet_tpu_torch.ops import warp_kernels as wk
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
 from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
-from wacv23_tsnet_tpu_torch.ops.precision import deterministic_cudnn, tf32
 from wacv23_tsnet_tpu_torch.ops.similarity import transformation_warp
 from wacv23_tsnet_tpu_torch.ops.warp import space_to_depth
 from wacv23_tsnet_tpu_torch.parallel import (init_distributed, make_mesh,
@@ -377,12 +214,6 @@ from wacv23_tsnet_tpu_torch.train import (GEN_SUBNETS, create_train_state,
                                           restore_checkpoint,
                                           save_checkpoint)
 from wacv23_tsnet_tpu_torch.train import step as train_step_module
-from wacv23_tsnet_tpu_torch.utils import StepTimer
-
-# Published peaks of one H100 SXM (NVIDIA data sheet, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12      # CUDA cores, outside the tensor cores
-BF16_TC_FLOP_PER_S = 989e12  # tensor cores, dense
 
 # kernel-vs-plain tolerances on the card, elementwise |err| <= atol +
 # rtol * |plain|. f32 out: both sides are fp32, but 512-term dot products
@@ -446,10 +277,9 @@ FLOW_GRAD_RTOL = 1e-6
 # phase layout (phase_groups=4)
 K8_SHAPES = {1: (32, 256, 256, 64), 4: (32, 128, 128, 256)}
 FORWARD_KEYS = ("src_img", "src_lbl", "src_bbox", "tar_lbl", "tar_bbox")
-# the serve phase: a 64-frame base64 request in two 32-frame chunks, then
-# SERVE_REPEATS timed 32-frame requests and a 2-frame int-list request
+# the serve phase: a 64-frame base64 request in two 32-frame chunks and a
+# 2-frame int-list request
 SERVE_FRAMES = 64
-SERVE_REPEATS = 5
 SERVE_KERNELS = {"bench": "transform_warp_pairs_mean",
                  "bit-parity": "transform_warp_pairs_nf"}
 # the loop phase: a synthetic face dataset (LOOP_VIDEOS videos of
@@ -477,8 +307,6 @@ DEMO_FACE_R = {"subject": 70, "driving": 52}
 DEMO_TIERS = {"default": ([], "transform_warp_pairs_nf"),
               "fast-tail": (["--fast-tail"], "transform_warp_pairs_mean")}
 DEMO_TOL = 0.01
-# profile_stages' SUM of stages against [fps]'s clip in the same tier
-STAGE_SUM_TOL = 0.15
 # the pose phase: pose_config() at full width; the reference's train
 # batch (train_pose.py: 10); the clip tiers with the warp kernel each
 # launches and the one it must not; the fast train tier's generator-
@@ -582,53 +410,12 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def parts_ms(launch, phases, prefix: str = "") -> dict:
-    """CUDA-event ms of each launch of one kernel call, run alone:
-    launch(1 << i) runs the launch named phases[i]."""
-    return {prefix + name: time_ms(lambda i=i: launch(1 << i))
-            for i, name in enumerate(phases)}
-
-
-def device_parts(call, iters: int = 5) -> dict:
-    """What one call of `call` launches on the card, by CUDA kernel: the
-    device ms of one launch and the launches per call, from a
-    torch.profiler trace of `iters` calls (a trace may miss a launch's
-    record, so the ms are taken per launch traced)."""
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    parts = {}
-    for e in prof.key_averages():
-        if (e.device_type == cuda and not e.is_user_annotation
-                and e.self_device_time_total > 0):
-            name = re.sub(r"\(anonymous namespace\)::|^void ", "",
-                          e.key).split("(")[0][:48]
-            parts[name] = {"ms": e.self_device_time_total / 1e3 / e.count,
-                           "launches": e.count / iters}
-    return parts
-
-
 def compare(got, want, tol) -> dict:
     atol, rtol = tol
     err = (got.float() - want.float()).abs()
     bound = atol + rtol * want.float().abs()
     return {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
             "worst_err_over_tol": (err / bound).max().item()}
-
-
-def bound(nbytes: float, flops: float,
-          peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
-    """The least ms the card could take, and what bounds it; `peak` is
-    the rate of the operations' type."""
-    by_bytes = nbytes / HBM_BYTES_PER_S
-    by_ops = flops / peak
-    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                         else "operations")
 
 
 def ptxas_resources(name: str) -> list[dict]:
@@ -656,65 +443,6 @@ def ptxas_resources(name: str) -> list[dict]:
     return rows
 
 
-def fold_masks(tar, tar_mask, src, src_mask):
-    """SDPA's q and k for the masked similarity: <[mt t, (1 - mt) t],
-    [ms s, (1 - ms) s]> = (mt ms + (1 - mt)(1 - ms)) <t, s>."""
-    mt, ms = tar_mask[..., None], src_mask[..., None]
-    return (torch.cat([mt * tar, (1 - mt) * tar], -1),
-            torch.cat([ms * src, (1 - ms) * src], -1))
-
-
-def sdpa(q, k, v):
-    """The yardstick's call: SDPA at temp 100, fp32, TF32 off."""
-    with tf32(False):
-        return F.scaled_dot_product_attention(q, k, v, scale=100.0)
-
-
-def clip_sdpa(src, tar_n, src_n, tar_mask, src_mask, grid):
-    """SDPA on a clip's mask-folded inputs (every source x frame pair, v =
-    the source features): the same logits and temp-100 softmax as K3-nf
-    and K1, its output softmax . v where the kernels warp the source
-    features at softmax . grid. Returns (call, what it is)."""
-    s, t, c = src.shape
-    f = tar_n.shape[0]
-    q, k = fold_masks(tar_n, tar_mask, src_n, src_mask)
-    q = q[None].expand(s, f, t, 2 * c).contiguous()
-    k = k[:, None].expand(s, f, t, 2 * c).contiguous()
-    v = src[:, None].expand(s, f, t, c).contiguous()
-    return (lambda: sdpa(q, k, v),
-            f"SDPA, backend {sdpa_backend(q, k, v, 100.0)}, on mask-folded "
-            f"q/k {2 * c} wide, v the source features")
-
-
-def train_sdpa(src, tar_n, src_n, tar_mask, src_mask, grid):
-    """SDPA at K3-flow's train shape, v = [source features | grid]
-    zero-padded to a multiple of 8 columns (its grid columns are
-    K3-flow's flow): (forward call, backward call on one cotangent, what
-    it is)."""
-    g, ns, t, c = src.shape
-    q, k = fold_masks(tar_n, tar_mask, src_n, src_mask)
-    q = q.expand(g, ns, t, 2 * c).contiguous().requires_grad_(True)
-    k = k.contiguous().requires_grad_(True)
-    width = -(-(c + 2) // 8) * 8
-    v = F.pad(torch.cat([src, grid.expand(g, ns, t, 2)], -1),
-              (0, width - c - 2)).contiguous().requires_grad_(True)
-    what = (f"SDPA, backend {sdpa_backend(q, k, v, 100.0)}, on mask-folded "
-            f"q/k {2 * c} wide, v = [features | grid] {width} wide")
-    out = sdpa(q, k, v)
-    ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)
-                     ).to(out.device)
-
-    def bwd():
-        with tf32(False):
-            return torch.autograd.grad(out, (q, k, v), ct, retain_graph=True)
-
-    def fwd():
-        with torch.no_grad():
-            return sdpa(q, k, v)
-
-    return fwd, bwd, what
-
-
 def kernel_checks(line: str) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     dev = torch.device("cuda")
@@ -727,10 +455,7 @@ def kernel_checks(line: str) -> dict:
         l2_normalize(src), (torch.rand(f, t, generator=g) > 0.5).float(),
         (torch.rand(s, t, generator=g) > 0.5).float(),
         normalized_grid(h, w).reshape(t, 2)))
-    in_bytes = 4 * (2 * s * t * c + f * t * c + s * t + f * t + 2 * t)
-    warp_flops = s * f * t * (2 * t * c + 10 * t + 8 * c)
     x32 = (torch.randn(s, f, h, w, 2 * c, generator=g) * 2 + 1).to(dev)
-    sdpa_nf, sdpa_nf_what = clip_sdpa(*args)
 
     cases = {
         "transform_warp_pairs_mean": dict(
@@ -738,24 +463,17 @@ def kernel_checks(line: str) -> dict:
                 *args, h, w, out_dtype=torch.bfloat16),
             plain=lambda: wk.transform_warp_mean_plain(
                 *args, h, w, out_dtype=torch.float32),
-            tol=TOL["bf16"], bytes=in_bytes + 2 * f * t * c,
-            flops=warp_flops, tier="bench",
-            library=(lambda: sdpa_nf().mean(dim=0),
-                     sdpa_nf_what + ", then .mean(0) over the sources: "
-                     "two calls"),
+            tol=TOL["bf16"], tier="bench",
             replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:495",
             source="wacv23_tsnet_tpu_torch/csrc/transform_warp.cu"),
         "transform_warp_pairs_mean_f32out": dict(
             kernel=lambda: wk.transform_warp_pairs_mean(*args, h, w),
             plain=lambda: wk.transform_warp_mean_plain(*args, h, w),
-            tol=TOL["f32"], bytes=in_bytes + 4 * f * t * c,
-            flops=warp_flops, tier=None),
+            tol=TOL["f32"], tier=None),
         "transform_warp_pairs_nf": dict(
             kernel=lambda: wk.transform_warp_pairs_nf(*args, h, w),
             plain=lambda: wk.transform_warp_pairs_nf_plain(*args, h, w),
-            tol=TOL["f32"], bytes=in_bytes + 4 * s * f * t * c,
-            flops=warp_flops, tier="bit-parity",
-            library=(sdpa_nf, sdpa_nf_what),
+            tol=TOL["f32"], tier="bit-parity",
             replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:262",
             source="wacv23_tsnet_tpu_torch/csrc/transform_warp.cu"),
         "instance_norm_mean_f32": dict(
@@ -773,8 +491,8 @@ def kernel_checks(line: str) -> dict:
 
 
 def check_cases(cases: dict, line: str) -> dict:
-    """Each case's kernel against its plain version, and both timed;
-    prints a `[kernel]` line each."""
+    """Each case's kernel against its plain version, and the ms of each
+    alone (CUDA events); prints a `[kernel]` line each."""
     results = {}
     for name, case in cases.items():
         got = case["kernel"]()
@@ -784,91 +502,46 @@ def check_cases(cases: dict, line: str) -> dict:
               f"{name} disagrees with its plain version: {res}")
         res["ms"] = time_ms(case["kernel"])
         res["plain_ms"] = time_ms(case["plain"], iters=3)
-        res["bound_ms"], res["bound_by"] = bound(
-            case["bytes"], case["flops"], case.get("peak", FP32_FLOP_PER_S))
         res.update({k: case[k] for k in ("tier", "replaces", "source",
                                          "launch") if k in case})
-        yardstick = ""
-        if "parts" in case:  # the launches of one call, each timed alone
-            res["parts_ms"] = case["parts"]()
-            yardstick += f" parts_ms={json.dumps(res['parts_ms'])}"
-        if "profile" in case:  # what one call launches, by CUDA kernel
-            res["device_parts"] = device_parts(case["kernel"])
-            yardstick += (f" cluster={case['cluster']} device_parts="
-                          f"{json.dumps(res['device_parts'])}")
-        library = "none"
-        if "library" in case:   # one PyTorch call (or two, as named)
-            fn, what = case["library"]
-            res["library_ms"] = time_ms(fn)
-            library = f"{res['library_ms']:.4f} ({what})"
-        if "conv_alone" in case:
-            res["conv_alone_ms"] = time_ms(case["conv_alone"])
-            yardstick += (f" conv_alone_ms={res['conv_alone_ms']:.4f} (cuDNN "
-                         "bf16 3x3 conv alone on a pre-padded input, "
-                         "yardstick only)")
+        path = f" path={case['cluster']}" if "cluster" in case else ""
         results[name] = res
         print(f"[kernel] {name}: max_abs_err={res['max_abs_err']:.3e} "
               f"mean_abs_err={res['mean_abs_err']:.3e} "
               f"(atol, rtol)={case['tol']} "
               f"worst_err_over_tol={res['worst_err_over_tol']:.3f} "
               f"kernel_ms={res['ms']:.4f} "
-              f"plain_ms={res['plain_ms']:.4f} library_ms={library} "
-              f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
-              f"bound_share={res['bound_ms'] / res['ms']:.4f}"
-              f"{yardstick} | {line}", flush=True)
+              f"plain_ms={res['plain_ms']:.4f}{path} | {line}", flush=True)
     torch.cuda.synchronize()
     return results
 
 
 def k2_case(x, tol) -> dict:
-    """K2 on x (S, F, H, W, C), against its plain version in fp32; its
-    two-pass path's launches timed apart (forced at any plane)."""
-    s, f, h, w, c = x.shape
-    nbytes = x.numel() * x.element_size()
+    """K2 on x (S, F, H, W, C), against its plain version in fp32."""
+    h, w = x.shape[2:4]
     return dict(
         kernel=lambda: nk.instance_norm_mean(x),
         plain=lambda: nk.instance_norm_mean_plain(x, out_dtype=torch.float32),
-        parts=lambda: parts_ms(nk.launcher(x, two_pass=True)[0], nk.PHASES,
-                               "two_pass_"),
-        profile=True, tol=tol, bytes=nbytes + nbytes // s,
-        flops=7 * x.numel(), launch="instance_norm_mean", tier=None,
+        tol=tol, launch="instance_norm_mean", tier=None,
         cluster=(f"{nk.mean_tiles(h, w)} blocks"
                  if nk.mean_tiles(h, w) <= nk.MAX_CLUSTER else "none (two-pass)"),
         replaces="wacv23_tsnet_tpu/ops/pallas_norms.py:135",
         source="wacv23_tsnet_tpu_torch/csrc/in_mean.cu")
 
 
-def k7_case(x, wc, skip, relu, g) -> dict:
+def k7_case(x, wc, skip, relu) -> dict:
     """K7 on x (B, H, W, C) with weight wc (relu, or + skip), against its
-    plain version; its two-pass path's launches timed apart (forced at
-    any plane), cuDNN's conv alone as a yardstick."""
-    b, h, w, c = x.shape
+    plain version."""
+    h, w = x.shape[1:3]
     co = wc.shape[0]
-    ins = 2 * x.numel() * (1 if skip is None else 2)
     return dict(
         kernel=lambda: ck.conv3x3_in(x, wc, skip=skip, relu=relu),
         plain=lambda: ck.conv3x3_in_plain(x, wc, skip=skip, relu=relu),
-        parts=lambda: parts_ms(
-            ck.launcher(x, wc, skip=skip, relu=relu, two_pass=True)[0],
-            ck.PHASES, "two_pass_"),
-        profile=True, tol=TC_TOL, flops=2 * b * h * w * 9 * c * co,
-        peak=BF16_TC_FLOP_PER_S, bytes=ins + 2 * (wc.numel() + b * h * w * co),
-        conv_alone=conv_alone(b, c, co, h, w, g), launch="conv3x3_in",
-        tier=None,
+        tol=TC_TOL, launch="conv3x3_in", tier=None,
         cluster=(f"{ck.tiles(h, w)} blocks, "
                  f"{ck.max_active_clusters(h, w, co)} clusters at once"),
         replaces="wacv23_tsnet_tpu/ops/pallas_conv.py:122",
         source="wacv23_tsnet_tpu_torch/csrc/conv3x3_in.cu")
-
-
-def conv_alone(b: int, c: int, co: int, h: int, w: int, g):
-    """cuDNN's bf16 3x3 conv of (b, c, h + 2, w + 2) channels_last to co
-    channels: the convolution of K6/K7 without their norms and pads."""
-    x = torch.randn(b, c, h + 2, w + 2, generator=g).to(
-        "cuda", torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    wt = (torch.randn(co, c, 3, 3, generator=g) * 0.02).to(
-        "cuda", torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    return lambda: F.conv2d(x, wt)
 
 
 def fused_tail_cases(g) -> dict:
@@ -876,7 +549,6 @@ def fused_tail_cases(g) -> dict:
     (32, 32, 32, 512), bf16: the fused tier's shapes per 32-frame call."""
     dev = torch.device("cuda")
     s, f, h, w, k = 3, 32, 32, 32, 1024
-    n = h * w
     c1a = torch.randn(s, h, w, k, generator=g).to(dev, torch.bfloat16)
     c1t = torch.randn(f, h, w, k, generator=g).to(dev, torch.bfloat16)
     w2 = (torch.randn(k, k, 3, 3, generator=g) * 0.02).to(dev)
@@ -888,85 +560,15 @@ def fused_tail_cases(g) -> dict:
     return {
         "fuse_pair_conv2": dict(
             kernel=lambda: fk.fuse_pair_conv2(c1a, c1t, w2),
-            parts=lambda: parts_ms(fk.launcher(c1a, c1t, w2)[0], fk.PHASES),
             plain=lambda: fk.fuse_pair_conv2_plain(c1a, c1t, w2),
-            tol=K6_TOL, peak=BF16_TC_FLOP_PER_S,
-            bytes=2 * (c1a.numel() + c1t.numel() + w2.numel()
-                       + s * f * n * k),
-            flops=2 * s * f * n * 9 * k * k,
-            conv_alone=conv_alone(s * f, k, k, h, w, g), tier=FUSED_TIER,
-            launch="fuse_pair_conv2",
+            tol=K6_TOL, tier=FUSED_TIER, launch="fuse_pair_conv2",
             replaces="wacv23_tsnet_tpu/ops/pallas_fuse.py:124",
             source="wacv23_tsnet_tpu_torch/csrc/fuse_pair_conv2.cu"),
-        "conv3x3_in": dict(k7_case(x, wc, None, True, g), tier=FUSED_TIER),
-        "conv3x3_in_skip": k7_case(x, wc, skip, False, g),
+        "conv3x3_in": dict(k7_case(x, wc, None, True), tier=FUSED_TIER),
+        "conv3x3_in_skip": k7_case(x, wc, skip, False),
         # a 64-frame clip's decoder blocks
-        "conv3x3_in_b64": k7_case(x64, wc, None, True, g),
+        "conv3x3_in_b64": k7_case(x64, wc, None, True),
     }
-
-
-def device_breakdown(forward, tier: str, top: int = 12) -> dict:
-    """Device time of one call by kernel (torch.profiler/CUPTI): the time
-    some kernel ran, its share of the same profiled call's host-clock
-    time, the CUDA launches (kernels, copies, fills), and the kernels
-    that take the most."""
-    torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        forward()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    # the device's own operations, not the port's spans projected there
-    rows = [e for e in prof.key_averages()
-            if e.device_type == cuda and not e.is_user_annotation]
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    # busy time: the union of the kernels' intervals, so that kernels
-    # that overlap (another stream) are not counted twice
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == cuda and not e.is_user_annotation)
-    busy_us, last_end = 0.0, float("-inf")
-    for start, end in spans:
-        if end > last_end:
-            busy_us += end - max(start, last_end)
-            last_end = end
-    for e in rows[:top]:
-        print(f"[profile] {tier}: {e.self_device_time_total / 1e3:9.3f} ms "
-              f"x{e.count:<5d} {e.key[:110]}")
-    return {"device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / 1e6 / wall_s,
-            "profiled_wall_ms": 1e3 * wall_s, "cuda_launches": len(spans)}
-
-
-def stage_ms(mods, src, tar_lbl, tar_bbox, fused: bool = False) -> dict:
-    """CUDA-event ms of each stage of one clip forward, made stage by stage
-    with the calls `tsnet_forward_clip` makes (models/tsnet.py); `fused`
-    as its `fused_blocks` (K6 follows the environment, as in fuse_clip)."""
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    with torch.inference_mode():
-        mark("start")
-        pack = encode_sources(mods, *src)
-        mark("encode_sources")
-        tar_fea, tar_fea_n, tar_mask = label_features(mods, tar_lbl,
-                                                      tar_bbox)
-        mark("lbl_enc")
-        prop = propagate(mods, pack, tar_fea_n, tar_mask)
-        mark("transformation")
-        syn = fuse_clip(mods.fuse_net, pack["fea"].float(), tar_fea.float())
-        mark("fuse_clip")
-        decode(mods, prop, syn, fused_blocks=fused).float()
-        mark("decoder")
-    torch.cuda.synchronize()
-    return {name: marks[i - 1][1].elapsed_time(ev)
-            for i, (name, ev) in enumerate(marks) if i}
 
 
 @contextlib.contextmanager
@@ -984,39 +586,8 @@ def fuse_pair_kernel(on: bool):
             os.environ[FUSE_ENV] = old
 
 
-def tier_perf(tier: str, mods, forward, request, request_key: str, src,
-              tar_lbl, tar_bbox, line: str, fused: bool = False) -> dict:
-    """Clip ms and frames/s (3 clips), one request's ms, peak memory, the
-    stage split and a profile of one clip; prints `[perf]` and `[fps]`."""
-    res = {}
-    iters = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        forward()
-    torch.cuda.synchronize()
-    res["clip_ms"] = 1e3 * (time.perf_counter() - t0) / iters
-    res["fps"] = CLIP_FRAMES / (res["clip_ms"] / 1e3)
-    t0 = time.perf_counter()
-    request()
-    res[request_key] = 1e3 * (time.perf_counter() - t0)
-    torch.cuda.reset_peak_memory_stats()
-    forward()
-    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    res["stage_ms"] = stage_ms(mods, src, tar_lbl, tar_bbox, fused)
-    res.update(device_breakdown(forward, tier))
-    print(f"[perf] {tier}: " + json.dumps({k: res[k] for k in (
-        "clip_ms", "fps", request_key, "peak_mem_gb", "stage_ms",
-        "device_busy_ms", "device_busy_share")}), flush=True)
-    print(f"[fps] {tier}: {res['fps']:.2f} frames/s "
-          f"({CLIP_FRAMES}-frame clip, {res['clip_ms']:.2f} ms) on {line}",
-          flush=True)
-    return res
-
-
 HIGH = "high"
 HIGH_RTOL = 1e-5          # relative L2 against the float64 bf16x3 oracle
-HIGH_REPEATS = 3          # timed calls a route and direction
 # the model's conv shapes at the full width of face_config() and the
 # train step's batch (15 samples; FuseNet's pair block 45 = 15 x 3
 # sources): x NHWC as the conv reads it (after its reflect pad), weight
@@ -1033,107 +604,19 @@ HIGH_SHAPES = {
 }
 
 
-def high_routes(xc, w, gc, stride, padding, groups) -> dict:
-    """(forward, backward) callables of each way to compute the NCHW conv
-    of xc and w and its two gradients for gc that `[high]` measures:
-    "high", the port's bf16x3 (`ops.dpconv`: hi·hi in pieces of at most
-    `CHAIN` products); "three_calls", the same three products one call
-    each, not summed in pieces; "one_conv", ONE conv over three times the
-    input channels ([x_hi, x_hi, x_lo] against [w_hi, w_lo, w_hi],
-    interleaved within each group; grad-input over 3x the output
-    channels, grad-weight over 3x the batch); "tf32", cuDNN's fp32 conv
-    with TF32 on (the port's "high" before bf16x3); "highest", TF32 off;
-    at the 7x7 stem's shape also "folded", the route the encoders take
-    under "high" on the card (`ops.stemconv.conv_fold`: the same three
-    products as a 3x3 conv over 16x the channels, the backward the
-    unfolded conv's, timed alone on a kept graph). Each bf16x3 route
-    splits its operands inside the call."""
-    args = ([stride] * 2, list(padding), [1, 1], False, [0, 0], groups)
-
-    def conv(a, b):
-        return F.conv2d(a, b, None, stride, padding, 1, groups)
-
-    def bwd(g, a, b, mask=(True, True)):
-        return torch.ops.aten.convolution_backward(
-            g, a, b, None, *args, [*mask, False])[:2]
-
-    def cudnn(tf32_on):
-        def fwd():
-            with tf32(tf32_on):
-                return conv(xc, w)
-
-        def back():
-            with tf32(tf32_on):
-                return bwd(gc, xc, w)
-        return fwd, back
-
-    def three_fwd():
-        (xh, xl), (wh, wl) = dp.split_bf16(xc), dp.split_bf16(w)
-        with tf32(True):
-            return conv(xh, wh) + (conv(xh, wl) + conv(xl, wh))
-
-    def three_bwd():
-        (xh, xl), (wh, wl), (gh, gl) = map(dp.split_bf16, (xc, w, gc))
-        with tf32(True):
-            hh, hl, lh = bwd(gh, xh, wh), bwd(gh, xl, wl), bwd(gl, xh, wh)
-        return tuple(a + (b + c) for a, b, c in zip(hh, hl, lh))
-
-    def channels(parts, n_groups):
-        """NCHW views of NHWC tensors, the parts side by side within each
-        of n_groups channel blocks."""
-        b, c, h, wd = parts[0].shape
-        nhwc = [t.permute(0, 2, 3, 1).reshape(b, h, wd, n_groups, 1, -1)
-                for t in parts]
-        return torch.cat(nhwc, 4).reshape(b, h, wd, 3 * c).permute(0, 3, 1, 2)
-
-    def rows(parts):
-        co = parts[0].shape[0]
-        blocks = [t.reshape(groups, 1, co // groups, *t.shape[1:])
-                  for t in parts]
-        return torch.cat(blocks, 1).reshape(3 * co, *parts[0].shape[1:])
-
-    def one_fwd():
-        (xh, xl), (wh, wl) = dp.split_bf16(xc), dp.split_bf16(w)
-        with tf32(True):
-            return conv(channels((xh, xh, xl), groups),
-                        torch.cat([wh, wl, wh], 1))
-
-    def one_bwd():
-        (xh, xl), (wh, wl), (gh, gl) = map(dp.split_bf16, (xc, w, gc))
-        with tf32(True):
-            gx = bwd(channels((gh, gh, gl), groups), xc, rows((wh, wl, wh)),
-                     (True, False))[0]
-            gw = bwd(torch.cat([gh, gl, gh]), torch.cat([xh, xh, xl]), w,
-                     (False, True))[1]
-        return gx, gw
-
-    routes = {
-        "high": (lambda: dp.conv_bf16x3(xc, w, stride, padding, groups),
-                 lambda: dp.conv_bf16x3_backward(gc, xc, w, stride, padding,
-                                                 groups)),
-        "three_calls": (three_fwd, three_bwd),
-        "one_conv": (one_fwd, one_bwd),
-        "tf32": cudnn(True),
-        "highest": cudnn(False),
-    }
-    if w.shape[2:] == (7, 7) and (stride, tuple(padding), groups) == (
-            1, (0, 0), 1):
-        xq = xc.permute(0, 2, 3, 1).detach().requires_grad_()
-        wq = w.detach().requires_grad_()
-        with torch.enable_grad():
-            yq = sc.conv_fold(xq, wq, None, "high")
-        gq = sc.space_to_depth(gc.permute(0, 2, 3, 1), 4)
-
-        def fold_fwd():
-            return sc.depth_to_space(sc.conv_fold(xc.permute(0, 2, 3, 1), w,
-                                                  None, "high"),
-                                     4).permute(0, 3, 1, 2)
-
-        def fold_bwd():
-            gx, gw = torch.autograd.grad(yq, (xq, wq), gq, retain_graph=True)
-            return gx.permute(0, 3, 1, 2), gw
-        routes["folded"] = (fold_fwd, fold_bwd)
-    return routes
+def folded_stem(xc, w, gc):
+    """Forward, grad-input and grad-weight of the 7x7 stem's NCHW conv of
+    xc and w for gc as the encoders take it under "high" on the card
+    (`ops.stemconv.conv_fold`: the three bf16x3 products as a 3x3 conv
+    over 16x the channels, the backward the unfolded conv's)."""
+    xq = xc.permute(0, 2, 3, 1).detach().requires_grad_()
+    wq = w.detach().requires_grad_()
+    with torch.enable_grad():
+        yq = sc.conv_fold(xq, wq, None, "high")
+    gx, gw = torch.autograd.grad(yq, (xq, wq),
+                                 sc.space_to_depth(gc.permute(0, 2, 3, 1), 4))
+    return (sc.depth_to_space(yq.detach(), 4).permute(0, 3, 1, 2),
+            gx.permute(0, 3, 1, 2), gw)
 
 
 def high_oracle(x, w, g, stride, padding, groups):
@@ -1169,9 +652,9 @@ def high_phase(line: str) -> dict:
     bf16x3 (three bf16 products, TF32 on over bf16-valued operands), at
     the model's conv shapes: forward, grad-input and grad-weight through
     `conv2d_dp` held within HIGH_RTOL relative L2 of the float64 oracle
-    of the same three products; every route of `high_routes` against
-    that oracle and the float64 full product, and its ms, forward and
-    backward (both gradients)."""
+    of the same three products (the full product's error beside it); at
+    the 7x7 stem's shape also the folded route the encoders take
+    (`folded_stem`), held the same way."""
     rel = lambda a, b: float((a.double() - b).norm() / b.norm())  # noqa: E731
     parts = ("forward", "grad_input", "grad_weight")
     report = {}
@@ -1186,25 +669,20 @@ def high_phase(line: str) -> dict:
         g = torch.randn(*y.shape, generator=gen, device="cuda")
         y.backward(g)
         xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-        got = (y.detach().permute(0, 3, 1, 2), xg.grad.permute(0, 3, 1, 2),
-               wg.grad)
+        routes = {"conv2d_dp_high": (y.detach().permute(0, 3, 1, 2),
+                                     xg.grad.permute(0, 3, 1, 2), wg.grad)}
         del xg, wg, y
+        if ws[2:] == (7, 7) and (stride, tuple(padding), groups) == (
+                1, (0, 0), 1):
+            routes["folded"] = folded_stem(xc, w, gc)
         three, full = high_oracle(xc, w, gc, stride, padding, groups)
         res = {"x": list(xs), "w": list(ws), "stride": stride,
-               "padding": list(padding), "groups": groups,
-               "conv2d_dp_high": {p: {"vs_bf16x3": rel(got[i], three[i]),
-                                      "vs_full": rel(got[i], full[i])}
-                                  for i, p in enumerate(parts)}}
-        del got
-        for route, (fwd, bwd) in high_routes(xc, w, gc, stride, padding,
-                                             groups).items():
-            out = (fwd(), *bwd())
+               "padding": list(padding), "groups": groups}
+        for route, out in routes.items():
             res[route] = {p: {"vs_bf16x3": rel(out[i], three[i]),
                               "vs_full": rel(out[i], full[i])}
                           for i, p in enumerate(parts)}
-            del out
-            res[route]["ms"] = {"forward": time_ms(fwd, HIGH_REPEATS),
-                                "backward": time_ms(bwd, HIGH_REPEATS)}
+        del routes
         report[name] = res
         print(f"[{HIGH}] {name}: {json.dumps(res)} | {line}", flush=True)
         for route in ("conv2d_dp_high", "folded"):
@@ -1217,7 +695,7 @@ def high_phase(line: str) -> dict:
     return report
 
 
-def main_path(line: str) -> dict:
+def main_path() -> dict:
     """Full-width face clip inference and sessions, both tiers, then the
     bench tier with the fused tail."""
     base = face_config()
@@ -1250,7 +728,6 @@ def main_path(line: str) -> dict:
             torch.cuda.synchronize()
 
             cuda_build.reset_launches()
-            t0 = time.perf_counter()
             out = forward()
             sess = RetargetSession(mods, *src, chunk=CHUNK)
             pushed = [sess.push_labels(tar_lbl[lo:lo + CHUNK],
@@ -1259,7 +736,6 @@ def main_path(line: str) -> dict:
             disp = RetargetSession(mods, *src, chunk=CHUNK, output="display")
             shown = disp.push_labels(tar_lbl[CHUNK:], tar_bbox[CHUNK:])
             torch.cuda.synchronize()
-            run_s = time.perf_counter() - t0
             launches = dict(cuda_build.LAUNCHES)
 
             check(tuple(out.shape) == (CLIP_FRAMES, hw, hw, 3),
@@ -1291,7 +767,7 @@ def main_path(line: str) -> dict:
             # chunk size, as the second model-output request
             want_u8 = np.clip(np.round(pushed[1] * 255.0
                                        + base.img_mean_array()), 0, 255)
-            res = {"launches": launches, "main_path_s": run_s,
+            res = {"launches": launches,
                    "vs_plain_max_abs": diff.max().item(),
                    "vs_plain_mean_abs": diff.mean().item(),
                    "session_vs_clip_max_abs": float(sess_diff.max()),
@@ -1317,18 +793,13 @@ def main_path(line: str) -> dict:
                   f"{tier}: session non-finite")
             check(res["display_vs_model_max_levels"] <= 1.0,
                   f"{tier}: display frames vs model-space frames")
-
-            res.update(tier_perf(
-                tier, mods, forward,
-                lambda: sess.push_labels(tar_lbl[:CHUNK], tar_bbox[:CHUNK]),
-                "session_request_ms", src, tar_lbl, tar_bbox, line))
         report[tier] = res
         outputs[tier] = out.cpu()
         features[tier] = encode_sources(mods, *src)["fea"].float().cpu()
         del mods, out, plain
         torch.cuda.empty_cache()
-    report[FUSED_TIER] = fused_tier(line, bench, src, tar_lbl, tar_bbox,
-                                    outputs["bench"], report["bench"])
+    report[FUSED_TIER] = fused_tier(bench, src, tar_lbl, tar_bbox,
+                                    outputs["bench"])
     # how far the bench tier's shortcuts move the output (random weights),
     # and how much of that is the bf16 tail alone (no fast_trunk)
     tail = TSNetModules(dataclasses.replace(base, precision="high",
@@ -1355,8 +826,7 @@ def main_path(line: str) -> dict:
     return report
 
 
-def fused_tier(line: str, cfg, src, tar_lbl, tar_bbox, unfused_out,
-               unfused: dict) -> dict:
+def fused_tier(cfg, src, tar_lbl, tar_bbox, unfused_out) -> dict:
     """The bench tier with the fused tail: K6 in FuseNet
     (TSNET_FUSE_PAIR_KERNEL=1, set for this tier only) and K7 in the
     decoder (`fused_blocks=True`). A 64-frame clip and two 32-frame
@@ -1378,12 +848,10 @@ def fused_tier(line: str, cfg, src, tar_lbl, tar_bbox, unfused_out,
         forward()                                    # warm-up (cuDNN plans)
         torch.cuda.synchronize()
         cuda_build.reset_launches()
-        t0 = time.perf_counter()
         out = forward()
         pack = encode_sources(mods, *src)
         answered = [request(pack, lo) for lo in (0, CHUNK)]
         torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
         launches = dict(cuda_build.LAUNCHES)
 
         calls = 1 + len(answered)                    # decode calls
@@ -1404,7 +872,7 @@ def fused_tier(line: str, cfg, src, tar_lbl, tar_bbox, unfused_out,
         diff = (out - plain).abs()
         vs_unfused = (out.cpu() - unfused_out).abs()
         batch_diff = (torch.cat(answered) - out).abs()
-        res = {"launches": launches, "main_path_s": run_s,
+        res = {"launches": launches,
                "vs_plain_max_abs": diff.max().item(),
                "vs_plain_mean_abs": diff.mean().item(),
                "vs_unfused_bench_max_abs": vs_unfused.max().item(),
@@ -1418,18 +886,6 @@ def fused_tier(line: str, cfg, src, tar_lbl, tar_bbox, unfused_out,
               f"{tier}: kernel path vs plain path")
         check(res["vs_unfused_bench_mean_abs"] <= 0.01,
               f"{tier}: fused tail vs the unfused bench tier")
-
-        res.update(tier_perf(
-            tier, mods, forward, lambda: request(pack, 0).cpu(),
-            "request_ms", src, tar_lbl, tar_bbox, line, fused=True))
-    side = {k: {"bench": unfused["stage_ms"][k], tier: res["stage_ms"][k]}
-            for k in ("fuse_clip", "decoder")}
-    print(f"[fused-vs-bench] stage_ms {json.dumps(side)}; frames/s bench "
-          f"{unfused['fps']:.2f}, {tier} {res['fps']:.2f}; request ms bench "
-          f"session {unfused['session_request_ms']:.2f}, {tier} "
-          f"{res['request_ms']:.2f}; peak GB bench "
-          f"{unfused['peak_mem_gb']:.2f}, {tier} {res['peak_mem_gb']:.2f} | "
-          f"{line}", flush=True)
     del mods, out, plain, answered
     torch.cuda.empty_cache()
     return res
@@ -1447,7 +903,7 @@ def train_kernel_checks(line: str, g: int = TRAIN_BATCH) -> dict:
     batch g."""
     dev = torch.device("cuda")
     ns, nf, h, w, c = 3, 1, 32, 32, 512
-    t, pairs = h * w, g * 3
+    t = h * w
     gen = torch.Generator().manual_seed(1)
     src = torch.randn(g, ns, t, c, generator=gen)
     args = tuple(x.to(dev).contiguous() for x in (
@@ -1455,8 +911,6 @@ def train_kernel_checks(line: str, g: int = TRAIN_BATCH) -> dict:
         l2_normalize(src), (torch.rand(g, nf, t, generator=gen) > 0.5).float(),
         (torch.rand(g, ns, t, generator=gen) > 0.5).float(),
         normalized_grid(h, w).reshape(t, 2)))
-    in_bytes = 4 * (2 * g * ns * t * c + g * nf * t * c + g * ns * t
-                    + g * nf * t + 2 * t)
     results = {}
 
     # K3-flow, temp 100 (the config's)
@@ -1470,11 +924,6 @@ def train_kernel_checks(line: str, g: int = TRAIN_BATCH) -> dict:
           f"transform_warp_pairs disagrees with its plain version: {errs}")
     res["ms"] = time_ms(fwd)
     res["plain_ms"] = time_ms(plain, iters=3)
-    res["bound_ms"], res["bound_by"] = bound(
-        in_bytes + 4 * pairs * t * (c + 3),
-        pairs * t * (2 * t * c + 10 * t + 8 * c))
-    sdpa_fwd, sdpa_bwd, sdpa_what = train_sdpa(*args)
-    res["library_ms"] = time_ms(sdpa_fwd)
     res.update(replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:262",
                source="wacv23_tsnet_tpu_torch/csrc/transform_warp.cu")
     results["transform_warp_pairs"] = res
@@ -1483,11 +932,7 @@ def train_kernel_checks(line: str, g: int = TRAIN_BATCH) -> dict:
           f" max_abs_err={res['max_abs_err']:.3e} "
           f"mean_abs_err={res['mean_abs_err']:.3e} (atol, rtol)="
           f"{TOL['f32']} kernel_ms={res['ms']:.4f} "
-          f"plain_ms={res['plain_ms']:.4f} library_ms="
-          f"{res['library_ms']:.4f} ({sdpa_what}) "
-          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
-          f"bound_share={res['bound_ms'] / res['ms']:.4f} | {line}",
-          flush=True)
+          f"plain_ms={res['plain_ms']:.4f} | {line}", flush=True)
 
     # K4: six cotangents, against autograd through the plain forward in
     # fp32 and in float64 (the exact reference), at temp 10 and 100
@@ -1554,32 +999,17 @@ def train_kernel_checks(line: str, g: int = TRAIN_BATCH) -> dict:
     check(not differ,
           f"transform_warp_pairs_bwd: two calls differ in {differ}")
     del again
-    # timed at the config's temp 100, the whole call and each launch alone
+    # timed at the config's temp 100
     res["ms"] = time_ms(bwd)
-    launch, _ = wk.bwd_launcher(*args, flow, lse, gw, gf, h, w, temp)
-    res["parts_ms"] = parts_ms(launch, wk.BWD_PHASES)
-    del launch
     res["plain_ms"] = time_ms(lambda: wk.transform_warp_pairs_bwd_plain(
         *args, gw, gf, h, w, temp), iters=3)
-    res["library_ms"] = time_ms(sdpa_bwd)
-    del sdpa_fwd, sdpa_bwd
-    res["bound_ms"], res["bound_by"] = bound(
-        in_bytes + 4 * pairs * t * (c + 5)          # flow, lse, gw, gf
-        + 4 * (2 * g * ns * t * c + g * nf * t * c + g * ns * t + g * nf * t
-               + 2 * t),                             # the six cotangents
-        pairs * t * t * (6 * c + 20))
     res.update(replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:824",
                source="wacv23_tsnet_tpu_torch/csrc/transform_warp_bwd.cu")
     results["transform_warp_pairs_bwd"] = res
     print(f"[kernel] transform_warp_pairs_bwd (K4, six cotangents, G={g}): "
           f"max_abs_err={res['max_abs_err']:.3e} (temp 10, rtol "
           f"{BWD_RTOL} of max(1, max|plain|)) kernel_ms={res['ms']:.4f} "
-          f"plain_ms={res['plain_ms']:.4f} library_ms="
-          f"{res['library_ms']:.4f} (the backward of {sdpa_what}, on one "
-          "cotangent) "
-          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
-          f"bound_share={res['bound_ms'] / res['ms']:.4f} "
-          f"parts_ms={json.dumps(res['parts_ms'])} | {line}", flush=True)
+          f"plain_ms={res['plain_ms']:.4f} | {line}", flush=True)
     return results
 
 
@@ -1701,18 +1131,14 @@ def train_phase(line: str):
                   f"spread: {worst}")
 
     # the main path: TRAIN_STEPS steps on the fixed batch
-    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     cuda_build.reset_launches()
-    history, step_ms = [], []
+    history = []
     for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
         _, metrics, rec = step(state, batch, TRAIN_LR)
         history.append({k: v.item() for k, v in metrics.items()})
-        step_ms.append(1e3 * (time.perf_counter() - t0))
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     check(all(per_step[k] == 1 for k in TRAIN_KERNELS),
           f"train: launches per step {per_step}")
@@ -1727,51 +1153,17 @@ def train_phase(line: str):
     vgg = [h["G_VGG"] for h in history]
     check(np.mean(vgg[-5:]) < np.mean(vgg[:5]),
           f"train: G_VGG did not fall: {vgg}")
-    # ms/step without the first (its host-side allocations settle)
-    ms = float(np.mean(step_ms[1:]))
-    print(f"[train] {TRAIN_STEPS} steps at batch {TRAIN_BATCH}: "
-          f"{ms:.2f} ms/step, {TRAIN_BATCH / ms * 1e3:.2f} samples/s, peak "
-          f"memory {peak_gb:.2f} GB; G_VGG first5 {np.mean(vgg[:5]):.4f} "
-          f"last5 {np.mean(vgg[-5:]):.4f}; D first5 "
-          f"{np.mean([h['D'] for h in history[:5]]):.4f} last5 "
+    print(f"[train] {TRAIN_STEPS} steps at batch {TRAIN_BATCH}: G_VGG "
+          f"first5 {np.mean(vgg[:5]):.4f} last5 {np.mean(vgg[-5:]):.4f}; D "
+          f"first5 {np.mean([h['D'] for h in history[:5]]):.4f} last5 "
           f"{np.mean([h['D'] for h in history[-5:]]):.4f}; launches per step "
           f"{json.dumps(per_step)} | {line}", flush=True)
     print(f"[train] metrics of the last step: {json.dumps(history[-1])}",
           flush=True)
-
-    # CUDA-event stage split of one more step, then a profile of one
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    timed = make_train_step(state, mark=mark)
-    mark("start")
-    timed(state, batch, TRAIN_LR)
-    torch.cuda.synchronize()
-    stages = {name: marks[i - 1][1].elapsed_time(ev)
-              for i, (name, ev) in enumerate(marks) if i}
-    split = {"g_forward": stages["g_forward"], "d_phase": stages["d_phase"],
-             "g_loss_backward": stages["g_loss_backward"],
-             "optimizer_steps": stages["d_opt"] + stages["g_opt"]}
-    print(f"[train] stage split (CUDA events, ms): {json.dumps(split)} | "
-          f"{line}", flush=True)
-    prof = device_breakdown(lambda: step(state, batch, TRAIN_LR), "train",
-                            top=15)
-    print(f"[train] profile of one step: {json.dumps(prof)} | {line}",
-          flush=True)
-    return {"launches": launches, "ms_per_step": ms,
-            "samples_per_s": TRAIN_BATCH / ms * 1e3, "peak_mem_gb": peak_gb,
-            "stage_ms": split, **prof}, state
+    return {"launches": launches}, state
 
 
 DETERMINISM = "determinism"
-DET_TIMED = 2             # timed steps a block; blocks alternated
-DET_BLOCKS = ("deterministic", "default", "default", "deterministic")
-DET_COST_NAMED = 0.05     # a step share past which the convs are named
-DET_CONVS_SHOWN = 8
 
 
 def step_bits(state, metrics, rec) -> dict:
@@ -1821,64 +1213,13 @@ def same_bits(name: str, mode: str, states: list, batch: dict) -> dict:
     return res
 
 
-def conv_census(state, batch: dict) -> list:
-    """The convs one step runs through `ops.dpconv` (fp32 tiers), each
-    timed in both cuDNN modes: (its deterministic ms - default ms) x its
-    calls, largest first."""
-    calls = collections.Counter()
-    fwd, bwd = dp._forward, dp._backward
-
-    def rec_fwd(x, w, bias, stride, padding, groups, precision):
-        calls[("fwd", tuple(x.shape), tuple(w.shape), stride, padding,
-               groups, precision, bias is not None, None)] += 1
-        return fwd(x, w, bias, stride, padding, groups, precision)
-
-    def rec_bwd(grad, x, w, has_bias, stride, padding, groups, precision,
-                need):
-        calls[("bwd", tuple(x.shape), tuple(w.shape), stride, padding,
-               groups, precision, has_bias, tuple(need))] += 1
-        return bwd(grad, x, w, has_bias, stride, padding, groups, precision,
-                   need)
-
-    with patched(dp, "_forward", rec_fwd), patched(dp, "_backward", rec_bwd):
-        make_train_step(state)(state, batch, TRAIN_LR)
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    rows = []
-    for key, n in calls.items():
-        kind, xs, ws, stride, padding, groups, tier, bias, need = key
-        x = torch.randn(xs, device="cuda", generator=gen)
-        w = torch.randn(ws, device="cuda", generator=gen)
-        b = torch.randn(ws[0], device="cuda", generator=gen) if bias else None
-        if kind == "fwd":
-            call = functools.partial(fwd, x, w, b, stride, padding, groups,
-                                     tier)
-        else:
-            g = torch.randn_like(fwd(x, w, None, stride, padding, groups,
-                                     tier))
-            call = functools.partial(bwd, g, x, w, bias, stride, padding,
-                                     groups, tier, need)
-        ms = {}
-        for mode in ("deterministic", "default"):
-            with (deterministic_cudnn() if mode == "deterministic"
-                  else contextlib.nullcontext()):
-                ms[mode] = time_ms(call, iters=3)
-        rows.append({"conv": kind, "x": xs, "w": ws, "stride": stride,
-                     "padding": padding, "groups": groups, "tier": tier,
-                     "calls": n, "ms": ms, "cost_ms": n * (
-                         ms["deterministic"] - ms["default"])})
-    return sorted(rows, key=lambda r: -r["cost_ms"])
-
-
 def determinism_phase(line: str, diagnose: bool = False) -> dict:
     """`[determinism]`: the face bit-parity step (batch 15), the pose
     bit-parity step (batch 10) and the face fast train tier, each called
     on two equal copies of one seeded state with one batch, held bit for
-    bit. With `diagnose` (`--determinism`), also: two steps with cuDNN's
-    default flags (what the step would give without
-    `deterministic_cudnn`), the ms/step of the step as it runs against
-    the same step with the default flags in alternated blocks, and where
-    that costs more than DET_COST_NAMED of a step, the convs it costs in
-    (`conv_census`)."""
+    bit. With `diagnose` (`--determinism`), also two steps with cuDNN's
+    default flags: what the step would give without
+    `deterministic_cudnn`, printed."""
     face, pose = face_config(), pose_config()
     cases = {"face_bit_parity": (face, train_batch(face, TRAIN_BATCH)),
              "pose_bit_parity": (pose, pose_batch(pose, POSE_BATCH, seed=8)),
@@ -1892,23 +1233,6 @@ def determinism_phase(line: str, diagnose: bool = False) -> dict:
                             for _ in range(2 * len(modes) - 1)]
         res = {mode: same_bits(name, mode, states[2 * i:2 * i + 2], batch)
                for i, mode in enumerate(modes)}
-        if diagnose:
-            # the cost of deterministic cuDNN, on the first state (both
-            # modes' cuDNN plans made by the steps above)
-            ms = {mode: [] for mode in modes}
-            for mode in DET_BLOCKS:
-                with cudnn_flags(mode):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    for _ in range(DET_TIMED):
-                        make_train_step(first)(first, batch, TRAIN_LR)
-                    torch.cuda.synchronize()
-                ms[mode].append(1e3 * (time.perf_counter() - t0) / DET_TIMED)
-            res["ms_per_step"] = ms
-            res["cost"] = float(np.mean(ms["deterministic"])
-                                / np.mean(ms["default"]) - 1.0)
-            if res["cost"] > DET_COST_NAMED:
-                res["convs"] = conv_census(first, batch)[:DET_CONVS_SHOWN]
         del first, states
         torch.cuda.empty_cache()
         report[name] = res
@@ -1982,11 +1306,12 @@ def serve_phase(line: str, state) -> dict:
     and bit-parity), the snapshot loaded onto the card by `load_params`
     and served by `cli.serve.Server` on 127.0.0.1 from a thread: one
     session, a 64-frame base64 keypoint request (launches counted: one
-    warp kernel and one K2 a chunk, nothing else), timed 32-frame
-    requests and a 2-frame int-list request, held against an in-process
-    `push_keypoints` (1 LSB) and the model-space kernel path against the
-    plain path (PERF.md §2's limits). The rasterizer on the card is held
-    against its CPU run and timed a 32-frame chunk."""
+    warp kernel and one K2 a chunk, nothing else) and a 2-frame int-list
+    request, held against an in-process `push_keypoints` (1 LSB), the
+    model-space kernel path against the plain path (PERF.md §2's limits),
+    and one 32-frame request through the server's stages in this
+    process (`request_round_trip`). The rasterizer on the card is held
+    against its CPU run on a 32-frame chunk."""
     cfg = face_config()
     hw = cfg.image_size
     report = {}
@@ -1994,31 +1319,21 @@ def serve_phase(line: str, state) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_",
                                      dir=root) as tmp:
         snap = os.path.join(tmp, f"TSNet_S{state.step:06d}.msgpack")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         save_checkpoint(snap, state)
-        report["save_s"] = time.perf_counter() - t0
         report["snapshot_bytes"] = os.path.getsize(snap)
         check(find_latest_checkpoint(tmp) == snap, "serve: latest snapshot")
         fresh = create_train_state(cfg, device="cuda", seed=1)
-        t0 = time.perf_counter()
         restore_checkpoint(snap, fresh)
-        torch.cuda.synchronize()
-        report["restore_s"] = time.perf_counter() - t0
         bad = _train_state_equal(state, fresh)
         check(not bad, f"serve: restored state differs: {bad[:8]}")
         del fresh
 
         tree = export_flax_params(state.mods)
         pth = os.path.join(tmp, "TSNet_generator.pth")
-        t0 = time.perf_counter()
         save_reference_checkpoint(pth, {k: tree[k] for k in GEN_SUBNETS},
                                   cfg, example=state.step)
-        report["pth_save_s"] = time.perf_counter() - t0
         report["pth_bytes"] = os.path.getsize(pth)
-        t0 = time.perf_counter()
         from_pth = load_params(pth, cfg, device="cuda")
-        report["pth_load_s"] = time.perf_counter() - t0
         trained = dict(state.mods.named_parameters())
         bad = [n for n, p in from_pth.named_parameters()
                if not torch.equal(p, trained[n])]
@@ -2035,7 +1350,7 @@ def serve_phase(line: str, state) -> dict:
                    "src_bbox": rng.integers(0, 2, (s, hw, hw)).tolist()}
         kp = rng.uniform(8, hw - 8, (SERVE_FRAMES, 68, 2)).astype(np.float32)
 
-        # the rasterizer on the card against its CPU run, and its time
+        # the rasterizer on the card against its CPU run
         kp_dev = torch.as_tensor(kp[:CHUNK], device="cuda")
         ones = torch.ones(CHUNK, device="cuda")
         lbl_dev = rasterize_face_clip(kp_dev, ones, hw, hw).cpu()
@@ -2044,9 +1359,7 @@ def serve_phase(line: str, state) -> dict:
         differing = int((lbl_dev != lbl_cpu).sum())
         report["rasterizer"] = {
             "pixels_differing_from_cpu": differing,
-            "agreement": 1.0 - differing / lbl_cpu.numel(),
-            "ms_per_chunk": time_ms(lambda: rasterize_face_clip(
-                kp_dev, ones, hw, hw), iters=5)}
+            "agreement": 1.0 - differing / lbl_cpu.numel()}
         print(f"[serve] rasterizer, {CHUNK} frames at {hw}^2: "
               f"{json.dumps(report['rasterizer'])} | {line}", flush=True)
         check(report["rasterizer"]["agreement"] >= 0.9999,
@@ -2057,75 +1370,33 @@ def serve_phase(line: str, state) -> dict:
     return report
 
 
-def request_stages(server: Server, sid: str, kp: np.ndarray) -> dict:
-    """One base64 request of the frames `kp` (one chunk) split into its
-    stages as `Server.run_frames` and `push_keypoints` run them, each
-    timed alone on the host clock with the card synchronized before and
-    after (median ms of SERVE_REPEATS): the client's JSON of the request,
-    the server's parse and keypoint array, the upload, the rasterizer,
-    the extent bbox, the decode (one-hot, `decode_with_sources`, display
-    uint8), the copy back, the RGB copy, base64, the reply's JSON, and
-    the client's JSON parse and base64 decode."""
+def request_round_trip(server: Server, sid: str, kp: np.ndarray) -> None:
+    """One base64 request of the frames `kp` (one chunk) through the
+    stages that `Server.run_frames` and `push_keypoints` run, one after
+    the other in this process: the client's JSON of the request, the
+    server's parse and keypoint array, the upload, the rasterizer, the
+    extent bbox, the decode (one-hot, `decode_with_sources`, display
+    uint8), the copy back, the RGB copy, base64, the reply's JSON, and the
+    client's JSON parse and base64 decode, which must give back the RGB
+    frames."""
     sess = server.sessions[sid]
     hw = sess.mods.cfg.image_size
     request = {"session": sid, "keypoints": kp.tolist(),
                "encoding": "base64"}
-    runs = []
-    for _ in range(SERVE_REPEATS):
-        t, out = {}, {}
-
-        def stage(name, fn, device=False):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out[name] = fn()
-            if device:
-                torch.cuda.synchronize()
-            t[name] = 1e3 * (time.perf_counter() - t0)
-            return out[name]
-
-        body = stage("client_json_dumps", lambda: json.dumps(request).encode())
-        got = stage("server_json_loads", lambda: json.loads(body))
-        arr = stage("keypoint_array", lambda: np.asarray(got["keypoints"],
-                                                         np.float32))
-        with torch.inference_mode():
-            k = stage("upload", lambda: torch.as_tensor(arr).to(sess.device),
-                      True)
-            ones = torch.ones(len(arr), device=sess.device)
-            lbl = stage("rasterize", lambda: rasterize_face_clip(
-                k, ones, hw, hw), True)
-            bbox = stage("extent_bbox", lambda: sess._extent_bbox(
-                k[..., 0], k[..., 1], hw), True)
-            dec = stage("decode", lambda: sess._decode(lbl, bbox), True)
-            rec = stage("copy_back", lambda: dec.cpu().numpy(), True)
-        rgb = stage("rgb_copy", lambda: np.ascontiguousarray(rec[..., ::-1]))
-        b64 = stage("base64_encode",
-                    lambda: base64.b64encode(rgb.tobytes()).decode())
-        reply = stage("reply_json_dumps", lambda: json.dumps(
-            {"frames_b64": b64, "shape": list(rgb.shape), "dtype": "uint8",
-             "ms": 0.0}).encode())
-        back = stage("client_json_loads", lambda: json.loads(reply))
-        stage("client_base64_decode", lambda: _frames(back))
-        check(np.array_equal(out["client_base64_decode"], rgb),
-              "serve: stage split's frames")
-        runs.append(t)
-    return {name: float(np.median([r[name] for r in runs]))
-            for name in runs[0]}
-
-
-def request_profile(server: Server, sid: str, kp: np.ndarray,
-                    tier: str) -> dict:
-    """`device_breakdown` of one `Server.run_frames` of the frames `kp`
-    (one chunk, base64) and of one rasterizer call on them."""
-    request = {"session": sid, "keypoints": kp.tolist(),
-               "encoding": "base64"}
-    hw = server.cfg.image_size
-    k = torch.as_tensor(kp, device=server.device)
-    ones = torch.ones(len(kp), device=server.device)
-    server.run_frames(request)
-    return {"request": device_breakdown(lambda: server.run_frames(request),
-                                        f"serve {tier}", top=8),
-            "rasterize": device_breakdown(lambda: rasterize_face_clip(
-                k, ones, hw, hw), f"serve {tier} rasterizer", top=0)}
+    got = json.loads(json.dumps(request).encode())
+    arr = np.asarray(got["keypoints"], np.float32)
+    with torch.inference_mode():
+        k = torch.as_tensor(arr).to(sess.device)
+        ones = torch.ones(len(arr), device=sess.device)
+        lbl = rasterize_face_clip(k, ones, hw, hw)
+        bbox = sess._extent_bbox(k[..., 0], k[..., 1], hw)
+        rec = sess._decode(lbl, bbox).cpu().numpy()
+    rgb = np.ascontiguousarray(rec[..., ::-1])
+    b64 = base64.b64encode(rgb.tobytes()).decode()
+    reply = json.dumps({"frames_b64": b64, "shape": list(rgb.shape),
+                        "dtype": "uint8", "ms": 0.0}).encode()
+    check(np.array_equal(_frames(json.loads(reply)), rgb),
+          "serve: stage split's frames")
 
 
 def serve_tier(line: str, tier: str, snap: str, payload: dict,
@@ -2144,9 +1415,7 @@ def serve_tier(line: str, tier: str, snap: str, payload: dict,
     try:
         check(_http(url + "/healthz")["backend"] == "cuda",
               f"serve {tier}: healthz backend")
-        t0 = time.perf_counter()
         sid = _http(url + "/session", payload)["session"]
-        res["session_ms"] = 1e3 * (time.perf_counter() - t0)
 
         request = {"session": sid, "keypoints": kp.tolist(),
                    "encoding": "base64"}
@@ -2157,7 +1426,6 @@ def serve_tier(line: str, tier: str, snap: str, payload: dict,
         launches = dict(cuda_build.LAUNCHES)
         frames = _frames(body)
         res["launches"] = launches
-        res["first_request_server_ms"] = body["ms"]
         chunks = -(-SERVE_FRAMES // CHUNK)
         want = {SERVE_KERNELS[tier]: chunks, "instance_norm_mean": chunks}
         check(all(launches[k] == want.get(k, 0) for k in launches),
@@ -2166,22 +1434,6 @@ def serve_tier(line: str, tier: str, snap: str, payload: dict,
                                base.image_size, 3),
               f"serve {tier}: frames shape {frames.shape}")
 
-        # 32-frame requests: client wall (base64 decode included), and
-        # the server's ms; peak memory over them
-        one = {"session": sid, "keypoints": kp[:CHUNK].tolist(),
-               "encoding": "base64"}
-        torch.cuda.reset_peak_memory_stats()
-        wall, server_ms = [], []
-        for _ in range(SERVE_REPEATS):
-            t0 = time.perf_counter()
-            reply = _http(url + "/frames", one)
-            _frames(reply)
-            wall.append(1e3 * (time.perf_counter() - t0))
-            server_ms.append(reply["ms"])
-        res["request_wall_ms"] = float(np.median(wall))
-        res["request_server_ms"] = float(np.median(server_ms))
-        res["request_wall_ms_all"] = wall
-        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         listed = _frames(_http(url + "/frames", {
             "session": sid, "keypoints": kp[:2].tolist()}))
 
@@ -2215,9 +1467,7 @@ def serve_tier(line: str, tier: str, snap: str, payload: dict,
             d = np.abs(a - m[:2])
             res[f"batch2_vs_batch32_{path}_max_abs"] = float(d.max())
             res[f"batch2_vs_batch32_{path}_mean_abs"] = float(d.mean())
-        res["stages_ms"] = request_stages(server, sid, kp[:CHUNK])
-        res["stages_sum_ms"] = sum(res["stages_ms"].values())
-        res["profile"] = request_profile(server, sid, kp[:CHUNK], tier)
+        request_round_trip(server, sid, kp[:CHUNK])
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -2326,24 +1576,8 @@ def pose_clip_tier(line: str, tier: str, cfg, src, tar_lbl, tar_bbox,
     check(res[f"session_vs_decode_{key}"] <= tol,
           f"pose {tier}: session vs decode_with_sources: {res}")
     check(res["background_exact"], f"pose {tier}: background columns")
-    del plain, diff, sess, pushed, want
-
-    iters = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        forward()
-    torch.cuda.synchronize()
-    res["clip_ms"] = 1e3 * (time.perf_counter() - t0) / iters
-    res["fps"] = CLIP_FRAMES / (res["clip_ms"] / 1e3)
-    torch.cuda.reset_peak_memory_stats()
-    forward()
-    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    res["stage_ms"] = stage_ms(mods, src, tar_lbl, tar_bbox)
     print(f"[pose] clip {tier}: {json.dumps(res)} | {line}", flush=True)
-    print(f"[fps] pose {tier}: {res['fps']:.2f} frames/s ({CLIP_FRAMES}-frame "
-          f"clip, {res['clip_ms']:.2f} ms) on {line}", flush=True)
-    del mods, out
+    del plain, diff, sess, pushed, want, mods, out
     torch.cuda.empty_cache()
     return res
 
@@ -2604,15 +1838,12 @@ def pose_phase(line: str) -> dict:
 
     state, step = pose_first_step(cfg, batch, launched)
 
-    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     cuda_build.reset_launches()
-    history, step_ms = [], []
+    history = []
     for _ in range(POSE_STEPS):
-        t0 = time.perf_counter()
         _, metrics, rec = step(state, batch, TRAIN_LR)
         history.append({k: v.item() for k, v in metrics.items()})
-        step_ms.append(1e3 * (time.perf_counter() - t0))
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
     launched.update(launches)
@@ -2627,28 +1858,13 @@ def pose_phase(line: str) -> dict:
     vgg = [h["G_VGG"] for h in history]
     check(np.mean(vgg[-5:]) < np.mean(vgg[:5]),
           f"pose: G_VGG did not fall: {vgg}")
-    train = {"ms_per_step": float(np.mean(step_ms[1:])),
-             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-             "launches_per_step": per_step,
+    train = {"launches_per_step": per_step,
              "g_vgg_first5": float(np.mean(vgg[:5])),
              "g_vgg_last5": float(np.mean(vgg[-5:])),
              "gf_vgg_first5": float(np.mean([h["GF_VGG"]
                                              for h in history[:5]])),
              "gf_vgg_last5": float(np.mean([h["GF_VGG"]
                                             for h in history[-5:]]))}
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    timed = make_train_step(state, mark=mark)
-    mark("start")
-    timed(state, batch, TRAIN_LR)
-    torch.cuda.synchronize()
-    train["stage_ms"] = {name: marks[i - 1][1].elapsed_time(ev)
-                         for i, (name, ev) in enumerate(marks) if i}
     print(f"[pose] {POSE_STEPS} bit-parity steps at batch {POSE_BATCH}: "
           f"{json.dumps(train)}; metrics of the last step "
           f"{json.dumps(history[-1])} | {line}", flush=True)
@@ -2660,17 +1876,12 @@ def pose_phase(line: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pose_",
                                      dir=root) as tmp:
         snap = os.path.join(tmp, f"TSNet_S{state.step:06d}.msgpack")
-        t0 = time.perf_counter()
         save_checkpoint(snap, state)
-        snapshot = {"save_s": time.perf_counter() - t0,
-                    "bytes": os.path.getsize(snap)}
-        del step, timed
+        snapshot = {"bytes": os.path.getsize(snap)}
+        del step
         torch.cuda.empty_cache()
         fresh = create_train_state(cfg, device="cuda", seed=1)
-        t0 = time.perf_counter()
         restore_checkpoint(snap, fresh)
-        torch.cuda.synchronize()
-        snapshot["restore_s"] = time.perf_counter() - t0
     bad = _train_state_equal(state, fresh)
     groups = [grp["name"] for grp in fresh.disc_opt.param_groups]
     df_moments = all("exp_avg" in fresh.disc_opt.state[p]
@@ -2697,15 +1908,7 @@ def pose_phase(line: str) -> dict:
           f"pose: fast tier's launches {launches}")
     check(all(bool(torch.isfinite(v)) for v in metrics.values()),
           "pose: fast tier metric")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(TIER_STEPS):
-        fstep(fast, batch, TRAIN_LR)
-    torch.cuda.synchronize()
-    report["fast_train"] = {
-        "ms_per_step": 1e3 * (time.perf_counter() - t0) / TIER_STEPS,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    launched.update(cuda_build.LAUNCHES)
+    launched.update(launches)
     del fast, fstep
     torch.cuda.empty_cache()
     tiers = {"bit_parity": {}, "high": dict(precision="high"),
@@ -2722,12 +1925,11 @@ def pose_phase(line: str) -> dict:
                 a, b = case.split("_vs_")
                 cos[f"{case}_temp{t:g}"] = cosine(grads[a], grads[b])
         del grads
-    report["fast_train"].update(grad_cosines=cos,
-                                jax_package_fast_vs_high=POSE_JAX_COSINE)
+    report["fast_train"] = {"grad_cosines": cos,
+                            "jax_package_fast_vs_high": POSE_JAX_COSINE}
     print(f"[pose] fast train tier (precision high, bwd_precision default, "
-          f"fast_tail) at batch {POSE_BATCH}: {json.dumps(report['fast_train'])}"
-          f" against bit-parity {train['ms_per_step']:.2f} ms/step | {line}",
-          flush=True)
+          f"fast_tail) at batch {POSE_BATCH}: "
+          f"{json.dumps(report['fast_train'])} | {line}", flush=True)
     low = {k: v for k, v in cos.items() if not np.isfinite(v) or any(
         held and k == f"{case}_temp{t:g}" and v < POSE_COS_FLOOR
         for case, t, held in POSE_COS_CASES)}
@@ -2800,8 +2002,9 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 def train_tiers(line: str) -> dict:
     """The fast train tier at full width and batch 15: its two gradient
     fidelity checks from one seeded state and one batch (kernel path, the
-    plain path's beside it), TIER_STEPS timed steps of it and of the
-    bit-parity tier, and remat's peak memory and gradients."""
+    plain path's beside it), TIER_STEPS steps of it and of the bit-parity
+    tier (launches and metrics), and remat's peak memory and
+    gradients."""
     base = face_config()
     batch = train_batch(base, TRAIN_BATCH, seed=5)
     high = dataclasses.replace(base, precision="high")
@@ -2853,22 +2056,16 @@ def train_tiers(line: str) -> dict:
           f"loop: remat gradients beyond the nudged plain path's spread: {r}")
 
     # TIER_STEPS train steps of each tier on the fixed batch, in turns
-    ms = {}
     for tier, cfg in (("fast", dataclasses.replace(base, **FAST_TIER)),
                       ("bit-parity", base)):
         state = create_train_state(cfg, device="cuda", seed=0)
         step = make_train_step(state)
-        step(state, batch, TRAIN_LR)                 # warm-up (cuDNN plans)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         cuda_build.reset_launches()
-        t0 = time.perf_counter()
         for _ in range(TIER_STEPS):
             _, metrics, _ = step(state, batch, TRAIN_LR)
         vals = [v.item() for v in metrics.values()]
         torch.cuda.synchronize()
-        ms[tier] = 1e3 * (time.perf_counter() - t0) / TIER_STEPS
-        ms[f"{tier}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         per_step = {k: v / TIER_STEPS for k, v in cuda_build.LAUNCHES.items()
                     if v}
         check(all(np.isfinite(vals)), f"loop: {tier} tier metrics {vals}")
@@ -2876,7 +2073,6 @@ def train_tiers(line: str) -> dict:
               f"loop: {tier} tier launches per step {per_step}")
         del state, step
         torch.cuda.empty_cache()
-    report["ms_per_step"] = ms
     print(f"[loop] train tiers at batch {TRAIN_BATCH}: {json.dumps(report)} "
           f"| {line}", flush=True)
     return report
@@ -2910,9 +2106,7 @@ def clip_inference_check(line: str, gen_tree: dict, lbl_root: str,
         clip.run(*src, tar_lbl[:CHUNK], tar_bbox[:CHUNK])   # warm-up
         torch.cuda.synchronize()
         cuda_build.reset_launches()
-        t0 = time.perf_counter()
         got = clip.run(*src, tar_lbl, tar_bbox)
-        run_ms = 1e3 * (time.perf_counter() - t0)
         launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
         chunks = CLIP_FRAMES // CHUNK
         check(launches == {warp_kernel: chunks, "instance_norm_mean": chunks},
@@ -2931,8 +2125,7 @@ def clip_inference_check(line: str, gen_tree: dict, lbl_root: str,
         renorm = clip.run_renormalized(*src, tar_lbl, tar_bbox)
         renorm_plain = plain.run_renormalized(*src, tar_lbl, tar_bbox)
         err = np.abs(renorm - renorm_plain)
-        res = {"run_ms_64_frames": run_ms,
-               "launches_per_chunk": {k: v / chunks
+        res = {"launches_per_chunk": {k: v / chunks
                                       for k, v in launches.items()},
                "renorm_vs_plain_max_abs": float(err.max()),
                "renorm_vs_plain_mean_abs": float(err.mean())}
@@ -2972,18 +2165,14 @@ def loop_phase(line: str, tmp: str) -> dict:
     full width of face_config(), bit-parity tier, batch 15: a synthetic
     dataset written with the port's PNG writer, LOOP_STEPS steps (launch
     counts zeroed just before and read just after: one K3-flow, one K4
-    and one K2 a step, nothing else), ms/step over steps 2-LOOP_STEPS
-    (host clock, synchronized at step 1's end and the last step's), the
-    loader's data wait as a share of the loop's wall, peak memory; then a
+    and one K2 a step, nothing else); then a
     resume from the final snapshot (`--restore-from --set-start`),
     checked equal to the saved state and stepped once under the profiler;
     the fast train tier (`train_tiers`) and `ClipInference`
     (`clip_inference_check`). Its files go to `tmp`: the dataset to
     `data/`, the run and its snapshots to `run/`."""
     report = {}
-    t0 = time.perf_counter()
     lbl_root, img_root = write_face_dataset(os.path.join(tmp, "data"))
-    report["dataset_write_s"] = time.perf_counter() - t0
     run_root = os.path.join(tmp, "run")
     args = ["--label-path", lbl_root, "--image-path", img_root,
             "--root-dir", run_root, "--batch-size", str(TRAIN_BATCH),
@@ -2991,28 +2180,10 @@ def loop_phase(line: str, tmp: str) -> dict:
             "--num-videos", str(LOOP_VIDEOS),
             "--print-freq", str(LOOP_PRINT_FREQ)]
 
-    # steps 2..LOOP_STEPS timed between two synchronized stamps
-    stamps = {}
-    inner = TSNet.optimize_parameters_on
-
-    def stamped(self, batch):
-        inner(self, batch)
-        if self.state.step in (1, LOOP_STEPS):
-            torch.cuda.synchronize()
-            stamps[self.state.step] = time.perf_counter()
-
-    TSNet.optimize_parameters_on = stamped
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        cuda_build.reset_launches()
-        t0 = time.perf_counter()
-        model, timer = train_face.main(
-            args + ["--final-step", str(LOOP_STEPS)])
-        torch.cuda.synchronize()
-        report["main_s"] = time.perf_counter() - t0
-        launches = dict(cuda_build.LAUNCHES)
-    finally:
-        TSNet.optimize_parameters_on = inner
+    cuda_build.reset_launches()
+    model, _ = train_face.main(args + ["--final-step", str(LOOP_STEPS)])
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
     per_step = {k: v / LOOP_STEPS for k, v in launches.items() if v}
     check(model.state.step == LOOP_STEPS,
           f"loop: trained to step {model.state.step}")
@@ -3021,13 +2192,7 @@ def loop_phase(line: str, tmp: str) -> dict:
     losses = model.get_current_losses()
     check(all(np.isfinite(v) for v in losses.values()),
           f"loop: non-finite loss {losses}")
-    report.update({
-        "ms_per_step_2_to_last": 1e3 * (stamps[LOOP_STEPS] - stamps[1])
-        / (LOOP_STEPS - 1),
-        "data_wait_s": timer.data.sum, "clip_batches_s": timer.batch.sum,
-        "data_wait_share": timer.data.sum / timer.batch.sum,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches_per_step": per_step, "last_losses": losses})
+    report.update({"launches_per_step": per_step, "last_losses": losses})
     snaps = os.path.join(run_root, "snapshots")
     snap = find_latest_checkpoint(snaps)
     check(os.path.basename(snap) == f"TSNet_S{LOOP_STEPS:06d}.msgpack",
@@ -3127,11 +2292,8 @@ def demo_tier(line: str, tier: str, root: str, base_args: list,
     extra, warp_kernel = DEMO_TIERS[tier]
     out_dir = os.path.join(root, f"out_{tier}")
     cuda_build.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     res = demo_face.main(base_args + extra + ["--out-dir", out_dir])
     torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
     chunks = -(-DEMO_FRAMES // CHUNK)
     check(launches == {warp_kernel: chunks, "instance_norm_mean": chunks},
@@ -3151,13 +2313,8 @@ def demo_tier(line: str, tier: str, root: str, base_args: list,
                                   src["bbox"][idx], tar["lbl"], tar["bbox"])
     del plain
     err = np.abs(rec - want)
-    report = {"launches": launches, "main_s": main_s,
-              "frames_per_s": res["frames_per_s"],
-              "montage_pngs_s": res["montage_s"],
-              "gif_encode_ms": 1e3 * res["gif_s"],
-              "vs_plain_mean_abs": float(err.mean()),
-              "vs_plain_max_abs": float(err.max()),
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    report = {"launches": launches, "vs_plain_mean_abs": float(err.mean()),
+              "vs_plain_max_abs": float(err.max())}
     check(report["vs_plain_mean_abs"] <= DEMO_TOL,
           f"demo {tier}: kernel path vs plain path {report}")
 
@@ -3180,8 +2337,7 @@ def demo_tier(line: str, tier: str, root: str, base_args: list,
     return report
 
 
-def demo_phase(line: str, root: str, snapshot_dir: str,
-               fps: dict) -> dict:
+def demo_phase(line: str, root: str, snapshot_dir: str) -> dict:
     """The face test-time workflow at the full width of face_config():
     `cli.demo_face.main` on a synthetic subject/driving pair
     (`write_face_pair`) in its default tier (K3-nf) and with
@@ -3191,24 +2347,20 @@ def demo_phase(line: str, root: str, snapshot_dir: str,
     frames, the GIF's size, frame count and delays; `cli.eval_snapshots`
     over [loop]'s snapshots; one `cli.quick_start` step at batch 4 under
     torch.profiler (one K3-flow, K4 and K2); `cli.profile_stages` on a
-    64-frame clip in the bit-parity tier (its SUM of stages held within
-    STAGE_SUM_TOL of [fps]'s clip) and its default tier, and the train
-    stages at batch 15. Files go to `root`."""
+    64-frame clip and on the train step at batch 15, in the bit-parity
+    tier and its default tier (every stage span once a call or step).
+    Files go to `root`."""
     report = {}
     data_root = os.path.join(root, "data")
-    t0 = time.perf_counter()
     write_face_pair(data_root)
-    report["dataset_write_s"] = time.perf_counter() - t0
     base_args = ["--data-root", data_root, "--subject", "subject",
                  "--driving", "driving", "--max-frames", str(DEMO_FRAMES),
                  "--chunk", str(CHUNK)]
     paths = [os.path.join(data_root, kind, clip)
              for clip in DEMO_FACE_R for kind in ("images", "labels")]
-    t0 = time.perf_counter()
     hw = face_config().image_size
     sample = FaceDatasetTest(*paths, img_size=(hw, hw),
                              max_frame_num=DEMO_FRAMES)[0]
-    report["test_set_load_s"] = time.perf_counter() - t0
     for tier in DEMO_TIERS:
         report[tier] = demo_tier(line, tier, root, base_args, sample)
         torch.cuda.empty_cache()
@@ -3216,13 +2368,11 @@ def demo_phase(line: str, root: str, snapshot_dir: str,
     # eval_snapshots over the loop's snapshots, the subject clip as data
     snaps = sorted(f for f in os.listdir(snapshot_dir)
                    if f.endswith(".msgpack"))
-    t0 = time.perf_counter()
     rows = eval_snapshots.main(["--snapshot-dir", snapshot_dir,
                                 "--data-root", data_root, "--subject",
                                 "subject", "--out-dir",
                                 os.path.join(root, "eval")])
-    report["eval"] = {"snapshots": snaps, "rows": rows,
-                      "main_s": time.perf_counter() - t0}
+    report["eval"] = {"snapshots": snaps, "rows": rows}
     check(len(rows) == len(snaps) >= 1
           and all(np.isfinite([r[k] for k in ("l1", "psnr", "ssim")]).all()
                   for r in rows), f"demo: eval_snapshots rows {rows}")
@@ -3234,55 +2384,43 @@ def demo_phase(line: str, root: str, snapshot_dir: str,
     torch.cuda.empty_cache()
 
     # quick_start: one step at batch 4, 256^2, under the profiler
-    torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launches()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         model = quick_start.main([])
         torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
     losses = model.get_current_losses()
     check(launches == {k: 1 for k in TRAIN_KERNELS},
           f"demo: quick_start launches {launches}")
     check(all(np.isfinite(v) for v in losses.values()),
           f"demo: quick_start losses {losses}")
-    model.optimize_parameters()                    # one more, timed
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.optimize_parameters()
-    torch.cuda.synchronize()
-    report["quick_start"] = {
-        "launches_profiled": launches, "main_s": main_s,
-        "ms_per_step": 1e3 * (time.perf_counter() - t0),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "losses": losses}
+    report["quick_start"] = {"launches_profiled": launches, "losses": losses}
     del model
     torch.cuda.empty_cache()
     print(f"[demo] quick_start: {json.dumps(report['quick_start'])} | "
           f"{line}", flush=True)
 
-    # profile_stages: the clip in the bit-parity tier against [fps]'s
-    # clip, the CLI's default tier, and the train stages
+    # profile_stages: every clip span once a call and every train span
+    # once a step, in the bit-parity tier and the CLI's default tier (its
+    # trace goes to `root`)
     stages = {}
-    for name, argv in (("bit-parity", ["--precision", "highest",
-                                       "--no-fast-tail"]),
-                       ("default", [])):
-        print(f"[demo] profile_stages {name}:", flush=True)
-        stages[name] = profile_stages.main(
-            ["--frames", str(CLIP_FRAMES)] + argv)
-        torch.cuda.empty_cache()
-    ratio = stages["bit-parity"]["sum_ms"] / fps["bit-parity"]["clip_ms"]
-    stages["bit-parity"]["sum_over_fps_clip"] = ratio
-    stages["default"]["sum_over_bench_fps_clip"] = (
-        stages["default"]["sum_ms"] / fps["bench"]["clip_ms"])
-    check(abs(ratio - 1.0) <= STAGE_SUM_TOL,
-          f"demo: profile_stages SUM {stages['bit-parity']['sum_ms']:.2f} ms "
-          f"against [fps]'s bit-parity clip {fps['bit-parity']['clip_ms']:.2f}")
-    print("[demo] profile_stages --train:", flush=True)
-    stages["train"] = profile_stages.main(["--train", "--batch-size",
-                                           str(TRAIN_BATCH)])
-    torch.cuda.empty_cache()
+    kinds = {"clip": (["--frames", str(CLIP_FRAMES)],
+                      profile_stages.CLIP_SPANS),
+             "train": (["--train", "--batch-size", str(TRAIN_BATCH)],
+                       profile_stages.TRAIN_SPANS
+                       + (profile_stages.STEP_SPAN,))}
+    with contextlib.chdir(root):
+        for tier, argv in (("bit-parity", ["--precision", "highest",
+                                           "--no-fast-tail"]),
+                           ("default", [])):
+            for kind, (extra, names) in kinds.items():
+                print(f"[demo] profile_stages {kind} {tier}:", flush=True)
+                res = profile_stages.main(extra + argv)
+                torch.cuda.empty_cache()
+                stages[f"{kind} {tier}"] = res
+                check(all(res["count"][name] == 1 for name in names),
+                      f"demo: profile_stages {kind} {tier} spans a unit "
+                      f"{res['count']}")
     report["profile_stages"] = stages
     print(f"[demo] profile_stages: {json.dumps(stages)} | {line}", flush=True)
     return report
@@ -3376,8 +2514,7 @@ def write_dance_set(root: str) -> dict:
 
 def jpeg_fixture_check(line: str, manifest: dict) -> dict:
     """Each committed JPEG fixture decoded by the port, its RGB bytes
-    held to the sha256 of Pillow's decode in the manifest; the decode's
-    ms a frame (best of 3, this process's one host thread)."""
+    held to the sha256 of Pillow's decode in the manifest."""
     fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             JPEG_FIXTURES)
     report = {}
@@ -3388,16 +2525,10 @@ def jpeg_fixture_check(line: str, manifest: dict) -> dict:
         check(digest == entry["sha256_rgb"],
               f"pose_data: {name} decodes to {digest}, Pillow "
               f"{manifest['pillow']} to {entry['sha256_rgb']}")
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            read_rgb(path)
-            times.append(1e3 * (time.perf_counter() - t0))
-        report[name] = {"decode_ms": min(times), "bytes": entry["bytes"],
-                        "shape": list(img.shape)}
+        report[name] = {"bytes": entry["bytes"], "shape": list(img.shape)}
     print(f"[pose_data] JPEG fixtures bit-equal to Pillow {manifest['pillow']}"
-          f" (libjpeg-turbo {manifest['libjpeg_turbo']}); decode ms a frame "
-          f"on one host thread: {json.dumps(report)} | {line}", flush=True)
+          f" (libjpeg-turbo {manifest['libjpeg_turbo']}): "
+          f"{json.dumps(report)} | {line}", flush=True)
     return report
 
 
@@ -3408,9 +2539,8 @@ def pose_train_from_disk(line: str, data: str, run_root: str,
     steps from step POSE_DATA_START (so that the loop's image shot fires
     at its last step): the launches over the steps (zeroed just before,
     read at the last step's end: one K3-flow, K4 and K2 a step, nothing
-    else), ms/step over steps 2-POSE_DATA_STEPS, the data-wait share,
-    peak memory, the image shot's label column in the pose palette, and
-    the final snapshot restored equal to the trained state."""
+    else), the image shot's label column in the pose palette, and the
+    final snapshot restored equal to the trained state."""
     report = {}
     final = POSE_DATA_START + POSE_DATA_STEPS
     args = ["--json-path", os.path.join(data, "clean_video_dict.json"),
@@ -3420,36 +2550,22 @@ def pose_train_from_disk(line: str, data: str, run_root: str,
             "--num-videos", str(len(POSE_DATA_VIDEOS)),
             "--print-freq", str(LOOP_PRINT_FREQ),
             "--start-step", str(POSE_DATA_START), "--final-step", str(final)]
-    stamps, at_last, waits = {}, {}, []
+    at_last = {}
     inner = TSNet.optimize_parameters_on
-    inner_mark = StepTimer.mark_data
 
-    def stamped(self, batch):
+    def read_at_last(self, batch):
         inner(self, batch)
-        if self.state.step in (1, POSE_DATA_STEPS):
-            torch.cuda.synchronize()
-            stamps[self.state.step] = time.perf_counter()
         if self.state.step == POSE_DATA_STEPS:
             at_last.update(cuda_build.LAUNCHES)
 
-    def mark_data(self):
-        now = inner_mark(self)
-        waits.append(self.data.val)
-        return now
-
-    TSNet.optimize_parameters_on = stamped
-    StepTimer.mark_data = mark_data
+    TSNet.optimize_parameters_on = read_at_last
     try:
-        torch.cuda.reset_peak_memory_stats()
         cuda_build.reset_launches()
-        t0 = time.perf_counter()
-        model, timer = train_pose.main(args)
+        model, _ = train_pose.main(args)
         torch.cuda.synchronize()
-        report["main_s"] = time.perf_counter() - t0
         after = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
     finally:
         TSNet.optimize_parameters_on = inner
-        StepTimer.mark_data = inner_mark
     launched.update(at_last)
     per_step = {k: v / POSE_DATA_STEPS for k, v in at_last.items() if v}
     check(model.state.step == POSE_DATA_STEPS,
@@ -3460,12 +2576,6 @@ def pose_train_from_disk(line: str, data: str, run_root: str,
     check(all(np.isfinite(v) for v in losses.values()),
           f"pose_data: non-finite loss {losses}")
     report.update({
-        "ms_per_step_2_to_last": 1e3 * (stamps[POSE_DATA_STEPS] - stamps[1])
-        / (POSE_DATA_STEPS - 1),
-        "data_wait_s": timer.data.sum, "clip_batches_s": timer.batch.sum,
-        "data_wait_share": timer.data.sum / timer.batch.sum,
-        "data_wait_per_batch_s": waits,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches_per_step": per_step,
         "image_shot_launches": {k: v - at_last.get(k, 0)
                                 for k, v in after.items()},
@@ -3497,53 +2607,6 @@ def pose_train_from_disk(line: str, data: str, run_root: str,
     torch.cuda.empty_cache()
     print(f"[pose_data] {POSE_DATA_STEPS} steps through cli.train_pose at "
           f"batch {POSE_BATCH}: {json.dumps(report)} | {line}", flush=True)
-    report["clip_build"] = clip_build_breakdown(line, data)
-    return report
-
-
-def clip_build_breakdown(line: str, data: str, clips: int = 3) -> dict:
-    """Host ms of one training clip (`PoseDatasetTrain[i]` as the CLI
-    builds it: 10 frames 4 apart, jitter and mirror) by stage, in this
-    process on one thread: each function the dataset calls, timed by a
-    wrapper in `data.datasets`' namespace, over `clips` clips; and the
-    host's cores, which the loader's 8 workers and the loop share."""
-    ds = PoseDatasetTrain(os.path.join(data, "clean_video_dict.json"),
-                          os.path.join(data, "labels"),
-                          os.path.join(data, "images"), n_frame_total=10,
-                          interval=4, rng=random.Random(0))
-    stages = ("read_rgb", "render_openpose", "image_to_labels",
-              "resize_frame", "resize_nearest", "apply_jitter", "crop",
-              "pad_square")
-    spent = collections.Counter()
-    saved = {name: getattr(pose_datasets, name) for name in stages}
-
-    def timed(name, fn):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                spent[name] += time.perf_counter() - t0
-        return call
-
-    for name, fn in saved.items():
-        setattr(pose_datasets, name, timed(name, fn))
-    try:
-        t0 = time.perf_counter()
-        for i in range(clips):
-            ds[i]
-        total = time.perf_counter() - t0
-    finally:
-        for name, fn in saved.items():
-            setattr(pose_datasets, name, fn)
-    report = {"clip_ms": 1e3 * total / clips,
-              "stage_ms_per_clip": {k: 1e3 * v / clips
-                                    for k, v in spent.most_common()},
-              "host_cores": len(os.sched_getaffinity(0))}
-    report["jpeg_share"] = report["stage_ms_per_clip"]["read_rgb"] / \
-        report["clip_ms"]
-    print(f"[pose_data] one training clip's host time by stage: "
-          f"{json.dumps(report)} | {line}", flush=True)
     return report
 
 
@@ -3555,10 +2618,8 @@ def pose_demo_tier(line: str, pair: str, tier: str, data: str, out: str,
             "--max-frames", str(POSE_DEMO_FRAMES), "--chunk", str(CHUNK),
             "--out-dir", out] + extra
     cuda_build.reset_launches()
-    t0 = time.perf_counter()
     res = demo_pose.main(args)
     torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
     launched.update(launches)
     chunks = -(-POSE_DEMO_FRAMES // CHUNK)
@@ -3578,9 +2639,6 @@ def pose_demo_tier(line: str, pair: str, tier: str, data: str, out: str,
     del plain
     err = np.abs(rec - want)
     report = {"diff_sex": res["diff_sex"], "launches": launches,
-              "main_s": main_s, "frames_per_s": res["frames_per_s"],
-              "montage_pngs_s": res["montage_s"],
-              "gif_encode_ms": 1e3 * res["gif_s"],
               "vs_plain_mean_abs": float(err.mean()),
               "vs_plain_max_abs": float(err.max())}
     check(report["vs_plain_mean_abs"] <= DEMO_TOL,
@@ -3625,13 +2683,12 @@ def dance_keypoints(n: int, hw: int) -> np.ndarray:
 
 def pose_serve(line: str, snap: str, launched: collections.Counter) -> dict:
     """Pose serving: `rasterize_pose_clip` on the card against its CPU run
-    (a 32-frame chunk: bit-equal; its time, CUDA launches and peak
-    memory), then per tier (bench, bit-parity) `cli.serve.Server` on
-    pose_config() with the trained snapshot, on 127.0.0.1 from a thread:
-    a 64-frame (F, 137, 2) base64 request (launches zeroed just before
-    and read just after: one warp kernel and one K2 a chunk), frames
-    within 1 LSB of an in-process `push_keypoints`, and the server ms of
-    SERVE_REPEATS 32-frame requests."""
+    (a 32-frame chunk: bit-equal), then per tier (bench, bit-parity)
+    `cli.serve.Server` on pose_config() with the trained snapshot, on
+    127.0.0.1 from a thread: a 64-frame (F, 137, 2) base64 request
+    (launches zeroed just before and read just after: one warp kernel and
+    one K2 a chunk), frames within 1 LSB of an in-process
+    `push_keypoints`."""
     base = pose_config()
     hw = base.image_size
     kp = dance_keypoints(SERVE_FRAMES, hw)
@@ -3643,20 +2700,11 @@ def pose_serve(line: str, snap: str, launched: collections.Counter) -> dict:
                 torch.clamp(bw / 3.0, min=1.0))
 
     k_dev = torch.as_tensor(kp[:CHUNK], device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
     lbl_dev = rasterize_pose_clip(*parts(k_dev, "cuda"), hw, hw).cpu()
-    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
     lbl_cpu = rasterize_pose_clip(*parts(torch.as_tensor(kp[:CHUNK]), "cpu"),
                                   hw, hw)
     rast = {"pixels_differing_from_cpu": int((lbl_dev != lbl_cpu).sum()),
-            "classes": len(torch.unique(lbl_cpu)),
-            "ms_per_chunk": time_ms(lambda: rasterize_pose_clip(
-                *parts(k_dev, "cuda"), hw, hw), iters=5),
-            "peak_mem_gb": peak,
-            "profile": device_breakdown(lambda: rasterize_pose_clip(
-                *parts(k_dev, "cuda"), hw, hw), "pose rasterizer", top=0)}
+            "classes": len(torch.unique(lbl_cpu))}
     report["rasterizer"] = rast
     print(f"[pose_data] rasterize_pose_clip, {CHUNK} frames at {hw}^2: "
           f"{json.dumps(rast)} | {line}", flush=True)
@@ -3697,20 +2745,6 @@ def pose_serve(line: str, snap: str, launched: collections.Counter) -> dict:
                   f"pose_data serve {tier}: launches {launches}")
             check(frames.shape == (SERVE_FRAMES, hw, hw, 3),
                   f"pose_data serve {tier}: frames {frames.shape}")
-            one = {"session": sid, "keypoints": kp[:CHUNK].tolist(),
-                   "encoding": "base64"}
-            torch.cuda.reset_peak_memory_stats()
-            server_ms, wall = [], []
-            for _ in range(SERVE_REPEATS):
-                t0 = time.perf_counter()
-                reply = _http(url + "/frames", one)
-                _frames(reply)
-                wall.append(1e3 * (time.perf_counter() - t0))
-                server_ms.append(reply["ms"])
-            res.update(request_server_ms=float(np.median(server_ms)),
-                       request_server_ms_all=server_ms,
-                       request_wall_ms=float(np.median(wall)),
-                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
             inproc = server.sessions[sid].push_keypoints(kp)[..., ::-1]
             res["http_vs_inprocess_max_levels"] = int(np.abs(
                 frames.astype(np.int16) - inproc).max())
@@ -3746,19 +2780,14 @@ def pose_data_phase(line: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pose_data_",
                                      dir=root) as tmp:
         data = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
         manifest = write_dance_set(data)
-        report["dataset_write_s"] = time.perf_counter() - t0
         report["jpeg"] = jpeg_fixture_check(line, manifest)
 
         run_root = os.path.join(tmp, "run")
-        t0 = time.perf_counter()
         report["train"] = pose_train_from_disk(line, data, run_root, launched)
-        report["train"]["phase_s"] = time.perf_counter() - t0
         snaps = os.path.join(run_root, "snapshots")
 
         cuda_build.reset_launches()
-        t0 = time.perf_counter()
         rows = eval_snapshots.main([
             "--snapshot-dir", snaps, "--task", "pose", "--data-root", data,
             "--subject", "%05d" % POSE_DATA_VIDEOS[0],
@@ -3766,7 +2795,7 @@ def pose_data_phase(line: str) -> dict:
         torch.cuda.synchronize()
         launched.update(cuda_build.LAUNCHES)
         n_snaps = len([f for f in os.listdir(snaps) if f.endswith(".msgpack")])
-        report["eval"] = {"rows": rows, "main_s": time.perf_counter() - t0,
+        report["eval"] = {"rows": rows,
                           "launches": {k: v for k, v in
                                        cuda_build.LAUNCHES.items() if v}}
         check(len(rows) == n_snaps >= 1 and all(np.isfinite(
@@ -3777,7 +2806,6 @@ def pose_data_phase(line: str) -> dict:
         torch.cuda.empty_cache()
 
         for name, pair in POSE_DATA_PAIRS.items():
-            t0 = time.perf_counter()
             sample = PoseDatasetTest(
                 [pair], os.path.join(data, "clean_video_dict.json"),
                 os.path.join(data, "clean_unseen_video_dict.json"),
@@ -3785,14 +2813,12 @@ def pose_data_phase(line: str) -> dict:
                 os.path.join(data, "smooth_openpose"),
                 os.path.join(data, "images"),
                 n_frame_total=POSE_DEMO_FRAMES)[0]
-            load_s = time.perf_counter() - t0
             check(sample["diff_sex"] == POSE_DATA_SEX[name],
                   f"pose_data: pair {pair} is {sample['diff_sex']!r}")
             for tier in POSE_DEMO_TIERS[name]:
                 report[f"demo {name} {tier}"] = pose_demo_tier(
                     line, pair, tier, data, os.path.join(
                         tmp, f"demo_{name}_{tier}"), sample, launched)
-                report[f"demo {name} {tier}"]["test_set_load_s"] = load_s
                 torch.cuda.empty_cache()
         report["serve"] = pose_serve(line, find_latest_checkpoint(snaps),
                                      launched)
@@ -3813,18 +2839,12 @@ def one_launch(name: str, call):
     return out
 
 
-def sdpa_backend(q, k, v, scale: float) -> str:
-    """The backend SDPA's dispatch picks for these inputs (the choice
-    `F.scaled_dot_product_attention` makes on them)."""
-    names = {int(b): n for n, b in SDPBackend.__members__.items()}
-    return names[torch._fused_sdp_choice(q, k, v, scale=scale)]
-
-
 def flow_phase(line: str) -> dict:
     """K5 through `transformation_warp(use_kernels=True)`, one source of
     the train batch (B=15, 32x32, C=512): flow and warped output at temps
     100 and 10 against the plain path, the five input gradients under a
-    fixed cotangent of the flow, and times beside SDPA."""
+    fixed cotangent of the flow, and the kernel's ms beside the plain
+    version's."""
     dev = torch.device("cuda")
     b, h, w, c = TRAIN_BATCH, 32, 32, 512
     t = h * w
@@ -3870,39 +2890,16 @@ def flow_phase(line: str) -> dict:
           f"{name}: input gradients differ from the plain path's: {rel}")
     del grads
 
-    # times at temp 100; the yardstick is SDPA on the mask-folded inputs:
-    # <[mt t, (1-mt) t], [ms s, (1-ms) s]> = coeff * <t, s>, v = the grid
-    # zero-padded to 8 columns (the port never calls SDPA)
-    tar, srcn, mt, ms, grid = flat
+    # times at temp 100
     res["ms"] = time_ms(lambda: fl.masked_attention_flow_fused(*flat))
     res["plain_ms"] = time_ms(lambda: fl.masked_attention_flow(*flat),
                               iters=3)
-    q = torch.cat([mt[..., None] * tar, (1 - mt[..., None]) * tar], -1)
-    k = torch.cat([ms[..., None] * srcn, (1 - ms[..., None]) * srcn], -1)
-    q, k = q[:, None], k[:, None]                          # (B, 1, T, 2C)
-    v = F.pad(grid, (0, 6)).expand(b, 1, t, 8).contiguous()
-
-    def sdpa():
-        with tf32(False):
-            return F.scaled_dot_product_attention(q, k, v, scale=100.0)
-
-    backend = sdpa_backend(q, k, v, 100.0)
-    res["library_ms"] = time_ms(sdpa)
-    sdpa_err = (sdpa()[:, 0, :, :2] - fl.masked_attention_flow(*flat)).abs()
-    res["bound_ms"], res["bound_by"] = bound(
-        4 * (2 * b * t * c + 2 * b * t + 2 * t + 2 * b * t),
-        b * t * t * (2 * c + 10))
     res.update(launches=launches, tier=STANDALONE,
                replaces="wacv23_tsnet_tpu/ops/pallas_similarity.py:74",
                source="wacv23_tsnet_tpu_torch/csrc/attention_flow.cu")
     print(f"[kernel] {name} (K5, B={b}, T=S={t}, C={c}, temp 100): "
           f"max_abs_err={res['max_abs_err']:.3e} kernel_ms={res['ms']:.4f} "
-          f"plain_ms={res['plain_ms']:.4f} library_ms={res['library_ms']:.4f} "
-          f"(SDPA, backend {backend}, fp32, TF32 off, q/k {2 * c} wide; its "
-          f"flow vs plain max_abs_err {sdpa_err.max().item():.3e}) "
-          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
-          f"bound_share={res['bound_ms'] / res['ms']:.4f} | {line}",
-          flush=True)
+          f"plain_ms={res['plain_ms']:.4f} | {line}", flush=True)
     return res
 
 
@@ -3912,16 +2909,14 @@ def norm_phase(line: str) -> tuple[dict, dict]:
     (32, 128, 128, 256) with phase_groups=4; bf16 and f32, relu on and
     off; the path the planner chose (its cluster, and how many such
     clusters run at once) against the plain version in fp32 (before its
-    one rounding), the forced three-launch path the same way with its
-    launches timed apart, what one call launches by CUDA kernel, the phase
-    identity, and times beside `F.instance_norm` (on the NCHW view, or
-    with phase groups on the (B, C/G, N*G) view). Returns the kernels
-    line's rows: the bf16 case of each shape."""
+    one rounding), the forced three-launch path the same way, the phase
+    identity, and the kernel's ms beside the plain version's. Returns the
+    kernels line's rows: the bf16 case of each shape."""
     name = "instance_norm_fused"
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases, launches = {}, 0
     for groups, shape in K8_SHAPES.items():
-        b, h, w, c = shape
+        _, h, w, c = shape
         x32 = torch.randn(shape, generator=gen, device="cuda") * 2 + 1
         for dtype, x in (("bf16", x32.to(torch.bfloat16)), ("f32", x32)):
             plan = nk.fused_plan(h * w, c, groups, x.element_size(),
@@ -3933,9 +2928,6 @@ def norm_phase(line: str) -> tuple[dict, dict]:
                           f"{plan.smem_bytes} B shared a block, "
                           f"{nk.fused_max_clusters(plan, x.dtype)} clusters "
                           "at once")
-            # the library's one call: relu off, the groups pooled by a view
-            lib_view = (x.permute(0, 3, 1, 2) if groups == 1 else
-                        x.view(b, h * w * groups, c // groups).transpose(1, 2))
             for relu in (False, True):
                 def kernel():
                     return nk.instance_norm_fused(x, relu=relu,
@@ -3962,35 +2954,19 @@ def norm_phase(line: str) -> tuple[dict, dict]:
                 check(three["worst_err_over_tol"] <= 1.0,
                       f"{key} {shape} three-launch path disagrees with the "
                       f"plain version: {three}")
+                del launch3
                 res["ms"] = time_ms(kernel)
                 res["plain_ms"] = time_ms(lambda: nk.instance_norm_fused_plain(
                     x, relu=relu, phase_groups=groups), iters=3)
-                res["three_launch_ms"] = time_ms(launch3)
-                res["parts_ms"] = parts_ms(launch3, nk.FUSED_PHASES,
-                                           "three_launch_")
-                res["device_parts"] = device_parts(kernel)
-                res["library_ms"] = None if relu else time_ms(
-                    lambda: F.instance_norm(lib_view, eps=1e-5))
-                res["bound_ms"], res["bound_by"] = bound(
-                    2 * x.numel() * x.element_size(), 7 * x.numel())
                 cases[key] = res
-                library = ("none (relu)" if res["library_ms"] is None else
-                           f"{res['library_ms']:.4f} (F.instance_norm, "
-                           + ("NCHW view)" if groups == 1 else
-                              "(B, C/G, N*G) view)"))
                 print(f"[kernel] {key} (K8, {shape}, {where}): max_abs_err="
                       f"{res['max_abs_err']:.3e} mean_abs_err="
                       f"{res['mean_abs_err']:.3e} (atol, rtol)="
                       f"{IN_TOL[dtype]} kernel_ms={res['ms']:.4f} plain_ms="
-                      f"{res['plain_ms']:.4f} library_ms={library} bound_ms="
-                      f"{res['bound_ms']:.4f} ({res['bound_by']}) "
-                      f"bound_share={res['bound_ms'] / res['ms']:.4f} "
-                      f"device_parts={json.dumps(res['device_parts'])} | "
-                      f"{line}", flush=True)
+                      f"{res['plain_ms']:.4f} | {line}", flush=True)
                 print(f"[kernel] {key} three-launch path (forced): "
-                      f"max_abs_err={three['max_abs_err']:.3e} "
-                      f"ms={res['three_launch_ms']:.4f} parts_ms="
-                      f"{json.dumps(res['parts_ms'])} | {line}", flush=True)
+                      f"max_abs_err={three['max_abs_err']:.3e} | {line}",
+                      flush=True)
         if groups == 1:
             # the phase layout of x normalises as x does
             phase = nk.instance_norm_fused(space_to_depth(x32, 2),
@@ -4002,10 +2978,9 @@ def norm_phase(line: str) -> tuple[dict, dict]:
             check(ident["worst_err_over_tol"] <= 1.0,
                   f"{name}: phase layout vs interleaved: {ident}")
             del phase
-        del x32, x, lib_view
+        del x32, x
         torch.cuda.empty_cache()
-    # the kernels line's rows: the bf16 case of each shape (phase_groups=4
-    # ran furthest from its bound on the three-launch path)
+    # the kernels line's rows: the bf16 case of each shape
     rows = tuple(dict(cases[f"{name}_g{g}_bf16"], tier=STANDALONE,
                       launch=name,
                       replaces="wacv23_tsnet_tpu/ops/pallas_norms.py:206",
@@ -4027,97 +3002,6 @@ def k6_bits(s: int, f: int, hw: int, k: int, co: int, seed: int) -> str:
                              (w2 * 0.05).to("cuda"))
     return hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()
                           ).hexdigest()
-
-
-def parts_phase(line: str) -> None:
-    """`--parts`: what one call of K7 and of K2 launches at the main
-    paths' shapes, and of K8 at K8_SHAPES (bf16 and f32, also its ms by
-    CUDA events), by CUDA kernel (device ms and launches per call), and
-    K6's output bits; only entry
-    points that every version of the port has, so that the same script
-    reads an earlier tree's kernels."""
-    g = torch.Generator().manual_seed(0)
-    dev = torch.device("cuda")
-    wc = (torch.randn(512, 512, 3, 3, generator=g) * 0.02).to(dev)
-    for b in (32, 64):
-        x = torch.randn(b, 32, 32, 512, generator=g).to(dev, torch.bfloat16)
-        for relu, skip in ((True, None), (False, x)):
-            parts = device_parts(lambda: ck.conv3x3_in(x, wc, skip=skip,
-                                                       relu=relu))
-            print(f"[parts] conv3x3_in B={b} {'relu' if relu else 'skip'}: "
-                  f"{json.dumps(parts)} | {line}", flush=True)
-    x = (torch.randn(3, 32, 32, 32, 1024, generator=g) * 2 + 1).to(dev)
-    for name, xx in (("f32", x), ("bf16", x.to(torch.bfloat16))):
-        parts = device_parts(lambda: nk.instance_norm_mean(xx))
-        print(f"[parts] instance_norm_mean_{name} (3, 32, 32, 32, 1024): "
-              f"{json.dumps(parts)} | {line}", flush=True)
-    for groups, shape in K8_SHAPES.items():
-        x = (torch.randn(shape, generator=g) * 2 + 1).to(dev)
-        for name, xx in (("bf16", x.to(torch.bfloat16)), ("f32", x)):
-            def call():
-                return nk.instance_norm_fused(xx, phase_groups=groups)
-            parts = device_parts(call)
-            # and by CUDA events, as the standalone phase times it
-            print(f"[parts] instance_norm_fused_g{groups}_{name} {shape}: "
-                  f"{json.dumps(parts)} ms={time_ms(call):.4f} | {line}",
-                  flush=True)
-        del x, xx
-    print(f"[bits] fuse_pair_conv2 sha256: (2, 3, 12, 64 -> 72, seed 20) "
-          f"{k6_bits(2, 3, 12, 64, 72, 20)}; (3, 8, 32, 1024 -> 1024, seed "
-          f"21) {k6_bits(3, 8, 32, 1024, 1024, 21)}", flush=True)
-
-
-def requests_phase(line: str, repeats: int = 10) -> None:
-    """`--requests`: `repeats` 32-frame session requests (one
-    `RetargetSession.push_labels` each, host clock, frames copied back)
-    in the bit-parity and bench tiers, on fresh modules and before any
-    other phase; prints their median and all of them. Entry points every
-    version of the port has, as for `--parts`."""
-    base = face_config()
-    tiers = {"bit-parity": base,
-             "bench": dataclasses.replace(base, precision="high",
-                                          fast_tail=True, fast_trunk=True)}
-    rng = np.random.default_rng(0)
-    s, hw, nl = base.n_source, base.image_size, base.label_nc
-    dev = torch.device("cuda")
-    src = (torch.as_tensor(rng.random((s, hw, hw, 3), np.float32), device=dev),
-           torch.as_tensor(rng.integers(0, 2, (s, hw, hw, nl)).astype(
-               np.float32), device=dev),
-           torch.as_tensor(rng.integers(0, 2, (s, hw, hw)).astype(np.float32),
-                           device=dev))
-    lbl = torch.as_tensor(rng.integers(0, 2, (CHUNK, hw, hw, nl)).astype(
-        np.float32), device=dev)
-    box = torch.as_tensor(rng.integers(0, 2, (CHUNK, hw, hw)).astype(
-        np.float32), device=dev)
-    for tier, cfg in tiers.items():
-        mods = TSNetModules(cfg, device="cuda", seed=0)
-        sess = RetargetSession(mods, *src, chunk=CHUNK)
-        for _ in range(3):                           # warm-up (cuDNN plans)
-            sess.push_labels(lbl, box)
-        torch.cuda.synchronize()
-        ms = []
-        for _ in range(repeats):
-            t0 = time.perf_counter()
-            sess.push_labels(lbl, box)
-            ms.append(1e3 * (time.perf_counter() - t0))
-        print(f"[requests] {tier}: median {np.median(ms):.2f} ms of "
-              f"{repeats}: {json.dumps([round(m, 2) for m in ms])} | {line}",
-              flush=True)
-        del mods, sess
-        torch.cuda.empty_cache()
-
-
-def run_pose_data(line: str, pose: dict) -> dict:
-    """`pose_data_phase`, timed, its loop's ms/step beside [pose]'s
-    fixed-batch step."""
-    t0 = time.perf_counter()
-    report = pose_data_phase(line)
-    print(f"[pose_data] phase {time.perf_counter() - t0:.1f} s; ms/step "
-          f"over steps 2-{POSE_DATA_STEPS} from disk "
-          f"{report['train']['ms_per_step_2_to_last']:.2f} against [pose]'s "
-          f"fixed batch {pose['train']['ms_per_step']:.2f}, data-wait share "
-          f"{report['train']['data_wait_share']:.3f} | {line}", flush=True)
-    return report
 
 
 def clip_src(cfg, s: int, frames: int, seed: int = 0) -> tuple:
@@ -4344,16 +3228,13 @@ def parallel_two_ranks(line: str, store: str) -> dict:
         torch.cuda.empty_cache()
     del src
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     ranks = spawn_ranks(parallel_rank, 2, (store,), timeout=PAR_TIMEOUT)
-    wall = time.perf_counter() - t0
     got = ranks[0]          # its tensors come back as numpy arrays
     m_err = max(abs(got["train"]["metrics"][k] - v)
                 for k, v in single["metrics"].items())
     rec_err = (torch.from_numpy(got["train"]["rec"])
                - single["rec"]).abs().max().item()
-    report = {"ranks_wall_s": wall,
-              "train": {"metrics_max_abs": m_err, "rec_max_abs": rec_err,
+    report = {"train": {"metrics_max_abs": m_err, "rec_max_abs": rec_err,
                         "launches_per_rank": [r["train"]["launches"]
                                               for r in ranks]}}
     checks = [(set(got["train"]["metrics"]) == set(single["metrics"])
@@ -4423,9 +3304,9 @@ K1_SWEEP_SHAPES = ((1, 64), (5, 64), (3, 128))   # (S, F)
 
 def k1_case(s: int, f: int, g) -> dict:
     """K1 (bf16 out, as the bench tier runs it) at S sources and F frames
-    of T = 32 x 32, C = 512, against its plain version; SDPA plus the
-    mean over sources as its yardstick. At S=5 the JAX package would
-    take the streamed K1b (past its 10-MiB resident budget)."""
+    of T = 32 x 32, C = 512, against its plain version. At S=5 the JAX
+    package would take the streamed K1b (past its 10-MiB resident
+    budget)."""
     h = w = 32
     t, c = h * w, 512
     src = torch.randn(s, t, c, generator=g)
@@ -4434,24 +3315,18 @@ def k1_case(s: int, f: int, g) -> dict:
         l2_normalize(src), (torch.rand(f, t, generator=g) > 0.5).float(),
         (torch.rand(s, t, generator=g) > 0.5).float(),
         normalized_grid(h, w).reshape(t, 2)))
-    fn, what = clip_sdpa(*args)
     return dict(
         kernel=lambda: wk.transform_warp_pairs_mean(
             *args, h, w, out_dtype=torch.bfloat16),
         plain=lambda: wk.transform_warp_mean_plain(
             *args, h, w, out_dtype=torch.float32),
-        tol=TOL["bf16"],
-        bytes=4 * (2 * s * t * c + f * t * c + s * t + f * t + 2 * t)
-        + 2 * f * t * c,
-        flops=s * f * t * (2 * t * c + 10 * t + 8 * c),
-        library=(lambda: fn().mean(dim=0),
-                 what + ", then .mean(0) over the sources: two calls"))
+        tol=TOL["bf16"])
 
 
 def sweep_phase(line: str) -> dict:
     """`[sweep]`: `cli.bench_sweep.main([])` at full width (its 8 lines,
     one K1 and one K2 a clip call, nothing else), K1 at (S, F) = (1, 64),
-    (5, 64) and (3, 128) against its plain version and timed, and the
+    (5, 64) and (3, 128) against its plain version, and the
     bench_sweep tier's clip at S=5, F=128 against its plain path (<=0.01
     mean L1)."""
     buf = io.StringIO()
@@ -4489,8 +3364,8 @@ ZOO_TOL = 1e-3            # card vs CPU, max abs (fp32, TF32 off)
 
 def zoo_phase(line: str) -> dict:
     """`[zoo]`: the zoo's networks at 256² from one seed on the card
-    against the CPU (outputs, max abs), each timed on the card, and the
-    WGAN-GP penalty (mixed, fixed alpha) on PixelGAN and PatchGAN."""
+    against the CPU (outputs, max abs), and the WGAN-GP penalty (mixed,
+    fixed alpha) on PixelGAN and PatchGAN."""
     x = torch.from_numpy(np.random.default_rng(5).random(
         (2, 256, 256, 3), np.float32))
 
@@ -4518,9 +3393,7 @@ def zoo_phase(line: str) -> dict:
         gots = got if isinstance(got, list) else [got]
         err = max((a.cpu() - b).abs().max().item()
                   for a, b in zip(gots, wants))
-        with torch.no_grad():
-            ms = time_ms(lambda: card(x.cuda()), iters=3)
-        report[name] = {"max_abs": err, "ms_batch2": ms}
+        report[name] = {"max_abs": err}
         check(err <= ZOO_TOL, f"zoo: {name} card vs CPU {err}")
         del cpu, card
     alpha = torch.tensor([0.3, 0.8])
@@ -4575,9 +3448,6 @@ def tools_phase(line: str, history: str, out_dir: str) -> dict:
 
 REWRITES = "rewrites"
 REWRITE_TIERS = ("bit-parity", "bench", FUSED_TIER)
-REWRITE_BLOCKS = 2        # timed blocks of each form, alternated
-REWRITE_CLIPS = 3         # clips a block (host clock)
-REWRITE_STEPS = 3         # train steps a block, batch 15
 RING_CLIP_RTOL = 5e-4     # ring_pad clip vs pad clip, max rel (test_ring_pad)
 POSE_RENDER_FRAMES = 32
 
@@ -4608,24 +3478,10 @@ def rewrite_cfg(tier: str):
                                fast_trunk=True)
 
 
-def alternated(run, forms=("phase", "plain")) -> dict:
-    """run(form) for each form, REWRITE_BLOCKS times alternated (phase,
-    plain, phase, plain): {form: [one number a block]}."""
-    out = {f: [] for f in forms}
-    for _ in range(REWRITE_BLOCKS):
-        for form in forms:
-            with (plain_decoder() if form == "plain"
-                  else contextlib.nullcontext()):
-                out[form].append(run(form))
-    return out
-
-
 def decoder_forms(line: str, tier: str) -> dict:
     """One tier of `[rewrites]`: the phase-decomposed decoder against the
     plain `Decoder` on the same prop/syn features of a 64-frame clip
-    (bit-parity <=1e-3 max abs, the fast tiers <=0.01 mean L1), each
-    form's decoder ms (CUDA events), the clip's frames/s with each form
-    decoding (host clock, alternated blocks) and peak memory; K7's
+    (bit-parity <=1e-3 max abs, the fast tiers <=0.01 mean L1); K7's
     launches inside the phase decoder in `bench+fused`; and
     `encoder_apply_fast` against `lbl_enc` at the clip's shape."""
     cfg = rewrite_cfg(tier)
@@ -4651,45 +3507,14 @@ def decoder_forms(line: str, tier: str) -> dict:
               f"launched {launches}, expected {want}")
         res["phase_decoder_launches"] = launches
         del phase, plain, diff
-        res["decoder_ms"] = alternated(
-            lambda form: time_ms(forms[form], iters=5))
         # encoder_apply_fast against the module at the clip's shape
         if not fused:
             enc_fast = encoder_apply_fast(mods.lbl_enc, src[3])
             enc_diff = (enc_fast.float() - tar_fea.float()).abs()
             res["lbl_enc_fast_vs_module_max_abs"] = enc_diff.max().item()
             res["lbl_enc_fast_vs_module_mean_abs"] = enc_diff.mean().item()
-            res["lbl_enc_ms"] = {
-                "module": time_ms(lambda: mods.lbl_enc(src[3]), iters=5),
-                "encoder_apply_fast": time_ms(
-                    lambda: encoder_apply_fast(mods.lbl_enc, src[3]),
-                    iters=5)}
             del enc_fast, enc_diff
         del pack, tar_fea, tar_fea_n, tar_mask, prop, syn
-
-        def clip():
-            return tsnet_forward_clip(mods, *src, fused_blocks=fused)
-
-        def clips(form):
-            clip()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(REWRITE_CLIPS):
-                clip()
-            torch.cuda.synchronize()
-            return CLIP_FRAMES * REWRITE_CLIPS / (time.perf_counter() - t0)
-
-        res["clip_fps"] = alternated(clips)
-
-        def peak(form):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            clip()
-            torch.cuda.synchronize()
-            return torch.cuda.max_memory_allocated() / 1e9
-
-        res["clip_peak_mem_gb"] = {f: v[0] for f, v in alternated(
-            peak).items()}
     key, tol = (("max_abs", 1e-3) if tier == "bit-parity"
                 else ("mean_abs", 0.01))
     print(f"[{REWRITES}] decoder forms, {tier}, 64-frame clip: "
@@ -4704,38 +3529,12 @@ def decoder_forms(line: str, tier: str) -> dict:
     return res
 
 
-def first_step_and_steps(cfg, batch: dict, forms=("phase",),
-                         tier: str = "") -> dict:
-    """A train state of `cfg` from seed 0: its first step's metrics, then
-    REWRITE_STEPS steps a block for each decoder form, alternated
-    (ms/step on the host clock, synchronised), the peak memory, and with
-    a `tier` name a profile of one step of each form (its kernels with
-    the most device time printed; busy ms and share, CUDA launches)."""
+def first_step_metrics(cfg, batch: dict) -> dict:
+    """The metrics of the first train step of `cfg` from seed 0."""
     state = create_train_state(cfg, device="cuda", seed=0)
-    step = make_train_step(state)
-    _, metrics, _ = step(state, batch, TRAIN_LR)
-    out = {"first_step_metrics": {k: v.item() for k, v in metrics.items()}}
-
-    def steps(form):
-        step(state, batch, TRAIN_LR)             # settles the form's plans
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(REWRITE_STEPS):
-            step(state, batch, TRAIN_LR)
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / REWRITE_STEPS
-
-    torch.cuda.reset_peak_memory_stats()
-    out["ms_per_step"] = alternated(steps, forms)
-    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    if tier:
-        for form in forms:
-            with (plain_decoder() if form == "plain"
-                  else contextlib.nullcontext()):
-                out[f"profile_{form}"] = device_breakdown(
-                    lambda: step(state, batch, TRAIN_LR),
-                    f"{REWRITES} {tier} step, {form} decoder", top=6)
-    del state, step
+    _, metrics, _ = make_train_step(state)(state, batch, TRAIN_LR)
+    out = {k: v.item() for k, v in metrics.items()}
+    del state
     torch.cuda.empty_cache()
     return out
 
@@ -4743,13 +3542,11 @@ def first_step_and_steps(cfg, batch: dict, forms=("phase",),
 def train_forms(line: str) -> dict:
     """The bit-parity train step at batch 15 with each decoder form (the
     reconstruction of one forward from one state, phase vs plain, <=1e-3
-    max abs; ms/step and a profile), the fast train tier's (FAST_TIER)
-    ms/step and profile with each, then `ring_pad` on against off: the
-    first step's
-    metrics (within STEP_METRIC_RTOL) and ms/step, and the 64-frame
-    bit-parity clip (`ring_clip`): at softmax temp 10 within
-    RING_CLIP_RTOL relative, at the config's 100 within that or twice
-    the pad path's own spread under a 1e-6 input nudge."""
+    max abs), then `ring_pad` on against off: the first step's metrics
+    (within STEP_METRIC_RTOL), and the 64-frame bit-parity clip
+    (`ring_clip`): at softmax temp 10 within RING_CLIP_RTOL relative, at
+    the config's 100 within that or twice the pad path's own spread under
+    a 1e-6 input nudge."""
     cfg = face_config()
     batch = train_batch(cfg, TRAIN_BATCH)
     mods = TSNetModules(cfg, device="cuda", seed=0)
@@ -4764,17 +3561,12 @@ def train_forms(line: str) -> dict:
     rec_err = (recs["phase"] - recs["plain"]).abs().max().item()
     del mods, recs
     torch.cuda.empty_cache()
-    pad = first_step_and_steps(cfg, batch, ("phase", "plain"), "bit-parity")
-    fast = first_step_and_steps(dataclasses.replace(cfg, **FAST_TIER), batch,
-                                ("phase", "plain"), "fast")
-    del fast["first_step_metrics"]
-    ring = first_step_and_steps(dataclasses.replace(cfg, ring_pad=True),
-                                batch)
-    mp = pad["first_step_metrics"]
-    metric_err = {k: abs(v - mp[k]) / max(1.0, abs(mp[k]))
-                  for k, v in ring["first_step_metrics"].items()}
+    pad = first_step_metrics(cfg, batch)
+    ring = first_step_metrics(dataclasses.replace(cfg, ring_pad=True), batch)
+    metric_err = {k: abs(v - pad[k]) / max(1.0, abs(pad[k]))
+                  for k, v in ring.items()}
     res = {"train_rec_phase_vs_plain_max_abs": rec_err,
-           "step": {"pad": pad, "fast_tier": fast, "ring_pad": ring},
+           "first_step_metrics": {"pad": pad, "ring_pad": ring},
            "ring_vs_pad_first_step_metrics_rel": metric_err}
     del batch
     torch.cuda.empty_cache()
@@ -4804,13 +3596,12 @@ def ring_clip(cfg) -> dict:
     difference over the largest value, the mean, the source features'
     relative L2, and the pad path's own spread under a 1e-6 relative
     nudge of the source images (the temp-100 attention of random weights
-    turns rounding-level changes into flips, as the train checks find);
-    the clip's ms with each at the config's temperature."""
+    turns rounding-level changes into flips, as the train checks find)."""
     src = clip_src(cfg, cfg.n_source, CLIP_FRAMES)
     gen = torch.Generator().manual_seed(4)
     nudged = (src[0] * (1 + INPUT_NUDGE * torch.randn(
         src[0].shape, generator=gen).to(src[0].device)),) + src[1:]
-    out, clip_ms = {}, {}
+    out = {}
     for temp in (10.0, cfg.softmax_temp):
         clips, fea = {}, {}
         for name in ("pad", "ring_pad"):
@@ -4820,14 +3611,6 @@ def ring_clip(cfg) -> dict:
             fea[name] = encode_sources(mods, *src[:3])["fea"].float()
             if name == "pad":
                 clips["nudged"] = tsnet_forward_clip(mods, *nudged)
-            if temp == cfg.softmax_temp:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(REWRITE_CLIPS):
-                    tsnet_forward_clip(mods, *src)
-                torch.cuda.synchronize()
-                clip_ms[name] = 1e3 * (time.perf_counter() - t0) / \
-                    REWRITE_CLIPS
             del mods
         scale = clips["pad"].abs().max()
         out[f"temp{temp:g}"] = {
@@ -4841,16 +3624,16 @@ def ring_clip(cfg) -> dict:
                                        / fea["pad"].norm()).item()}
         del clips, fea
         torch.cuda.empty_cache()
-    return {"ring_clip": out, "clip_ms": clip_ms}
+    return {"ring_clip": out}
 
 
 def native_render(line: str) -> dict:
     """One pose clip's host rendering: POSE_RENDER_FRAMES OpenPose frames
     of `[pose_data]`'s dancing figure (video 10's placement, at the
     fixtures' 288x512) through the native `draw_edge` and through its
-    numpy tier (TSNET_NATIVE=0): host ms a clip, and the share of pixels
-    that agree. The two differ where a fit lands on an integer: numpy's
-    float fit truncates a hair below it, the native fit does not (the
+    numpy tier (TSNET_NATIVE=0): the share of pixels that agree. The two
+    differ where a fit lands on an integer: numpy's float fit truncates a
+    hair below it, the native fit does not (the
     JAX package's tests/test_native.py bounds that at 0.9999 on a real
     OpenPose frame; this figure's hips and shoulders lie on whole rows,
     so it is held at 0.999)."""
@@ -4860,23 +3643,19 @@ def native_render(line: str) -> dict:
         for f in range(POSE_RENDER_FRAMES)]
 
     def render():
-        t0 = time.perf_counter()
-        imgs = [render_openpose(src, (w, h))[0] for src in sources]
-        return imgs, 1e3 * (time.perf_counter() - t0)
+        return [render_openpose(src, (w, h))[0] for src in sources]
 
-    render()                                      # builds the library
-    native, native_ms = render()
+    native = render()
     old = os.environ.get("TSNET_NATIVE")
     os.environ["TSNET_NATIVE"] = "0"
     try:
-        numpy_imgs, numpy_ms = render()
+        numpy_imgs = render()
     finally:
         os.environ.pop("TSNET_NATIVE")
         if old is not None:
             os.environ["TSNET_NATIVE"] = old
     differ = [(a != b).any(-1) for a, b in zip(native, numpy_imgs)]
-    res = {"frames": POSE_RENDER_FRAMES, "native_ms": native_ms,
-           "numpy_ms": numpy_ms,
+    res = {"frames": POSE_RENDER_FRAMES,
            "pixel_agreement": 1.0 - float(np.mean(differ)),
            "pixels_differing": int(sum(d.sum() for d in differ)),
            "drawn_pixels": int(sum((a != 0).any(-1).sum() for a in native))}
@@ -4909,56 +3688,36 @@ def main() -> int:
     print(f"[versions] python {sys.version.split()[0]} "
           f"torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
-    if sys.argv[1:] == ["--parts"]:
-        parts_phase(line)
-        return 0
-    if sys.argv[1:] == ["--requests"]:
-        requests_phase(line)
-        return 0
     if sys.argv[1:] == ["--high"]:
-        t0 = time.perf_counter()
         high_phase(line)
-        print(f"[{HIGH}] phase {time.perf_counter() - t0:.1f} s | {line}",
-              flush=True)
         return 0
 
     t0 = time.perf_counter()
     per_source = cuda_build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s wall, per source "
           f"{json.dumps(per_source)}", flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
     if sys.argv[1:] == ["--parallel"]:
-        root = os.path.dirname(os.path.abspath(__file__))
         kernel_checks(line)
         train_kernel_checks(line)
-        for name, phase in ((PARALLEL, lambda: parallel_phase(line, root)),
-                            (SWEEP, lambda: sweep_phase(line)),
-                            ("zoo", lambda: zoo_phase(line))):
-            t0 = time.perf_counter()
-            phase()
-            torch.cuda.empty_cache()
-            print(f"[{name}] phase {time.perf_counter() - t0:.1f} s | "
-                  f"{line}", flush=True)
+        parallel_phase(line, root)
+        torch.cuda.empty_cache()
+        sweep_phase(line)
+        torch.cuda.empty_cache()
+        zoo_phase(line)
         return 0
     if sys.argv[1:] == ["--rewrites"]:
-        t0 = time.perf_counter()
         rewrites_phase(line)
-        print(f"[{REWRITES}] phase {time.perf_counter() - t0:.1f} s | {line}",
-              flush=True)
         return 0
     if sys.argv[1:] == ["--pose-first-step"]:
         return pose_first_step_forms(line)
     if sys.argv[1:] == ["--determinism"]:
-        t0 = time.perf_counter()
         determinism_phase(line, diagnose=True)
-        print(f"[{DETERMINISM}] phase {time.perf_counter() - t0:.1f} s | "
-              f"{line}", flush=True)
         return 0
     if sys.argv[1:] == ["--pose"]:
-        t0 = time.perf_counter()
-        pose = pose_phase(line)
-        print(f"[pose] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        pose_phase(line)
         torch.cuda.empty_cache()
-        run_pose_data(line, pose)
+        pose_data_phase(line)
         return 0
     for name in cuda_build.SOURCES:
         log = cuda_build.library_path(name).with_suffix(".log").read_text()
@@ -4977,86 +3736,50 @@ def main() -> int:
     print("[ptxas] K7 and K2 kernels: registers, shared memory and spills: "
           + json.dumps({name: ptxas_resources(name) for name in (
               "conv3x3_in", "in_mean")}), flush=True)
-    print(f"[bits] fuse_pair_conv2 sha256 (2, 3, 12, 64 -> 72, seed 20): "
-          f"{k6_bits(2, 3, 12, 64, 72, 20)}", flush=True)
+    print(f"[bits] fuse_pair_conv2 sha256: (2, 3, 12, 64 -> 72, seed 20) "
+          f"{k6_bits(2, 3, 12, 64, 72, 20)}; (3, 8, 32, 1024 -> 1024, seed "
+          f"21) {k6_bits(3, 8, 32, 1024, 1024, 21)}", flush=True)
 
     kernels = kernel_checks(line)
     train_kernels = train_kernel_checks(line)
-    t0 = time.perf_counter()
     high = high_phase(line)
-    print(f"[{HIGH}] phase {time.perf_counter() - t0:.1f} s | {line}",
-          flush=True)
     torch.cuda.empty_cache()
-    report = main_path(line)
+    report = main_path()
     report[HIGH] = high
     report["train"], state = train_phase(line)
-    t0 = time.perf_counter()
     report["serve"] = serve_phase(line, state)
-    print(f"[serve] phase {time.perf_counter() - t0:.1f} s", flush=True)
     del state
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     report[DETERMINISM] = determinism_phase(line)
-    print(f"[{DETERMINISM}] phase {time.perf_counter() - t0:.1f} s | {line}",
-          flush=True)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     report["pose"] = pose_phase(line)
-    print(f"[pose] phase {time.perf_counter() - t0:.1f} s | {line}",
-          flush=True)
     torch.cuda.empty_cache()
-    report["pose_data"] = run_pose_data(line, report["pose"])
+    report["pose_data"] = pose_data_phase(line)
     torch.cuda.empty_cache()
-    root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
     report[PARALLEL] = parallel_phase(line, root)
-    print(f"[{PARALLEL}] phase {time.perf_counter() - t0:.1f} s | {line}",
-          flush=True)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_",
                                      dir=root) as tmp:
-        t0 = time.perf_counter()
         report["loop"] = loop_phase(line, tmp)
-        print(f"[loop] phase {time.perf_counter() - t0:.1f} s; ms/step "
-              f"over steps 2-{LOOP_STEPS} from disk "
-              f"{report['loop']['ms_per_step_2_to_last']:.2f} against "
-              f"[train]'s fixed batch {report['train']['ms_per_step']:.2f} | "
-              f"{line}", flush=True)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_",
                                          dir=root) as demo_root:
-            t0 = time.perf_counter()
             report["demo"] = demo_phase(
-                line, demo_root, os.path.join(tmp, "run", "snapshots"),
-                {tier: report[tier] for tier in ("bit-parity", "bench")})
-            print(f"[demo] phase {time.perf_counter() - t0:.1f} s | {line}",
-                  flush=True)
+                line, demo_root, os.path.join(tmp, "run", "snapshots"))
             report["tools"] = tools_phase(
                 line, os.path.join(tmp, "run", "history.csv"), demo_root)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     flow = flow_phase(line)
     norm, norm_g4 = norm_phase(line)
     standalone = {"masked_attention_flow_fused": flow,
                   "instance_norm_fused": norm}
-    print(f"[{STANDALONE}] K5 and K8 phase {time.perf_counter() - t0:.1f} s",
-          flush=True)
     report[STANDALONE] = {"launches": {n: k.pop("launches")
                                        for n, k in standalone.items()}}
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     report[SWEEP] = sweep_phase(line)
-    print(f"[{SWEEP}] phase {time.perf_counter() - t0:.1f} s | {line}",
-          flush=True)
-    t0 = time.perf_counter()
     report["zoo"] = zoo_phase(line)
-    print(f"[zoo] phase {time.perf_counter() - t0:.1f} s | {line}",
-          flush=True)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     report[REWRITES] = rewrites_phase(line)
-    print(f"[{REWRITES}] phase {time.perf_counter() - t0:.1f} s | {line}",
-          flush=True)
 
     rows = []
     for name, k in train_kernels.items():
@@ -5081,8 +3804,7 @@ def main() -> int:
             "replaces": k["replaces"],
             "launches": report[k["tier"]]["launches"][launch],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+            "plain_ms": k["plain_ms"],
             "pose_launches": report["pose"]["launches"].get(launch, 0),
             "pose_data_launches": report["pose_data"]["launches"].get(
                 launch, 0),
@@ -5091,12 +3813,12 @@ def main() -> int:
         if name == "transform_warp_pairs_mean":
             # K1 at the sweep's shapes (S=5: the JAX package's K1b)
             row[SWEEP] = {key: {k: at[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")} for key, at in report[SWEEP]["kernels"].items()}
+                "max_abs_err", "ms", "plain_ms")}
+                for key, at in report[SWEEP]["kernels"].items()}
         if name in pose_rows:
             at = report["pose"]["kernels"][pose_rows[name]]
             row["pose"] = {key: at[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                "max_abs_err", "ms", "plain_ms")}
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(line)

@@ -34,7 +34,8 @@ the kernels against the plain path; the `precision="high"` convs (bf16x3)
 against a float64 oracle, grouped forms too; `ClipInference`'s frames
 through its pinned slots against the plain copy back, bit for bit, and
 on a source pack encoded once a job against `tsnet_forward_clip` chunk
-by chunk at full width, bit for bit;
+by chunk at full width, bit for bit; `cli.profile_stages` reading each
+clip span once a call at the toy config;
 chip_smoke.py checks the main paths' shapes.
 """
 
@@ -966,7 +967,7 @@ def test_conv3x3_in_paths_give_the_same_bits(dev, shape):
 def test_fuse_pair_conv2_bits_are_unchanged(dev):
     """K6 on the shared igemm_sm90.cuh depth loop gives the bits it gave
     before K7 came to share that loop (its sha256 on seeded inputs, as
-    `chip_smoke.py --parts` prints it)."""
+    `chip_smoke.py` prints it)."""
     rng = np.random.default_rng(20)
     c1a = torch.from_numpy(rng.standard_normal((2, 12, 12, 64), np.float32))
     c1t = torch.from_numpy(rng.standard_normal((3, 12, 12, 64), np.float32))
@@ -1302,6 +1303,20 @@ def test_demo_face_toy_on_the_card(dev, tmp_path, tier):
               for name in res["names"]]
     with open(res["gif"], "rb") as f:
         assert f.read() == encode_gif(frames)
+
+
+def test_profile_stages_toy_on_the_card(dev, tmp_path, monkeypatch):
+    """`cli.profile_stages` at the toy config on the card reads every clip
+    span of `tsnet_forward_clip` once a call, in device ms."""
+    from wacv23_tsnet_tpu_torch.cli import profile_stages
+    monkeypatch.chdir(tmp_path)
+    cfg = toy_config()
+    res = profile_stages.main(["--frames", "8", "--size",
+                               str(cfg.image_size), "--n-source",
+                               str(cfg.n_source)], base_config=cfg)
+    assert tuple(res["stage_ms"]) == profile_stages.CLIP_SPANS
+    assert all(n == 1 for n in res["count"].values()), res["count"]
+    assert all(ms > 0 for ms in res["stage_ms"].values()), res["stage_ms"]
 
 
 def _clip_job(cfg, frames, seed):

@@ -51,8 +51,6 @@ from wacv23_tsnet_tpu_torch.data.image_io import read_png
 from wacv23_tsnet_tpu_torch.data.smoothing import smooth_keypoint_track
 from wacv23_tsnet_tpu_torch.infer import save_gif
 from wacv23_tsnet_tpu_torch.models import TSNet, TSNetModules
-from wacv23_tsnet_tpu_torch.models.tsnet import (encode_sources,
-                                                 tsnet_forward_clip)
 from wacv23_tsnet_tpu_torch.utils.profiling import span, spans, trace
 
 torch.set_num_threads(2)
@@ -451,31 +449,38 @@ def test_quick_start_matches_jax_draws(monkeypatch):
 
 
 @pytest.mark.parametrize("fast_tail", [False, True], ids=["f32", "bf16_tail"])
-def test_profile_stages_compose_to_forward_clip(fast_tail):
-    """The stage functions are the model path's own: run one after the
-    other they give `tsnet_forward_clip`'s output bit for bit."""
-    cfg = dataclasses.replace(toy_config(), fast_tail=fast_tail)
-    mods = TSNetModules(cfg, device="cpu", seed=3)
-    rng = np.random.default_rng(9)
-    s, hw, nl, f = cfg.n_source, cfg.image_size, cfg.label_nc, 5
-    inputs = [torch.as_tensor(x.astype(np.float32)) for x in (
-        rng.random((s, hw, hw, 3)), rng.integers(0, 2, (s, hw, hw, nl)),
-        rng.integers(0, 2, (s, hw, hw)), rng.integers(0, 2, (f, hw, hw, nl)),
-        rng.integers(0, 2, (f, hw, hw)))]
-    names = []
+def test_profile_stages_compose_to_forward_clip(fast_tail, tmp_path,
+                                                monkeypatch):
+    """The clip profile reads the stages that compose `tsnet_forward_clip`
+    from the entry point's own spans: each of the five once a call, at
+    ms >= 0, and `sum_ms` their sum; its trace is written."""
+    monkeypatch.chdir(tmp_path)
+    cfg = toy_config()
+    argv = ["--frames", "3", "--size", str(cfg.image_size), "--n-source",
+            str(cfg.n_source)] + ([] if fast_tail else ["--no-fast-tail"])
+    res = profile_stages.main(argv, device="cpu", base_config=cfg)
+    assert tuple(res["stage_ms"]) == profile_stages.CLIP_SPANS
+    assert all(n == 1 for n in res["count"].values()), res["count"]
+    assert all(ms >= 0 for ms in res["stage_ms"].values())
+    assert res["sum_ms"] == sum(res["stage_ms"].values())
+    assert os.path.isfile(tmp_path / profile_stages.TRACE_DIR / "trace.json")
 
-    def stage(name, fn):
-        names.append(name)
-        return fn()
 
-    pack = encode_sources(mods, *inputs[:3])
-    got = profile_stages.clip_stages(mods, pack, *inputs[3:], stage)
-    want = tsnet_forward_clip(mods, *inputs, device="cpu")
-    assert torch.equal(got, want)
-    assert len(names) == 4 and names[0] == "lbl_enc"
-    ms, out = profile_stages.timed("lbl_enc", lambda: mods.lbl_enc(
-        inputs[3]), torch.device("cpu"), repeats=2)
-    assert ms > 0 and out.shape[0] == f
+def test_profile_stages_reads_each_train_phase_once_a_step(tmp_path,
+                                                           monkeypatch):
+    """The train profile reads `make_train_step`'s six phase spans and
+    the step's own span, each once a step, at ms >= 0; `sum_ms` is the
+    phases' sum."""
+    monkeypatch.chdir(tmp_path)
+    res = profile_stages.main(["--train", "--batch-size", "2",
+                               "--precision", "highest"], device="cpu",
+                              base_config=toy_config())
+    names = profile_stages.TRAIN_SPANS + (profile_stages.STEP_SPAN,)
+    assert tuple(res["stage_ms"]) == names
+    assert all(n == 1 for n in res["count"].values()), res["count"]
+    assert all(ms >= 0 for ms in res["stage_ms"].values())
+    assert res["sum_ms"] == sum(res["stage_ms"][name]
+                                for name in profile_stages.TRAIN_SPANS)
 
 
 def test_entry_points_refuse_cuda_less_device(face_pair, snapshot_dir,

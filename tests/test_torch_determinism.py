@@ -40,6 +40,7 @@ from wacv23_tsnet_tpu_torch.ops.resize import _gather_axis, sample_separable
 from wacv23_tsnet_tpu_torch.ops.warp_kernels import (
     transform_warp_pairs_bwd_plain, transform_warp_pairs_plain)
 from wacv23_tsnet_tpu_torch.train import create_train_state, make_train_step
+from wacv23_tsnet_tpu_torch.train import step as train_step_module
 
 torch.set_num_threads(2)
 WARP = 32      # items a step of da_sort's ranking warp
@@ -422,16 +423,25 @@ def _toy_batch(cfg, seed=0):
             "tar_bbox": np.ones((1, hw, hw), np.float32)}
 
 
-def test_train_step_runs_under_deterministic_cudnn(cudnn_flags):
-    """Each stage of a toy step (CPU) sees deterministic cuDNN; the
-    caller's flags come back after the step and after a step that raises
-    (in its grad hook, before the first Adam update)."""
+def test_train_step_runs_under_deterministic_cudnn(cudnn_flags,
+                                                   monkeypatch):
+    """Each of the six phases of a toy step (CPU) opens its span under
+    deterministic cuDNN; the caller's flags come back after the step and
+    after a step that raises (in its grad hook, before the first Adam
+    update)."""
     cfg = dataclasses.replace(toy_config(), image_size=32)
     state = create_train_state(cfg, device="cpu", seed=0)
     seen = []
-    step = make_train_step(state, mark=lambda name: seen.append(_flags()))
-    step(state, _toy_batch(cfg), 2e-4)
-    assert len(seen) == 5 and set(seen) == {(True, False)}
+    inner = train_step_module.span
+
+    def span(name, device=None):
+        seen.append((name, _flags()))
+        return inner(name, device)
+
+    monkeypatch.setattr(train_step_module, "span", span)
+    make_train_step(state)(state, _toy_batch(cfg), 2e-4)
+    phases = [flags for name, flags in seen if name != "tsnet.train.step"]
+    assert len(phases) == 6 and set(phases) == {(True, False)}
     assert _flags() == (False, True)
 
     def fail(opt):

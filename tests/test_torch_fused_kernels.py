@@ -172,8 +172,8 @@ REFUSALS = {
     "k6_weight_shape": (lambda: fuse_pair_conv2(
         _meta(2, 4, 4, 16), _meta(3, 4, 4, 16), _meta(16, 8, 3, 3)),
         r"\(Co, K, 3, 3\)"),
-    # K6's launcher (the wrapper's launches, timed apart by chip_smoke.py)
-    # checks as the wrapper does, and takes no CPU tensor at all
+    # K6's launcher (the wrapper's launches) checks as the wrapper does,
+    # and takes no CPU tensor at all
     "k6_launcher_cpu": (lambda: launcher(
         torch.zeros(2, 4, 4, 16, dtype=torch.bfloat16),
         torch.zeros(3, 4, 4, 16, dtype=torch.bfloat16),
@@ -196,8 +196,8 @@ REFUSALS = {
     "k7_skip_shape": (lambda: conv3x3_in(_meta(2, 4, 4, 16),
                                          _meta(16, 16, 3, 3),
                                          skip=_meta(2, 4, 4, 8)), "skip"),
-    # K7's launcher (its paths' launches, timed apart by chip_smoke.py)
-    # checks as the wrapper does, and takes no CPU tensor at all
+    # K7's launcher (its paths' launches) checks as the wrapper does, and
+    # takes no CPU tensor at all
     "k7_launcher_cpu": (lambda: k7_launcher(
         torch.zeros(2, 4, 4, 16, dtype=torch.bfloat16),
         torch.zeros(16, 16, 3, 3)), "CUDA tensors"),

@@ -177,9 +177,8 @@ def test_instance_norm_mean_path_follows_the_plane(plane):
 @pytest.mark.parametrize("two_pass", [None, True], ids=["auto", "two_pass"])
 def test_instance_norm_mean_launcher_takes_only_cuda_tensors(device,
                                                              two_pass):
-    """K2's launcher (its launches, timed apart by chip_smoke.py) refuses
-    a tensor off CUDA on either path; only the wrapper sends CPU tensors
-    to the plain version."""
+    """K2's launcher (its launches) refuses a tensor off CUDA on either
+    path; only the wrapper sends CPU tensors to the plain version."""
     x = torch.empty(3, 2, 4, 4, 8, device=device)
     with pytest.raises(ValueError, match="CUDA tensors"):
         launcher(x, two_pass=two_pass)

@@ -293,9 +293,8 @@ def test_cluster_map_covers_every_element_once(shape):
 @pytest.mark.parametrize("path", [None, *FUSED_PATHS])
 @pytest.mark.parametrize("device", ["meta", "cpu"])
 def test_fused_launcher_takes_only_cuda_tensors(device, path):
-    """K8's launcher (its launches, timed apart by chip_smoke.py) refuses
-    a tensor off CUDA on either path; only the wrapper sends CPU tensors
-    to the plain version."""
+    """K8's launcher (its launches) refuses a tensor off CUDA on either
+    path; only the wrapper sends CPU tensors to the plain version."""
     x = torch.empty(2, 4, 4, 16, device=device)
     cuda_build.reset_launches()
     with pytest.raises(ValueError, match="CUDA tensors"):

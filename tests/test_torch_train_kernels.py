@@ -137,9 +137,8 @@ def test_instance_norm_mean_gradient_matches_jax_vjp():
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_warp_pairs_bwd_launcher_takes_only_cuda_tensors(device):
-    """K4's launcher (the wrapper's five launches, which chip_smoke.py
-    times apart) runs no plain version: CPU and meta tensors are refused
-    before anything is allocated or built."""
+    """K4's launcher (the wrapper's launches) runs no plain version: CPU
+    and meta tensors are refused before anything is allocated or built."""
     (src, tn, sn, tm, sm, grid), (h, w) = _inputs(0, g=1, ns=1, nf=1, h=4,
                                                  w=4, c=8)
     args = [torch.from_numpy(x).to(device) for x in (src, tn, sn, tm, sm,

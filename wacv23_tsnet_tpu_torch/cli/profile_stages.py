@@ -1,16 +1,18 @@
-"""Per-stage timing of the clip-inference hot path and of the train step
-(counterpart of the JAX package's `cli/profile_stages.py`, same flags).
+"""Per-stage time of the clip-inference hot path and of the train step,
+read from the port's spans (counterpart of the JAX package's
+`cli/profile_stages.py`, same flags).
 
-Clip: the stages of `models.tsnet.decode_with_sources` (`label_features`,
-`propagate`, `fuse_clip`, `decode`), each run alone on the outputs of
-the one before, with the S sources encoded once. The decoder line times
-the decoder the entry points run: the phase-decomposed one
-(`nn.decoder.decoder_apply_fast`), as the JAX package's does.
-`--train`: the generator forward and forward+backward, netD
-forward+backward on fake and real, the VGG loss forward+backward and the
-full GAN step, at batch `--batch-size` with seeded random weights (the
-VGG19 too, where `weights/` holds none). Each stage is timed with CUDA
-events: the median of 3 runs after one warm-up. Runs on the GPU.
+Clip: `tsnet_forward_clip` on seeded inputs through the entry point
+itself, once to warm up, then `CALLS` times under
+`utils.profiling.trace`; prints each stage span's ms per call
+(`CLIP_SPANS`: `tsnet.encode_sources`, `tsnet.lbl_enc`, `tsnet.warp`,
+`tsnet.fuse`, `tsnet.decode`) and their sum. `--train`: `CALLS` steps of
+`make_train_step` at batch `--batch-size` with seeded random weights (the
+VGG19 too, where `weights/` holds none), after one warm-up step, the same
+way: the step's six phase spans (`TRAIN_SPANS`) and `tsnet.train.step`,
+ms per step. A span's ms is device time on the GPU (CUDA events) and host
+time on the CPU. The trace, spans included, goes to
+`tsnet_trace/trace.json` in the working directory.
 
     python -m wacv23_tsnet_tpu_torch.cli.profile_stages [--frames 128]
     python -m wacv23_tsnet_tpu_torch.cli.profile_stages --train
@@ -20,65 +22,49 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
 from ..configs import face_config
 from ..device import resolve_device
-from ..losses import vgg_perceptual_loss
-from ..models.tsnet import (TSNetModules, decode, encode_sources,
-                            label_features, propagate, tsnet_forward)
-from ..nn import fuse_clip
+from ..models.tsnet import TSNetModules, tsnet_forward_clip
 from ..train.state import create_train_state
 from ..train.step import make_train_step
+from ..utils.profiling import card_line, spans, trace
+
+CALLS = 3
+CLIP_SPANS = ("tsnet.encode_sources", "tsnet.lbl_enc", "tsnet.warp",
+              "tsnet.fuse", "tsnet.decode")
+TRAIN_SPANS = ("tsnet.train.g_forward", "tsnet.train.d_phase",
+               "tsnet.train.d_opt", "tsnet.train.g_loss_forward",
+               "tsnet.train.g_backward", "tsnet.train.g_opt")
+STEP_SPAN = "tsnet.train.step"
+TRACE_DIR = "tsnet_trace"
 
 
-def timed(name: str, fn, device: torch.device, repeats: int = 3,
-          unit: str = "ms/clip"):
-    """Run `fn()` once to warm up, then `repeats` times, each between two
-    CUDA events (host clock on the CPU); prints and returns (median ms,
-    the last output)."""
-    out = fn()
-    times = []
-    for _ in range(repeats):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            out = fn()
-            times.append(1e3 * (time.perf_counter() - t0))
-    ms = float(np.median(times))
-    print(f"  {name:<36s} {ms:8.2f} {unit}", flush=True)
-    return ms, out
+def span_table(run, names, unit: str) -> dict:
+    """`run()` once to warm up, then `CALLS` times under a trace; prints
+    and returns each span of `names` as ms per `unit` (`stage_ms`), the
+    spans it closed per `unit` (`count`) and the sum of their ms
+    (`sum_ms`)."""
+    run()
+    with trace(TRACE_DIR):
+        for _ in range(CALLS):
+            run()
+    got = spans()
+    res = {"stage_ms": {}, "count": {}}
+    for name in names:
+        s = got.get(name, {"count": 0, "ms": 0.0})
+        res["stage_ms"][name] = s["ms"] / CALLS
+        res["count"][name] = s["count"] / CALLS
+        print(f"  {name:<28s} {res['stage_ms'][name]:9.3f} ms/{unit} "
+              f"({s['count']} spans in {CALLS} {unit}s)", flush=True)
+    return res
 
 
-def clip_stages(mods: TSNetModules, pack: dict, tar_lbl: torch.Tensor,
-                tar_bbox: torch.Tensor, stage=lambda name, fn: fn()):
-    """The stages of `decode_with_sources` one by one, each through
-    `stage(name, fn)`, which runs `fn()` and returns its output. Returns
-    the reconstructions (F, H, W, 3) f32."""
-    warp = ("transform+warp+mean (K1)" if mods.dec.dtype == torch.bfloat16
-            else "transform+warp (K3-nf), mean")
-    with torch.inference_mode():
-        tar_fea, tar_fea_n, tar_mask = stage(
-            "lbl_enc", lambda: label_features(mods, tar_lbl, tar_bbox))
-        prop = stage(warp, lambda: propagate(mods, pack, tar_fea_n, tar_mask))
-        syn = stage("fuse (split form, K2)", lambda: fuse_clip(
-            mods.fuse_net, pack["fea"].float(), tar_fea.float()))
-        return stage("decoder (phase-decomposed)",
-                     lambda: decode(mods, prop, syn).float())
-
-
-def profile_clip(args, device: torch.device) -> dict:
-    cfg = dataclasses.replace(face_config(), precision=args.precision,
+def profile_clip(args, device: torch.device, base) -> dict:
+    cfg = dataclasses.replace(base, precision=args.precision,
                               fast_tail=not args.no_fast_tail)
     mods = TSNetModules(cfg, device=device, seed=0)
     rng = np.random.default_rng(0)
@@ -87,34 +73,26 @@ def profile_clip(args, device: torch.device) -> dict:
     def put(x):
         return torch.as_tensor(x.astype(np.float32), device=device)
 
-    src = (put(rng.random((s, hw, hw, 3), np.float32)),
-           put(rng.integers(0, 2, (s, hw, hw, nl))),
-           put(rng.integers(0, 2, (s, hw, hw))))
-    tar_lbl = put(rng.integers(0, 2, (f, hw, hw, nl)))
-    tar_bbox = put(rng.integers(0, 2, (f, hw, hw)))
-    print(f"device={_device_name(device)} frames={f} n_source={s} "
+    inputs = (put(rng.random((s, hw, hw, 3), np.float32)),
+              put(rng.integers(0, 2, (s, hw, hw, nl))),
+              put(rng.integers(0, 2, (s, hw, hw))),
+              put(rng.integers(0, 2, (f, hw, hw, nl))),
+              put(rng.integers(0, 2, (f, hw, hw))))
+    print(f"device={card_line(device)} frames={f} n_source={s} "
           f"precision={cfg.precision} fast_tail={cfg.fast_tail}", flush=True)
-    pack = encode_sources(mods, *src)
-    stages = {}
-
-    def stage(name, fn):
-        stages[name], out = timed(name, fn, device)
-        return out
-
-    clip_stages(mods, pack, tar_lbl, tar_bbox, stage)
-    total = sum(stages.values())
-    print(f"  {'SUM of stages':<36s} {total:8.2f} ms/clip "
-          f"({f / total * 1e3:.1f} fps equivalent)", flush=True)
-    return {"stage_ms": stages, "sum_ms": total}
+    res = span_table(lambda: tsnet_forward_clip(mods, *inputs, device=device),
+                     CLIP_SPANS, "call")
+    res["sum_ms"] = sum(res["stage_ms"].values())
+    print(f"  {'SUM of stages':<28s} {res['sum_ms']:9.3f} ms/call "
+          f"({f / res['sum_ms'] * 1e3:.1f} frames/s equivalent)", flush=True)
+    return res
 
 
-def profile_train(args, device: torch.device) -> dict:
-    """Per-stage timing of the train step at the shipped width."""
-    cfg = dataclasses.replace(face_config(), precision=args.precision,
+def profile_train(args, device: torch.device, base) -> dict:
+    cfg = dataclasses.replace(base, precision=args.precision,
                               bwd_precision=args.bwd_precision,
                               fast_tail=not args.no_fast_tail)
     state = create_train_state(cfg, device=device, seed=0)
-    mods = state.mods
     rng = np.random.default_rng(0)
     bs, hw, nl, s = args.batch_size, cfg.image_size, cfg.label_nc, \
         cfg.n_source
@@ -126,62 +104,24 @@ def profile_train(args, device: torch.device) -> dict:
                  "tar_img": rng.random((bs, hw, hw, 3), np.float32),
                  "tar_lbl": rng.integers(0, 2, (bs, hw, hw, nl)),
                  "tar_bbox": rng.integers(0, 2, (bs, hw, hw))}.items()}
-    rec = torch.as_tensor(rng.random((bs, hw, hw, 3), np.float32),
-                          device=device)
-    print(f"device={_device_name(device)} TRAIN bs={bs} {hw}^2 "
+    print(f"device={card_line(device)} TRAIN bs={bs} {hw}^2 "
           f"precision={cfg.precision} bwd_precision={cfg.bwd_precision} "
           f"fast_tail={cfg.fast_tail}", flush=True)
-
-    def gen_fwd():
-        with torch.no_grad():
-            return tsnet_forward(mods, batch["src_img"], batch["src_lbl"],
-                                 batch["src_bbox"], batch["tar_lbl"],
-                                 batch["tar_bbox"], tar_img=batch["tar_img"],
-                                 train=True)["rec_img"]
-
-    def gen_fwd_bwd():
-        state.gen_opt.zero_grad(set_to_none=True)
-        out = tsnet_forward(mods, batch["src_img"], batch["src_lbl"],
-                            batch["src_bbox"], batch["tar_lbl"],
-                            batch["tar_bbox"], tar_img=batch["tar_img"],
-                            train=True)
-        (out["rec_img"].sum() + out["loss_warp"]).backward()
-
-    def disc_fwd_bwd():
-        state.disc_opt.zero_grad(set_to_none=True)
-        fake = torch.cat([batch["tar_lbl"], rec], dim=-1)
-        real = torch.cat([batch["tar_lbl"], batch["tar_img"]], dim=-1)
-        sum(t.abs().sum() for t in mods.netD(fake) + mods.netD(real)
-            ).backward()
-
-    def vgg_fwd_bwd():
-        r = rec.clone().requires_grad_(True)
-        vgg_perceptual_loss(state.vgg, r, batch["tar_img"]).backward()
-
     step = make_train_step(state)
-    stages = {}
-    for name, fn in (("generator forward", gen_fwd),
-                     ("generator fwd+bwd", gen_fwd_bwd),
-                     ("netD fwd+bwd (fake+real)", disc_fwd_bwd),
-                     ("VGG loss fwd+bwd", vgg_fwd_bwd),
-                     ("FULL D+G step", lambda: step(state, batch, 2e-4))):
-        stages[name], _ = timed(name, fn, device, unit="ms/step")
-        if name == "generator fwd+bwd":
-            print(f"  {'-> generator backward':<36s} "
-                  f"{stages[name] - stages['generator forward']:8.2f} ms "
-                  f"(difference)", flush=True)
-    return {"stage_ms": stages}
+    res = span_table(lambda: step(state, batch, 2e-4),
+                     TRAIN_SPANS + (STEP_SPAN,), "step")
+    res["sum_ms"] = sum(res["stage_ms"][name] for name in TRAIN_SPANS)
+    print(f"  {'SUM of phases':<28s} {res['sum_ms']:9.3f} ms/step "
+          f"({bs / res['sum_ms'] * 1e3:.2f} samples/s equivalent)",
+          flush=True)
+    return res
 
 
-def _device_name(device: torch.device) -> str:
-    if device.type == "cuda":
-        return torch.cuda.get_device_name(device)
-    return str(device)
-
-
-def main(argv=None, device="cuda") -> dict:
+def main(argv=None, device="cuda", base_config=None) -> dict:
     """Parse `argv` and profile on `device` (the command line always
-    takes the GPU). Returns the stage times in ms."""
+    takes the GPU) at `base_config` (default `face_config()`). Returns
+    `{"stage_ms": {span: ms per call or step}, "count": {span: spans per
+    call or step}, "sum_ms": the clip stages' or the step phases' sum}`."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--frames", type=int, default=128)
     p.add_argument("--n-source", type=int, default=3)
@@ -196,9 +136,10 @@ def main(argv=None, device="cuda") -> dict:
                         "'default' is the fast train tier's")
     args = p.parse_args(argv)
     dev = resolve_device(device)
+    base = face_config() if base_config is None else base_config
     if args.train:
-        return profile_train(args, dev)
-    return profile_clip(args, dev)
+        return profile_train(args, dev, base)
+    return profile_clip(args, dev, base)
 
 
 if __name__ == "__main__":
