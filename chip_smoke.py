@@ -94,13 +94,19 @@ the benchmark (`benchmark/run.py`) measures the cells, and
    K3-flow, K4 and K2); `cli.profile_stages` on a 64-frame clip and on
    the train step at batch 15, in the bit-parity and default tiers, each
    stage span once a call or step. `[tools]`: `cli.plot_history`.
-14. The two kernels that no model path reaches, through their own entry
+14. K5, which no model path reaches, and K8 through their own entry
    points, each call exactly one launch: K5 through
    `transformation_warp(use_kernels=True)` at B=15, 32x32, C=512 (temps
    100 and 10, the five input gradients), and K8 `instance_norm_fused` at
    (32, 256, 256, 64) and, with `phase_groups=4`, (32, 128, 128, 256),
    bf16 and f32, relu on and off (its forced three-launch path too; the
-   phase identity with `space_to_depth`).
+   phase identity with `space_to_depth`), then bf16 at the phase
+   decoder's norms of a 64-frame face chunk (a block's two, the three up
+   stages), against the ATen composition the decoder runs without it,
+   each with its ms beside the composition's. The phase decoder runs
+   every norm of a bf16 decoder's inference through K8, so the main
+   paths' launch checks count K8 too: 11 a decode call at the face
+   config, 3 with K7's blocks (`bench+fused`), none in fp32 or training.
 15. `[sweep]`: `cli.bench_sweep.main([])` at full width (one K1 and one K2
    a clip call), K1 at (S, F) = (1, 64), (5, 64) and (3, 128), the clip
    at S=5, F=128 against its plain path; `[zoo]`: the zoo's generators,
@@ -123,6 +129,7 @@ Modes that run a part alone:
     python3 chip_smoke.py --parallel         # step 3's kernel checks,
                                              # steps 11 and 15
     python3 chip_smoke.py --rewrites         # step 16
+    python3 chip_smoke.py --norms            # step 14's K8 cases
     python3 chip_smoke.py --pose-first-step  # [pose]'s first step with the
                                              # plain Decoder, then the
                                              # phase-decomposed decoder
@@ -198,9 +205,10 @@ from wacv23_tsnet_tpu_torch.ops import flow_kernels as fl
 from wacv23_tsnet_tpu_torch.ops import fuse_kernels as fk
 from wacv23_tsnet_tpu_torch.ops import norm_kernels as nk
 from wacv23_tsnet_tpu_torch.ops import stemconv as sc
+from wacv23_tsnet_tpu_torch.ops import upconv
 from wacv23_tsnet_tpu_torch.ops import warp_kernels as wk
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
-from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
+from wacv23_tsnet_tpu_torch.ops.norms import instance_norm, l2_normalize
 from wacv23_tsnet_tpu_torch.ops.similarity import transformation_warp
 from wacv23_tsnet_tpu_torch.ops.warp import space_to_depth
 from wacv23_tsnet_tpu_torch.parallel import (init_distributed, make_mesh,
@@ -266,9 +274,10 @@ INPUT_NUDGE = 1e-6
 NUDGE_MARGIN = 2.0
 TRAIN_KERNELS = ("transform_warp_pairs", "transform_warp_pairs_bwd",
                  "instance_norm_mean")
-# K5 and K8: no model path reaches them, in either package; each is driven
-# through its own entry point (flow_phase, norm_phase)
-STANDALONE_KERNELS = ("masked_attention_flow_fused", "instance_norm_fused")
+# K5: no model path reaches it, in either package; it is driven through
+# its own entry point (flow_phase), and K8 through its own as well
+# (norm_phase) besides the phase decoder's norms
+STANDALONE_KERNELS = ("masked_attention_flow_fused",)
 STANDALONE = "standalone"
 # K5's five input gradients, kernel path against plain path: the backward
 # recomputes the plain composition, so they differ by rounding at most
@@ -276,6 +285,15 @@ FLOW_GRAD_RTOL = 1e-6
 # K8 at the decoder's last up stage for one 32-frame request, and its 2x2
 # phase layout (phase_groups=4)
 K8_SHAPES = {1: (32, 256, 256, 64), 4: (32, 128, 128, 256)}
+# K8 at the phase decoder's norms of a 64-frame face chunk: name -> (shape,
+# phase_groups, relu); a ResNet block's two norms, the three up stages
+DECODER_NORM_SHAPES = {
+    "block_relu": ((64, 32, 32, 512), 1, True),
+    "block": ((64, 32, 32, 512), 1, False),
+    "up0": ((64, 32, 32, 1024), 4, True),
+    "up1": ((64, 64, 64, 512), 4, True),
+    "up2": ((64, 128, 128, 256), 4, True),
+}
 FORWARD_KEYS = ("src_img", "src_lbl", "src_bbox", "tar_lbl", "tar_bbox")
 # the serve phase: a 64-frame base64 request in two 32-frame chunks and a
 # 2-frame int-list request
@@ -382,6 +400,22 @@ POSE_DATA_START = 86
 POSE_DEMO_FRAMES = 30
 POSE_DEMO_TIERS = {"same-build": tuple(DEMO_TIERS),
                    "cross-build": ("default",)}
+
+
+def decoder_k8(cfg, fused_blocks: bool = False) -> int:
+    """K8's launches in one phase-decoder call of `cfg`'s decoder: one for
+    each instance norm of a bf16 decoder's inference (two a ResNet block,
+    one an up stage; K7's blocks norm inside their convs), none in fp32."""
+    if not cfg.fast_tail:
+        return 0
+    return cfg.n_downsampling + (0 if fused_blocks else 2 * cfg.dec_n_blocks)
+
+
+def with_k8(want: dict, cfg, calls: int, fused_blocks: bool = False) -> dict:
+    """`want` with K8's launches in `calls` phase-decoder calls of `cfg`'s
+    decoder, where it launches any."""
+    n = decoder_k8(cfg, fused_blocks) * calls
+    return dict(want, instance_norm_fused=n) if n else dict(want)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -749,6 +783,11 @@ def main_path() -> dict:
                   and launches["conv3x3_in"] == 0
                   and all(launches[k] == 0 for k in STANDALONE_KERNELS),
                   f"{tier}: launched another tier's kernel: {launches}")
+            # K8: each decoder norm of a decode call (one warp kernel each)
+            check(launches["instance_norm_fused"]
+                  == decoder_k8(cfg) * launches[warp_kernel],
+                  f"{tier}: K8 launches {launches}, expected "
+                  f"{decoder_k8(cfg)} a decode call")
 
             plain = tsnet_forward_clip(mods, *src, tar_lbl, tar_bbox,
                                        use_kernels=False)
@@ -855,9 +894,10 @@ def fused_tier(cfg, src, tar_lbl, tar_bbox, unfused_out) -> dict:
         launches = dict(cuda_build.LAUNCHES)
 
         calls = 1 + len(answered)                    # decode calls
-        want = {"transform_warp_pairs_mean": calls, "instance_norm_mean": calls,
-                "fuse_pair_conv2": calls,
-                "conv3x3_in": 2 * cfg.dec_n_blocks * calls}
+        want = with_k8({"transform_warp_pairs_mean": calls,
+                        "instance_norm_mean": calls, "fuse_pair_conv2": calls,
+                        "conv3x3_in": 2 * cfg.dec_n_blocks * calls},
+                       cfg, calls, fused_blocks=True)
         check(all(launches[k] == v for k, v in want.items())
               and sum(launches.values()) == sum(want.values()),
               f"{tier}: launches {launches}, expected {want} and no other")
@@ -1144,7 +1184,8 @@ def train_phase(line: str):
           f"train: launches per step {per_step}")
     check(all(per_step[k] == 0 for k in (
         "transform_warp_pairs_mean", "transform_warp_pairs_nf",
-        "fuse_pair_conv2", "conv3x3_in") + STANDALONE_KERNELS),
+        "fuse_pair_conv2", "conv3x3_in", "instance_norm_fused")
+        + STANDALONE_KERNELS),
           f"train: launched an inference kernel: {per_step}")
     check(all(np.isfinite(v) for h in history for v in h.values()),
           "train: non-finite metric")
@@ -1427,7 +1468,8 @@ def serve_tier(line: str, tier: str, snap: str, payload: dict,
         frames = _frames(body)
         res["launches"] = launches
         chunks = -(-SERVE_FRAMES // CHUNK)
-        want = {SERVE_KERNELS[tier]: chunks, "instance_norm_mean": chunks}
+        want = with_k8({SERVE_KERNELS[tier]: chunks,
+                        "instance_norm_mean": chunks}, cfg, chunks)
         check(all(launches[k] == want.get(k, 0) for k in launches),
               f"serve {tier}: launches {launches}, want {want}")
         check(frames.shape == (SERVE_FRAMES, base.image_size,
@@ -1550,10 +1592,12 @@ def pose_clip_tier(line: str, tier: str, cfg, src, tar_lbl, tar_bbox,
     hw = cfg.image_size
     check(tuple(out.shape) == (CLIP_FRAMES, hw, hw, 3)
           and bool(torch.isfinite(out).all()), f"pose {tier}: clip output")
-    check(launches[warp_kernel] == 2 and launches["instance_norm_mean"] == 2
-          and sum(launches.values()) == 4,
+    want = with_k8({warp_kernel: 2, "instance_norm_mean": 2}, mods.cfg, 2)
+    check(all(launches[k] == v for k, v in want.items())
+          and sum(launches.values()) == sum(want.values()),
           f"pose {tier}: launches of a clip and a session request "
-          f"(one {warp_kernel} and one K2 each): {launches}")
+          f"(one {warp_kernel} and one K2 each, K8 a decoder norm): "
+          f"{launches}")
     plain = forward(use_kernels=False)
     diff = (out - plain).abs()
     with torch.inference_mode():
@@ -2109,7 +2153,8 @@ def clip_inference_check(line: str, gen_tree: dict, lbl_root: str,
         got = clip.run(*src, tar_lbl, tar_bbox)
         launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
         chunks = CLIP_FRAMES // CHUNK
-        check(launches == {warp_kernel: chunks, "instance_norm_mean": chunks},
+        check(launches == with_k8({warp_kernel: chunks,
+                                   "instance_norm_mean": chunks}, cfg, chunks),
               f"loop: ClipInference {tier} launches {launches}")
         src_dev = clip.prepare_sources(*src)
         onehot = F.one_hot(torch.as_tensor(tar_lbl, device="cuda").long(),
@@ -2296,14 +2341,15 @@ def demo_tier(line: str, tier: str, root: str, base_args: list,
     torch.cuda.synchronize()
     launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
     chunks = -(-DEMO_FRAMES // CHUNK)
-    check(launches == {warp_kernel: chunks, "instance_norm_mean": chunks},
+    cfg = dataclasses.replace(face_config(), precision="high",
+                              fast_tail=bool(extra))
+    check(launches == with_k8({warp_kernel: chunks,
+                               "instance_norm_mean": chunks}, cfg, chunks),
           f"demo {tier}: launches {launches}")
 
     # the reconstruction against the plain path on the same sample and
     # weights (the CLI's random init, seed 0)
     rec = res["rec"]
-    cfg = dataclasses.replace(face_config(), precision="high",
-                              fast_tail=bool(extra))
     hw = cfg.image_size
     check(rec.shape == (DEMO_FRAMES, 3, hw, hw) and np.isfinite(rec).all(),
           f"demo {tier}: reconstruction")
@@ -2623,11 +2669,12 @@ def pose_demo_tier(line: str, pair: str, tier: str, data: str, out: str,
     launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
     launched.update(launches)
     chunks = -(-POSE_DEMO_FRAMES // CHUNK)
-    check(launches == {warp_kernel: chunks, "instance_norm_mean": chunks},
-          f"pose_data demo {pair} {tier}: launches {launches}")
-
     cfg = dataclasses.replace(pose_config(), precision="high",
                               fast_tail=bool(extra))
+    check(launches == with_k8({warp_kernel: chunks,
+                               "instance_norm_mean": chunks}, cfg, chunks),
+          f"pose_data demo {pair} {tier}: launches {launches}")
+
     hw = cfg.image_size
     rec = res["rec"]
     check(rec.shape == (POSE_DEMO_FRAMES, 3, hw, hw)
@@ -2740,8 +2787,9 @@ def pose_serve(line: str, snap: str, launched: collections.Counter) -> dict:
             frames = _frames(body)
             chunks = -(-SERVE_FRAMES // CHUNK)
             res["launches"] = launches
-            check(launches == {SERVE_KERNELS[tier]: chunks,
-                               "instance_norm_mean": chunks},
+            check(launches == with_k8({SERVE_KERNELS[tier]: chunks,
+                                       "instance_norm_mean": chunks},
+                                      cfg, chunks),
                   f"pose_data serve {tier}: launches {launches}")
             check(frames.shape == (SERVE_FRAMES, hw, hw, 3),
                   f"pose_data serve {tier}: frames {frames.shape}")
@@ -2980,14 +3028,71 @@ def norm_phase(line: str) -> tuple[dict, dict]:
             del phase
         del x32, x
         torch.cuda.empty_cache()
-    # the kernels line's rows: the bf16 case of each shape
-    rows = tuple(dict(cases[f"{name}_g{g}_bf16"], tier=STANDALONE,
+    launches += decoder_norm_shapes(line)
+    # the kernels line's rows: the bf16 case of each shape, with K8's
+    # launches on the bench tier's main path (the phase decoder's norms)
+    rows = tuple(dict(cases[f"{name}_g{g}_bf16"], tier="bench",
                       launch=name,
                       replaces="wacv23_tsnet_tpu/ops/pallas_norms.py:206",
                       source="wacv23_tsnet_tpu_torch/csrc/in_fused.cu")
                  for g in K8_SHAPES)
     rows[0]["launches"] = launches
     return rows
+
+
+def decoder_norm_shapes(line: str) -> int:
+    """K8 at the phase decoder's norms of a 64-frame face chunk
+    (DECODER_NORM_SHAPES), bf16: the planner's path, one launch a call,
+    against its plain version in fp32 (before its one rounding) and
+    against the ATen composition the decoder runs without it (a block's
+    `instance_norm` and ReLU, an up stage's `in_relu_phase_plain`), and
+    the kernel's ms beside the composition's. Returns its launches."""
+    name = "instance_norm_fused"
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    launches = 0
+    for key, (shape, groups, relu) in DECODER_NORM_SHAPES.items():
+        _, h, w, c = shape
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 1).to(
+            torch.bfloat16)
+        plan = nk.fused_plan(h * w, c, groups, x.element_size(),
+                             x.data_ptr() % 16 == 0)
+
+        def kernel():
+            return nk.instance_norm_fused(x, relu=relu, phase_groups=groups)
+
+        if groups == 4:
+            def composition():
+                return upconv.in_relu_phase_plain(x)
+        else:
+            def composition():
+                y = instance_norm(x)
+                return torch.relu(y) if relu else y
+
+        out = one_launch(name, kernel)
+        launches += 1
+        want = nk.instance_norm_fused_plain(x, relu=relu, phase_groups=groups,
+                                            out_dtype=torch.float32)
+        res = compare(out, want, IN_TOL["bf16"])
+        gap = (out.float() - composition().float()).abs()
+        res["vs_composition_max_abs"] = gap.max().item()
+        res["vs_composition_mean_abs"] = gap.mean().item()
+        del out, want, gap
+        check(res["worst_err_over_tol"] <= 1.0,
+              f"{name} decoder {key} {shape} disagrees with its plain "
+              f"version: {res}")
+        res["ms"] = time_ms(kernel)
+        res["composition_ms"] = time_ms(composition)
+        print(f"[kernel] {name} decoder {key} (K8, {shape}, g={groups}, "
+              f"relu={relu}, {plan.path} of {plan.cluster} blocks x "
+              f"{plan.rows_per_block} pixels, {plan.smem_bytes} B shared): "
+              f"max_abs_err={res['max_abs_err']:.3e} vs composition max "
+              f"{res['vs_composition_max_abs']:.3e} mean "
+              f"{res['vs_composition_mean_abs']:.3e} kernel_ms="
+              f"{res['ms']:.4f} composition_ms={res['composition_ms']:.4f}"
+              f" | {line}", flush=True)
+        del x
+        torch.cuda.empty_cache()
+    return launches
 
 
 def k6_bits(s: int, f: int, hw: int, k: int, co: int, seed: int) -> str:
@@ -3110,7 +3215,8 @@ def parallel_one_rank(line: str, store: str) -> dict:
             print(f"[{PARALLEL}] (1, 1) NCCL clip, {tier}, {PAR_FRAMES} "
                   f"frames: {json.dumps(res)} | {line}", flush=True)
             check(res["bit_equal"], f"{PARALLEL}: (1, 1) {tier} clip differs")
-            check(launches == {warp: 1, "instance_norm_mean": 1},
+            check(launches == with_k8({warp: 1, "instance_norm_mean": 1},
+                                      tcfg, 1),
                   f"{PARALLEL}: (1, 1) {tier} clip launched {launches}")
             report[f"clip_{tier}"] = res
             del mods, want, got
@@ -3244,7 +3350,8 @@ def parallel_two_ranks(line: str, store: str) -> dict:
                    for r in ranks),
                f"(2, 1) step launches {report['train']}")]
     fused = {"transform_warp_pairs_mean": 1, "instance_norm_mean": 1,
-             "fuse_pair_conv2": 1, "conv3x3_in": 2 * cfg.dec_n_blocks}
+             "fuse_pair_conv2": 1, "conv3x3_in": 2 * cfg.dec_n_blocks,
+             "instance_norm_fused": cfg.n_downsampling}
     expect = {"tp_sp_plain": {},
               "tp_kernels": {"transform_warp_pairs_nf": 1,
                              "instance_norm_mean": 1},
@@ -3336,8 +3443,11 @@ def sweep_phase(line: str) -> dict:
         print(f"[{SWEEP}] {text} | {line}", flush=True)
     check(len(lines) == 8 and all(x["value"] > 0 for x in lines),
           f"{SWEEP}: {len(lines)} lines")
-    check(launches == {"transform_warp_pairs_mean": SWEEP_CALLS,
-                       "instance_norm_mean": SWEEP_CALLS},
+    # the sweep's tier: "high" with fast_tail, the face decoder's depth
+    sweep_cfg = dataclasses.replace(face_config(), fast_tail=True)
+    check(launches == with_k8({"transform_warp_pairs_mean": SWEEP_CALLS,
+                               "instance_norm_mean": SWEEP_CALLS},
+                              sweep_cfg, SWEEP_CALLS),
           f"{SWEEP}: launched {launches} in {SWEEP_CALLS} clip calls")
     g = torch.Generator().manual_seed(11)
     kernels = check_cases({f"transform_warp_pairs_mean_s{s}_f{f}":
@@ -3502,7 +3612,8 @@ def decoder_forms(line: str, tier: str) -> dict:
         diff = (phase.float() - plain.float()).abs()
         res["phase_vs_plain_max_abs"] = diff.max().item()
         res["phase_vs_plain_mean_abs"] = diff.mean().item()
-        want = ({"conv3x3_in": 2 * cfg.dec_n_blocks} if fused else {})
+        want = with_k8({"conv3x3_in": 2 * cfg.dec_n_blocks} if fused
+                       else {}, cfg, 1, fused_blocks=fused)
         check(launches == want, f"{REWRITES} {tier}: the phase decoder "
               f"launched {launches}, expected {want}")
         res["phase_decoder_launches"] = launches
@@ -3708,6 +3819,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--rewrites"]:
         rewrites_phase(line)
+        return 0
+    if sys.argv[1:] == ["--norms"]:
+        norm_phase(line)
         return 0
     if sys.argv[1:] == ["--pose-first-step"]:
         return pose_first_step_forms(line)

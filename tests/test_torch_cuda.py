@@ -35,7 +35,10 @@ against a float64 oracle, grouped forms too; `ClipInference`'s frames
 through its pinned slots against the plain copy back, bit for bit, and
 on a source pack encoded once a job against `tsnet_forward_clip` chunk
 by chunk at full width, bit for bit; `cli.profile_stages` reading each
-clip span once a call at the toy config;
+clip span once a call at the toy config; the face config's bf16 decoder
+with its eleven norms through K8 against the composition, 11 launches a
+call, under grad none, and a `ClipInference` job with and without that
+route;
 chip_smoke.py checks the main paths' shapes.
 """
 
@@ -694,6 +697,133 @@ def test_face_clip_encodes_the_sources_once_a_job(dev, tier):
     np.testing.assert_array_equal(got, want)
 
 
+# the K8 route's gap from the composition at the decoder's tanh output: on
+# average within a couple of bf16 steps at the top of its range (2^-8
+# each below 1); at the worst pixel within twice what the composition
+# itself moves when its batch is split in two (cuDNN picks its algorithms,
+# and so its rounding, by batch size), which the random weights' eleven
+# norms amplify alike
+ROUTE_MEAN_GAP = 2 * 2.0 ** -8
+ROUTE_MAX_OVER_DRIFT = 2.0
+
+
+def _decoder_norms(cfg) -> int:
+    """K8's launches in one call of `cfg`'s bf16 phase decoder at
+    inference: one a norm, two a ResNet block and one an up stage."""
+    return 2 * cfg.dec_n_blocks + cfg.n_downsampling
+
+
+def _route_gaps(got, want, drift) -> dict:
+    """Max and mean gaps of the route (got - want) and of the
+    composition's own batch drift (drift - want), as floats."""
+    gap, own = np.abs(got - want), np.abs(drift - want)
+    res = {"max": float(gap.max()), "mean": float(gap.mean()),
+           "drift_max": float(own.max()), "drift_mean": float(own.mean())}
+    print("[route] " + " ".join(f"{k}={v:.3e}" for k, v in res.items()))
+    return res
+
+
+def _face_decoder(dev, frames, seed=9):
+    """The face config's bf16 decoder (4 blocks, 3 up stages) with
+    normal(0, 0.02) weights and nonzero biases, and `frames` frames of
+    seeded prop and syn features at 32x32x512."""
+    from wacv23_tsnet_tpu_torch.configs import face_config
+    from wacv23_tsnet_tpu_torch.nn import Decoder
+    cfg = face_config()
+    dec = Decoder(3, cfg.ngf, cfg.n_downsampling, cfg.dec_n_blocks,
+                  dtype=torch.bfloat16, precision="default")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    dec = dec.to(dev)
+    h = cfg.image_size // 2 ** cfg.n_downsampling
+    feats = [torch.randn((frames, h, h, cfg.feat_ch), generator=gen).to(dev)
+             for _ in range(2)]
+    return cfg, dec, feats
+
+
+def test_decoder_norms_through_k8_at_full_width(dev):
+    """A 64-frame chunk through the face config's bf16 decoder: the eleven
+    norms (two in each of 4 blocks, one in each of 3 up stages) are eleven
+    K8 launches, and the frames lie within a couple of bf16 steps of the
+    composition's (`use_kernels=False`)."""
+    from wacv23_tsnet_tpu_torch.nn import decoder_apply_fast
+    from wacv23_tsnet_tpu_torch.utils.profiling import DECODER_NORMS
+    cfg, dec, (prop, syn) = _face_decoder(dev, 64)
+    norms = _decoder_norms(cfg)
+
+    def run(lo, hi, use_kernels):
+        return decoder_apply_fast(dec, prop[lo:hi], syn[lo:hi],
+                                  return_fea=False, use_kernels=use_kernels)[0]
+
+    with torch.inference_mode():
+        want = run(0, 64, False)
+        drift = torch.cat([run(0, 32, False), run(32, 64, False)])
+        before = dict(DECODER_NORMS)
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        got = run(0, 64, True)
+        torch.cuda.synchronize()
+    launched = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    assert launched == {"instance_norm_fused": norms}, launched
+    assert DECODER_NORMS == {"fused": before["fused"] + norms,
+                             "plain": before["plain"]}
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    res = _route_gaps(*(t.float().cpu().numpy() for t in (got, want, drift)))
+    assert res["mean"] <= ROUTE_MEAN_GAP
+    assert res["max"] <= ROUTE_MAX_OVER_DRIFT * res["drift_max"]
+
+
+def test_decoder_under_grad_keeps_the_composition(dev):
+    """The fast train tier's bf16 decoder under grad: no K8 launch, the
+    composition's bits, and a backward with finite gradients."""
+    from wacv23_tsnet_tpu_torch.nn import decoder_apply_fast
+    cfg, dec, (prop, syn) = _face_decoder(dev, 4)
+    with torch.no_grad():
+        want, _ = decoder_apply_fast(dec, prop, syn, return_fea=False,
+                                     use_kernels=False)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    got, _ = decoder_apply_fast(dec, prop, syn, return_fea=False)
+    got.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["instance_norm_fused"] == 0
+    assert torch.equal(got.detach(), want)
+    for p in (dec.map_conv.weight, dec.block0.conv1.weight, dec.up0.weight,
+              dec.conv_out.weight):
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all())
+
+
+def test_face_clip_job_with_and_without_the_norm_route(dev, monkeypatch):
+    """A 64-frame `ClipInference` job of `face_config()` in the benchmark's
+    clip tier: its frames with the decoder's norms through K8 against the
+    same engine with the route closed, within the route's gaps (the drift:
+    the closed route at chunk 32)."""
+    from wacv23_tsnet_tpu_torch.configs import face_config
+    from wacv23_tsnet_tpu_torch.infer import ClipInference
+    from wacv23_tsnet_tpu_torch.models import TSNetModules
+    from wacv23_tsnet_tpu_torch.nn import decoder as decoder_mod
+    from wacv23_tsnet_tpu_torch.ops import upconv
+
+    cfg = dataclasses.replace(face_config(), precision="high",
+                              fast_trunk=True, fast_tail=True)
+    mods = TSNetModules(cfg, device="cuda", seed=0)
+    engine = ClipInference(cfg, mods, chunk=64, device="cuda")
+    job = _face_clip_job(cfg, 64, 7)
+    cuda_build.reset_launches()
+    got = engine.run(*job)
+    assert cuda_build.LAUNCHES["instance_norm_fused"] == _decoder_norms(cfg)
+    for mod in (decoder_mod, upconv):
+        monkeypatch.setattr(mod, "fuses_decoder_norm", lambda *a: False)
+    want = engine.run(*job)
+    drift = ClipInference(cfg, mods, chunk=32, device="cuda").run(*job)
+    assert np.isfinite(got).all()
+    res = _route_gaps(got, want, drift)
+    assert res["mean"] <= ROUTE_MEAN_GAP
+    assert res["max"] <= ROUTE_MAX_OVER_DRIFT * res["drift_max"]
+
+
 def _toy_batch(cfg, bs=2, seed=0):
     rng = np.random.default_rng(seed)
     s, hw, nl = cfg.n_source, cfg.image_size, cfg.label_nc
@@ -1018,8 +1148,9 @@ def test_fused_kernels_refuse_what_they_do_not_take(dev):
 def test_fused_tail_toy_clip_kernel_path_matches_plain_path(dev,
                                                              monkeypatch):
     """The bench tier with both opt-ins at the toy config: one K6, K2 and
-    K1 and two K7 per block in a decode call; the kernel path within the
-    fast tiers' 0.01 mean-L1 budget of the plain path."""
+    K1, two K7 per block and one K8 per up stage in a decode call; the
+    kernel path within the fast tiers' 0.01 mean-L1 budget of the plain
+    path."""
     from wacv23_tsnet_tpu_torch.models import TSNetModules, tsnet_forward_clip
     monkeypatch.setenv("TSNET_FUSE_PAIR_KERNEL", "1")
     cfg = dataclasses.replace(toy_config(), precision="high", fast_tail=True,
@@ -1040,6 +1171,7 @@ def test_fused_tail_toy_clip_kernel_path_matches_plain_path(dev,
     assert launches["instance_norm_mean"] == 1
     assert launches["transform_warp_pairs_mean"] == 1
     assert launches["conv3x3_in"] == 2 * cfg.dec_n_blocks
+    assert launches["instance_norm_fused"] == cfg.n_downsampling
     want = tsnet_forward_clip(mods, *inputs, fused_blocks=True,
                               use_kernels=False)
     assert bool(torch.isfinite(got).all())
@@ -1126,14 +1258,15 @@ def test_transformation_warp_kernel_path(dev):
 # (B, H, W, C, phase groups): one 16-byte chunk per 8 (bf16) or 4 (f32)
 # channels; H*W off 8 with 24 channels; 12 channels (bf16 one at a time,
 # the three-launch path); 2056 channels (bf16: 257 chunks, two slabs of
-# the three-launch path); units that fill a cluster of 16 blocks (256 and
-# 64 pixels a block); N = 1000 ragged across 16 blocks of 63 pixels, with
-# C/G = 24 (bf16: 16-byte slabs); a sample of K8_SHAPES[1] in chip_smoke.py
-# (a thread's chunks past its registers, 208 KiB of shared memory a
-# block); a unit past 16 blocks (the three-launch path)
+# the three-launch path); units past one block's registers and shared
+# memory, so a cluster of 3 blocks (3072 and 768 pixels a block); N = 9075
+# ragged across a cluster's blocks (bf16: 2 of 4538 and 4537, C/G = 24 in
+# 16-byte slabs; f32: 3); a sample of K8_SHAPES[1] in chip_smoke.py (16
+# blocks, a thread's chunks past its registers, 208 KiB of shared memory
+# a block); a unit past 16 blocks (the three-launch path)
 NORM_SHAPES = [(2, 8, 8, 64, 1), (2, 8, 8, 64, 4), (1, 5, 7, 24, 4),
-               (2, 6, 10, 12, 1), (1, 9, 9, 2056, 4), (2, 64, 64, 64, 1),
-               (2, 32, 32, 256, 4), (1, 25, 40, 48, 2), (1, 256, 256, 64, 1),
+               (2, 6, 10, 12, 1), (1, 9, 9, 2056, 4), (2, 96, 96, 64, 1),
+               (2, 48, 48, 256, 4), (1, 75, 121, 48, 2), (1, 256, 256, 64, 1),
                (1, 512, 512, 16, 1)]
 NORM_IDS = ["g1", "g4", "ragged", "narrow", "two_slabs", "cluster_g1",
             "cluster_g4", "ragged_cluster", "full_plane", "past_cluster"]
@@ -1178,7 +1311,7 @@ def test_instance_norm_fused_kernel(dev, shape, dtype, relu, path):
     _assert_close(got, want)
 
 
-@pytest.mark.parametrize("shape", [(2, 32, 32, 256, 4), (1, 25, 40, 48, 2)],
+@pytest.mark.parametrize("shape", [(2, 48, 48, 256, 4), (1, 75, 121, 48, 2)],
                          ids=["cluster_g4", "ragged_cluster"])
 def test_instance_norm_fused_cluster_path_is_one_kernel(dev, shape):
     """The cluster path is one CUDA kernel a call (a profiler trace of
@@ -1272,7 +1405,8 @@ def _write_face_pair(root, frames, hw=96, seed=3):
 def test_demo_face_toy_on_the_card(dev, tmp_path, tier):
     """`cli.demo_face.main` at the toy config on the card: 40 frames in
     two 32-frame chunks launch one warp kernel (K3-nf, or K1 with
-    --fast-tail) and one K2 a chunk, as chip_smoke.py's [demo] does; the
+    --fast-tail) and one K2 a chunk, and with --fast-tail one K8 a decoder
+    norm, as chip_smoke.py's [demo] does; the
     reconstruction within the 0.01 mean-L1 budget of the same run on the
     CPU, and the GIF byte for byte what the writer makes of its montage
     PNGs."""
@@ -1294,7 +1428,10 @@ def test_demo_face_toy_on_the_card(dev, tmp_path, tier):
                          base_config=toy_config())
     torch.cuda.synchronize()
     launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
-    assert launches == {warp: 2, "instance_norm_mean": 2}
+    want = {warp: 2, "instance_norm_mean": 2}
+    if tier == "fast-tail":
+        want["instance_norm_fused"] = 2 * _decoder_norms(toy_config())
+    assert launches == want
     cpu = demo_face.main(args + ["--out-dir", str(tmp_path / "cpu")],
                          base_config=toy_config(), device="cpu")
     assert cpu["names"] == res["names"] and cpu["ref_idx"] == res["ref_idx"]
@@ -1422,7 +1559,8 @@ def test_rasterize_pose_clip_on_the_card(dev):
 def test_pose_push_keypoints_kernels_match_plain(dev, fast_tail):
     """Pose `push_keypoints` at the toy pose config (25 classes) on the
     card: 40 frames in chunks of 32 launch one warp kernel (K3-nf, or K1
-    with fast_tail) and one K2 a chunk, and the frames agree with the
+    with fast_tail) and one K2 a chunk, and with fast_tail one K8 a
+    decoder norm, and the frames agree with the
     plain path's (1e-3 max abs in model space; 0.01 mean L1 with the
     bf16 tail)."""
     from wacv23_tsnet_tpu_torch.configs import toy_pose_config
@@ -1447,8 +1585,10 @@ def test_pose_push_keypoints_kernels_match_plain(dev, fast_tail):
         launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
         warp = ("transform_warp_pairs_mean" if fast_tail
                 else "transform_warp_pairs_nf")
-        assert launches == ({warp: 2, "instance_norm_mean": 2}
-                            if use_kernels else {})
+        want = {warp: 2, "instance_norm_mean": 2} if use_kernels else {}
+        if use_kernels and fast_tail:
+            want["instance_norm_fused"] = 2 * _decoder_norms(cfg)
+        assert launches == want
     err = np.abs(frames[True] - frames[False])
     assert frames[True].shape == (40, hw, hw, 3)
     if fast_tail:
@@ -1470,7 +1610,8 @@ def _toy_clip_inputs(cfg, frames=8, seed=5):
 @pytest.mark.parametrize("fast_tail", [False, True], ids=["nf", "mean"])
 def test_parallel_clip_one_rank_nccl_is_the_clip(dev, tmp_path, fast_tail):
     """A (1, 1) mesh over NCCL: `make_parallel_clip_infer` on the kernel
-    path gives `tsnet_forward_clip`'s bits, one warp kernel and one K2."""
+    path gives `tsnet_forward_clip`'s bits, one warp kernel and one K2,
+    and with `fast_tail` one K8 for each of the decoder's norms."""
     import torch.distributed as dist
 
     from wacv23_tsnet_tpu_torch.models import TSNetModules, tsnet_forward_clip
@@ -1494,7 +1635,10 @@ def test_parallel_clip_one_rank_nccl_is_the_clip(dev, tmp_path, fast_tail):
     assert torch.equal(got, want)
     warp = ("transform_warp_pairs_mean" if fast_tail
             else "transform_warp_pairs_nf")
-    assert launched == {warp: 1, "instance_norm_mean": 1}, launched
+    want = {warp: 1, "instance_norm_mean": 1}
+    if fast_tail:
+        want["instance_norm_fused"] = 2 * cfg.dec_n_blocks + cfg.n_downsampling
+    assert launched == want, launched
     assert calls == {("all_gather", "data", "nccl", "cuda"): 1}, calls
 
 
@@ -1578,8 +1722,8 @@ def test_zoo_on_the_card_matches_the_cpu(dev):
 
 def test_bench_sweep_toy_on_the_card(dev, capsys):
     """`bench_sweep` at the toy config on the card: the card line, eight
-    JSON lines, and one K1 and one K2 a clip call (one warm-up and five
-    timed calls a config)."""
+    JSON lines, and one K1, one K2 and one K8 a decoder norm a clip call
+    (one warm-up and five timed calls a config)."""
     from wacv23_tsnet_tpu_torch.cli import bench_sweep
 
     cuda_build.reset_launches()
@@ -1590,4 +1734,6 @@ def test_bench_sweep_toy_on_the_card(dev, capsys):
     assert err[0] and err[0] != "cpu"
     assert len(lines) == 8 and all(line["value"] > 0 for line in lines)
     assert launched == {"transform_warp_pairs_mean": 48,
-                        "instance_norm_mean": 48}, launched
+                        "instance_norm_mean": 48,
+                        "instance_norm_fused": 48 * _decoder_norms(
+                            toy_config())}, launched

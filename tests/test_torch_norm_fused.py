@@ -8,11 +8,11 @@ version; the JAX side runs its two Pallas kernels (`_stats_kernel`,
 phase identity with `ops/warp.py:space_to_depth`, the degenerate-channel
 case of tests/test_fuse_clip.py:49-61 and the wrapper's refusals; the
 planner `fused_plan` (which path, slab, cluster, pixels a block and shared
-memory) at the standalone shapes and at shapes each path must take, a
-model of the cluster kernel's index map that covers every (sample,
-channel, pixel) exactly once, and `fused_launcher`'s refusals. The CUDA
-kernel itself is held against the plain version on the GPU
-(tests/test_torch_cuda.py, chip_smoke.py).
+memory) at the standalone shapes, at the phase decoder's norms and at
+shapes each path must take, a model of the cluster kernel's index map that
+covers every (sample, channel, pixel) exactly once, and `fused_launcher`'s
+refusals. The CUDA kernel itself is held against the plain version on the
+GPU (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import os
@@ -207,6 +207,27 @@ def test_fused_plan_at_the_standalone_shapes(groups, itemsize):
     assert plan.cluster == MAX_FUSED_CLUSTER == 16
 
 
+# the phase decoder's norms of a 64-frame face chunk: name -> (N, C, G)
+# and the plan's (cluster, pixels a block, shared memory a block)
+DECODER_PLANS = {"block": ((1024, 512, 1), (1, 1024, 16 << 10)),
+                 "up0": ((1024, 1024, 4), (1, 1024, 208 << 10)),
+                 "up1": ((4096, 512, 4), (4, 1024, 208 << 10)),
+                 "up2": ((16384, 256, 4), (16, 1024, 208 << 10))}
+
+
+@pytest.mark.parametrize("name", list(DECODER_PLANS))
+def test_fused_plan_takes_the_fewest_blocks_at_the_decoder_norms(name):
+    """A unit takes as few blocks as hold it, in registers and at most 208
+    KiB of shared memory each: one block at the 1024-pixel planes, where
+    16 blocks of 64 pixels ran up to 10x slower on the H100."""
+    (n, c, groups), want = DECODER_PLANS[name]
+    plan = fused_plan(n, c, groups, 2)
+    assert plan.path == "cluster" and plan.slab == 32
+    assert (plan.cluster, plan.rows_per_block, plan.smem_bytes) == want
+    assert plan.cluster == -(-n // plan.rows_per_block)
+    assert plan.smem_bytes <= SMEM_LIMIT
+
+
 # (n, C, G, itemsize, aligned) -> why the three-launch path takes it
 THREE_LAUNCH = {
     "unit_past_cluster": (512 * 512, 16, 1, 2, True),
@@ -277,9 +298,11 @@ def _cluster_cover(b, n, c, groups, itemsize):
 @pytest.mark.parametrize("shape", [
     (2, 64, 64, 1, 4), (2, 1024, 256, 4, 2), (1, 1000, 48, 2, 2),
     (1, 256, 96, 3, 4), (3, 561, 128, 2, 2), (2, 4096, 16, 1, 2),
-    (1, 16384, 64, 1, 2), (1, 4096, 128, 4, 4)],
+    (1, 16384, 64, 1, 2), (1, 4096, 128, 4, 4), (2, 9075, 48, 2, 2),
+    (1, 2304, 256, 4, 4)],
     ids=["g1_f32", "g4_bf16", "ragged", "g3", "odd_n", "whole_rows",
-         "past_registers", "past_registers_g4"])
+         "past_registers", "past_registers_g4", "ragged_blocks",
+         "blocks_g4"])
 def test_cluster_map_covers_every_element_once(shape):
     """Every (sample, channel, pixel) is in exactly one block's part and
     one thread's chunks, and each block's chunks past the registers fit

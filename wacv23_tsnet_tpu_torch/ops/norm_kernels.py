@@ -12,7 +12,11 @@ Counterparts of the JAX package's `ops/pallas_norms.py`:
   `csrc/in_fused.cu`. One launch that reads x once where a thread-block
   cluster holds a (sample, channel slab) unit (`fused_plan`), else three
   (statistics, finalize, normalise). Inference only, as in the JAX
-  package.
+  package. The phase decoder's instance norms (two a plain ResNet block,
+  one an up stage) run through it wherever `fuses_decoder_norm` says so:
+  a bf16 tensor on CUDA through which no gradient flows, with
+  `use_kernels` set. Every other input keeps the decoder's ATen
+  composition.
 
 Each runs its CUDA source on CUDA tensors (see its header for the design
 and what bounds it) and its plain version on CPU tensors. A CUDA tensor
@@ -40,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import DECODER_NORMS
 from . import cuda_build
 from .norms import instance_norm
 
@@ -218,20 +223,36 @@ def instance_norm_fused(x: torch.Tensor, eps: float = 1e-5,
     return out
 
 
+def fuses_decoder_norm(x: torch.Tensor, use_kernels: bool = True) -> bool:
+    """Whether the phase decoder's instance norm of x runs through K8: x is
+    bf16 on CUDA, `use_kernels` is set and no gradient flows through x
+    (K8 is inference only). Otherwise the decoder's ATen composition runs,
+    bit for bit as without K8: on the CPU, in fp32 and in training. Counts
+    the norm in `utils.profiling.DECODER_NORMS` by the route it takes."""
+    fused = (use_kernels and x.device.type == "cuda"
+             and x.dtype == torch.bfloat16
+             and not (torch.is_grad_enabled() and x.requires_grad))
+    DECODER_NORMS["fused" if fused else "plain"] += 1
+    return fused
+
+
 # K8's cluster path takes a unit of work, (sample, slab of SEGMENT bytes of
 # channels of each phase group, or 32 or 16 where C/G does not allow it)
-# over all N pixels, in a cluster of up to MAX_FUSED_CLUSTER blocks of at
-# least MIN_ROWS pixels each; a block holds its part of the unit in
-# 16-byte chunks, one slot of a pixel's chunks a thread, REG_CHUNKS of a
-# thread's chunks in registers and the rest in at most MAX_FUSED_SMEM
-# bytes of shared memory (csrc/in_fused.cu). What no such cluster covers
-# takes the three-launch path (statistics, finalize, normalise), which
-# reads x twice.
+# over all N pixels, in a cluster of as few blocks as hold it, up to
+# MAX_FUSED_CLUSTER; a block holds its part of the unit in 16-byte chunks,
+# one slot of a pixel's chunks a thread, REG_CHUNKS of a thread's chunks
+# in registers and the rest in at most MAX_FUSED_SMEM bytes of shared
+# memory (csrc/in_fused.cu). Fewer blocks a cluster wait less on each
+# other: on the H100, at the phase decoder's block norm (B=64, 1024
+# pixels, 512 channels, bf16) one block a unit took 78 us where 16
+# blocks of 64 pixels took 785; at B <= 8, where every cluster size
+# takes 13-30 us, none gained more than 6 us over the fewest blocks.
+# What no such cluster covers takes the three-launch path (statistics,
+# finalize, normalise), which reads x twice.
 SEGMENT = 64
 CHUNK = 16
 FUSED_THREADS = 256
 MAX_FUSED_CLUSTER = 16
-MIN_ROWS = 64
 MAX_FUSED_SMEM = 208 * 1024
 REG_CHUNKS = 12
 
@@ -257,7 +278,8 @@ def fused_plan(n: int, c: int, groups: int, itemsize: int,
     """K8's path for N = n pixels, C = c channels in `groups` phase groups
     of `itemsize`-byte elements; `aligned`: x starts on a 16-byte
     boundary. The cluster path needs C/G in whole 16-byte chunks and a
-    block's part within its registers and MAX_FUSED_SMEM."""
+    unit within MAX_FUSED_CLUSTER blocks' registers and MAX_FUSED_SMEM;
+    it takes the fewest blocks that hold the unit."""
     three = FusedPlan("three_launch", 0, 0, 0, 0)
     cg = c // groups
     vec = CHUNK // itemsize
@@ -269,12 +291,15 @@ def fused_plan(n: int, c: int, groups: int, itemsize: int,
     if slots > FUSED_THREADS:
         return three
     lanes = FUSED_THREADS // slots       # pixels the block's threads take
-    cluster = min(MAX_FUSED_CLUSTER, -(-n // MIN_ROWS))
+    # the most pixels a block holds: REG_CHUNKS chunks a thread in
+    # registers, the rest in MAX_FUSED_SMEM
+    most = lanes * (REG_CHUNKS + MAX_FUSED_SMEM // (FUSED_THREADS * CHUNK))
+    cluster = -(-n // most)
+    if cluster > MAX_FUSED_CLUSTER:
+        return three
     rows = -(-n // cluster)
     cluster = -(-n // rows)
     smem = max(0, -(-rows // lanes) - REG_CHUNKS) * FUSED_THREADS * CHUNK
-    if smem > MAX_FUSED_SMEM:
-        return three
     return FusedPlan("cluster", slab, cluster, rows, smem)
 
 

@@ -22,6 +22,11 @@ the first and last two input rows and columns, so closed-form kernels
 (`_derived`) compute it exactly from them, and slice writes place it
 over the bulk conv's ring: the op is exact everywhere, borders included.
 
+`upconv_in_relu` runs the stage's instance norm and ReLU through K8
+(`ops.norm_kernels.instance_norm_fused`, `phase_groups=4`) where the
+decoder runs bf16 inference on the card, and as an ATen composition
+everywhere else (`ops.norm_kernels.fuses_decoder_norm`).
+
 `conv7x7_phase` is the decoder's last [reflect-pad 3 -> 7x7 conv] of a
 phase-layout input: a 5x5 conv over 4 Ci channels at half resolution
 with 4 Co outputs, its 2-pixel ring recomputed from thin slabs that carry
@@ -43,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from .dpconv import conv2d
+from .norm_kernels import fuses_decoder_norm, instance_norm_fused
 from .precision import tf32
 
 # _W1D[p, k, d]: coefficient of x[i + d - 1] in upsample tap u[2i + p + k - 1]
@@ -174,7 +180,8 @@ def upsample2x_reflect_conv3(x: torch.Tensor, kernel: torch.Tensor,
 
 def upconv_in_relu(x: torch.Tensor, kernel: torch.Tensor,
                    precision: str = "highest", phase_out: bool = False,
-                   eps: float = 1e-5, bwd_precision=None) -> torch.Tensor:
+                   eps: float = 1e-5, bwd_precision=None,
+                   use_kernels: bool = True) -> torch.Tensor:
     """[upsample2x -> reflect-pad -> conv3x3 -> instance_norm -> relu].
 
     The conv's bias is dropped: a per-channel constant cancels exactly in
@@ -184,19 +191,36 @@ def upconv_in_relu(x: torch.Tensor, kernel: torch.Tensor,
     of each channel, the variance clamped at 0), whatever the dtype. The
     bulk conv carries almost all the products and runs its backward at
     `bwd_precision`; the thin ring convs stay at the forward's. Arguments
-    and result as `upsample2x_reflect_conv3`."""
-    b, h, w, _ = x.shape
-    co = kernel.shape[0]
+    and result as `upsample2x_reflect_conv3`.
+
+    Where `norm_kernels.fuses_decoder_norm` routes it (bf16 on CUDA, no
+    gradient, `use_kernels`), the norm and relu of the phase-layout conv
+    output are one K8 launch with `phase_groups=4`: the same formula, its
+    fp32 sums in another order. Everywhere else the ATen composition
+    below runs."""
     y = _ring_and_bulk(x, kernel, precision, bwd_precision)
-    yf = y.float().reshape(b, h, w, 4, co)
+    if fuses_decoder_norm(y, use_kernels):
+        y = instance_norm_fused(y.contiguous(), eps, relu=True,
+                                phase_groups=4)
+    else:
+        y = in_relu_phase_plain(y, eps)
+    return y if phase_out else depth_to_space(y)
+
+
+def in_relu_phase_plain(y: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """`upconv_in_relu`'s instance norm and ReLU of a phase-layout tensor
+    y (B, H, W, 4C) as an ATen composition: fp32 one-pass statistics over
+    space and the four phase copies of each channel, the variance clamped
+    at 0, the ReLU in fp32, one rounding to y's dtype."""
+    b, h, w, c4 = y.shape
+    yf = y.float().reshape(b, h, w, 4, c4 // 4)
     n = h * w * 4
     dims = (1, 2, 3)
     mean = yf.sum(dim=dims, keepdim=True) / n
     var = torch.clamp(yf.square().sum(dim=dims, keepdim=True) / n
                       - mean * mean, min=0.0)
-    y = torch.relu((yf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
-    y = y.reshape(b, h, w, 4 * co)
-    return y if phase_out else depth_to_space(y)
+    out = torch.relu((yf - mean) * torch.rsqrt(var + eps)).to(y.dtype)
+    return out.reshape(b, h, w, c4)
 
 
 @functools.cache

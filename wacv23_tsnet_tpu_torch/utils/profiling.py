@@ -27,6 +27,12 @@ with it (any other device).
 `CLIP_PACKS` counts, always, the chunks `ClipInference` decoded, by the
 source pack they ran on: `encoded`, a pack encoded for the chunk (a
 job's first), and `reused`, the job's pack encoded for an earlier chunk.
+
+`DECODER_NORMS` counts, always, the instance norms of the phase decoder
+(`nn.decoder.decoder_apply_fast`, `ops.upconv.upconv_in_relu`) by the
+route each took (`ops.norm_kernels.fuses_decoder_norm`): `fused`, through
+K8, and `plain`, the ATen composition. K7's norms, inside its conv, are
+not counted.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 SETUP_S: dict[str, float] = {}
 CLIP_COPIES: dict[str, int] = {"staged": 0, "plain": 0}
 CLIP_PACKS: dict[str, int] = {"encoded": 0, "reused": 0}
+DECODER_NORMS: dict[str, int] = {"fused": 0, "plain": 0}
 
 _RECORDS: list = []
 _UNITS = itertools.count()
