@@ -103,10 +103,18 @@ the benchmark (`benchmark/run.py`) measures the cells, and
    phase identity with `space_to_depth`), then bf16 at the phase
    decoder's norms of a 64-frame face chunk (a block's two, the three up
    stages), against the ATen composition the decoder runs without it,
-   each with its ms beside the composition's. The phase decoder runs
-   every norm of a bf16 decoder's inference through K8, so the main
-   paths' launch checks count K8 too: 11 a decode call at the face
-   config, 3 with K7's blocks (`bench+fused`), none in fp32 or training.
+   each with its ms beside the composition's, and its fp32 two-pass form
+   at the encoders' norms of that chunk (the label encoder's stem, folded
+   stem and stride-2 convs, an image-encoder block) against its plain
+   version and the composition, a check. Every instance norm of the
+   generator's inference on the card in a bf16 subnet, or an fp32 one at
+   "high", runs through K8 (`nn.blocks.norms_on_k8`), so the main paths'
+   launch checks count K8 too, from the config (`clip_k8`): 11 a decode
+   call for the face config's decoder, 3 with K7's blocks
+   (`bench+fused`), one for FuseNet's pair norm without K6, and with
+   "high" encoders (not `fast_trunk`) 4 a decode call for the label
+   encoder and 22 an encode of the sources; none in training or at
+   "highest" (the bit-parity tier).
 15. `[sweep]`: `cli.bench_sweep.main([])` at full width (one K1 and one K2
    a clip call), K1 at (S, F) = (1, 64), (5, 64) and (3, 128), the clip
    at S=5, F=128 against its plain path; `[zoo]`: the zoo's generators,
@@ -205,10 +213,12 @@ from wacv23_tsnet_tpu_torch.ops import flow_kernels as fl
 from wacv23_tsnet_tpu_torch.ops import fuse_kernels as fk
 from wacv23_tsnet_tpu_torch.ops import norm_kernels as nk
 from wacv23_tsnet_tpu_torch.ops import stemconv as sc
-from wacv23_tsnet_tpu_torch.ops import upconv
 from wacv23_tsnet_tpu_torch.ops import warp_kernels as wk
 from wacv23_tsnet_tpu_torch.ops.coords import normalized_grid
-from wacv23_tsnet_tpu_torch.ops.norms import instance_norm, l2_normalize
+from wacv23_tsnet_tpu_torch.ops.norms import (instance_norm,
+                                              instance_norm_one_pass,
+                                              instance_norm_phase,
+                                              l2_normalize)
 from wacv23_tsnet_tpu_torch.ops.similarity import transformation_warp
 from wacv23_tsnet_tpu_torch.ops.warp import space_to_depth
 from wacv23_tsnet_tpu_torch.parallel import (init_distributed, make_mesh,
@@ -293,6 +303,17 @@ DECODER_NORM_SHAPES = {
     "up0": ((64, 32, 32, 1024), 4, True),
     "up1": ((64, 64, 64, 512), 4, True),
     "up2": ((64, 128, 128, 256), 4, True),
+}
+# K8's two-pass form at the fp32 trunk norms of a 64-frame face chunk:
+# name -> (shape, phase_groups); the label encoder's stem, its folded stem
+# ("high"), its stride-2 convs, the image encoder's block norm
+TRUNK_NORM_SHAPES = {
+    "stem": ((64, 256, 256, 64), 1),
+    "folded_stem": ((64, 64, 64, 1024), 16),
+    "down0": ((64, 128, 128, 128), 1),
+    "down1": ((64, 64, 64, 256), 1),
+    "down2": ((64, 32, 32, 512), 1),
+    "image_block": ((3, 32, 32, 512), 1),
 }
 FORWARD_KEYS = ("src_img", "src_lbl", "src_bbox", "tar_lbl", "tar_bbox")
 # the serve phase: a 64-frame base64 request in two 32-frame chunks and a
@@ -403,18 +424,40 @@ POSE_DEMO_TIERS = {"same-build": tuple(DEMO_TIERS),
 
 
 def decoder_k8(cfg, fused_blocks: bool = False) -> int:
-    """K8's launches in one phase-decoder call of `cfg`'s decoder: one for
-    each instance norm of a bf16 decoder's inference (two a ResNet block,
-    one an up stage; K7's blocks norm inside their convs), none in fp32."""
-    if not cfg.fast_tail:
+    """K8's launches in one phase-decoder call of `cfg`'s decoder at
+    inference: one for each instance norm (two a ResNet block, one an up
+    stage; K7's blocks, bf16 only, norm inside their convs) of a bf16
+    decoder (`fast_tail`) or an fp32 one at "high"; none at "highest"
+    (the bit-parity tier keeps the composition)."""
+    if not (cfg.fast_tail or cfg.precision == "high"):
         return 0
-    return cfg.n_downsampling + (0 if fused_blocks else 2 * cfg.dec_n_blocks)
+    fused = fused_blocks and cfg.fast_tail
+    return cfg.n_downsampling + (0 if fused else 2 * cfg.dec_n_blocks)
 
 
-def with_k8(want: dict, cfg, calls: int, fused_blocks: bool = False) -> dict:
-    """`want` with K8's launches in `calls` phase-decoder calls of `cfg`'s
-    decoder, where it launches any."""
-    n = decoder_k8(cfg, fused_blocks) * calls
+def clip_k8(cfg, decodes: int, encodes: int, fused_blocks: bool = False,
+            pair_kernel: bool = False) -> int:
+    """K8's launches at inference in `decodes` decode calls (a chunk of
+    driving frames) and `encodes` encodes of the sources of `cfg`: one a
+    norm of the encoders where their fp32 convs run at "high" (not under
+    `fast_trunk` or at "highest"), a decode call's label encoder stem and
+    stride-2 convs, an encode's image encoder stem, stride-2 convs and
+    two a ResNet block; FuseNet's pair norm (none where K6 takes the pair
+    block, `pair_kernel`) where the decoder launches any; the decoder's
+    norms (`decoder_k8`)."""
+    trunk = not cfg.fast_trunk and cfg.precision == "high"
+    tail = decoder_k8(cfg, fused_blocks)
+    per_decode = ((1 + cfg.n_downsampling) * trunk + tail
+                  + int(bool(tail) and not pair_kernel))
+    per_encode = (1 + cfg.n_downsampling + 2 * cfg.enc_n_blocks) * trunk
+    return decodes * per_decode + encodes * per_encode
+
+
+def with_k8(want: dict, cfg, decodes: int, encodes: int,
+            fused_blocks: bool = False, pair_kernel: bool = False) -> dict:
+    """`want` with K8's launches in `decodes` decode calls and `encodes`
+    encodes of the sources of `cfg` (`clip_k8`), where it launches any."""
+    n = clip_k8(cfg, decodes, encodes, fused_blocks, pair_kernel)
     return dict(want, instance_norm_fused=n) if n else dict(want)
 
 
@@ -783,11 +826,11 @@ def main_path() -> dict:
                   and launches["conv3x3_in"] == 0
                   and all(launches[k] == 0 for k in STANDALONE_KERNELS),
                   f"{tier}: launched another tier's kernel: {launches}")
-            # K8: each decoder norm of a decode call (one warp kernel each)
-            check(launches["instance_norm_fused"]
-                  == decoder_k8(cfg) * launches[warp_kernel],
-                  f"{tier}: K8 launches {launches}, expected "
-                  f"{decoder_k8(cfg)} a decode call")
+            # K8 in the 5 decode calls (one warp kernel each) and the 3
+            # encodes of the sources (the forward's and each session's)
+            want_k8 = clip_k8(cfg, launches[warp_kernel], 3)
+            check(launches["instance_norm_fused"] == want_k8,
+                  f"{tier}: K8 launches {launches}, expected {want_k8}")
 
             plain = tsnet_forward_clip(mods, *src, tar_lbl, tar_bbox,
                                        use_kernels=False)
@@ -897,7 +940,7 @@ def fused_tier(cfg, src, tar_lbl, tar_bbox, unfused_out) -> dict:
         want = with_k8({"transform_warp_pairs_mean": calls,
                         "instance_norm_mean": calls, "fuse_pair_conv2": calls,
                         "conv3x3_in": 2 * cfg.dec_n_blocks * calls},
-                       cfg, calls, fused_blocks=True)
+                       cfg, calls, 2, fused_blocks=True, pair_kernel=True)
         check(all(launches[k] == v for k, v in want.items())
               and sum(launches.values()) == sum(want.values()),
               f"{tier}: launches {launches}, expected {want} and no other")
@@ -1469,7 +1512,7 @@ def serve_tier(line: str, tier: str, snap: str, payload: dict,
         res["launches"] = launches
         chunks = -(-SERVE_FRAMES // CHUNK)
         want = with_k8({SERVE_KERNELS[tier]: chunks,
-                        "instance_norm_mean": chunks}, cfg, chunks)
+                        "instance_norm_mean": chunks}, cfg, chunks, 0)
         check(all(launches[k] == want.get(k, 0) for k in launches),
               f"serve {tier}: launches {launches}, want {want}")
         check(frames.shape == (SERVE_FRAMES, base.image_size,
@@ -1592,7 +1635,7 @@ def pose_clip_tier(line: str, tier: str, cfg, src, tar_lbl, tar_bbox,
     hw = cfg.image_size
     check(tuple(out.shape) == (CLIP_FRAMES, hw, hw, 3)
           and bool(torch.isfinite(out).all()), f"pose {tier}: clip output")
-    want = with_k8({warp_kernel: 2, "instance_norm_mean": 2}, mods.cfg, 2)
+    want = with_k8({warp_kernel: 2, "instance_norm_mean": 2}, mods.cfg, 2, 2)
     check(all(launches[k] == v for k, v in want.items())
           and sum(launches.values()) == sum(want.values()),
           f"pose {tier}: launches of a clip and a session request "
@@ -2154,7 +2197,8 @@ def clip_inference_check(line: str, gen_tree: dict, lbl_root: str,
         launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
         chunks = CLIP_FRAMES // CHUNK
         check(launches == with_k8({warp_kernel: chunks,
-                                   "instance_norm_mean": chunks}, cfg, chunks),
+                                   "instance_norm_mean": chunks},
+                                  cfg, chunks, 1),
               f"loop: ClipInference {tier} launches {launches}")
         src_dev = clip.prepare_sources(*src)
         onehot = F.one_hot(torch.as_tensor(tar_lbl, device="cuda").long(),
@@ -2344,7 +2388,7 @@ def demo_tier(line: str, tier: str, root: str, base_args: list,
     cfg = dataclasses.replace(face_config(), precision="high",
                               fast_tail=bool(extra))
     check(launches == with_k8({warp_kernel: chunks,
-                               "instance_norm_mean": chunks}, cfg, chunks),
+                               "instance_norm_mean": chunks}, cfg, chunks, 1),
           f"demo {tier}: launches {launches}")
 
     # the reconstruction against the plain path on the same sample and
@@ -2672,7 +2716,7 @@ def pose_demo_tier(line: str, pair: str, tier: str, data: str, out: str,
     cfg = dataclasses.replace(pose_config(), precision="high",
                               fast_tail=bool(extra))
     check(launches == with_k8({warp_kernel: chunks,
-                               "instance_norm_mean": chunks}, cfg, chunks),
+                               "instance_norm_mean": chunks}, cfg, chunks, 1),
           f"pose_data demo {pair} {tier}: launches {launches}")
 
     hw = cfg.image_size
@@ -2789,7 +2833,7 @@ def pose_serve(line: str, snap: str, launched: collections.Counter) -> dict:
             res["launches"] = launches
             check(launches == with_k8({SERVE_KERNELS[tier]: chunks,
                                        "instance_norm_mean": chunks},
-                                      cfg, chunks),
+                                      cfg, chunks, 0),
                   f"pose_data serve {tier}: launches {launches}")
             check(frames.shape == (SERVE_FRAMES, hw, hw, 3),
                   f"pose_data serve {tier}: frames {frames.shape}")
@@ -3029,6 +3073,7 @@ def norm_phase(line: str) -> tuple[dict, dict]:
         del x32, x
         torch.cuda.empty_cache()
     launches += decoder_norm_shapes(line)
+    launches += trunk_norm_shapes(line)
     # the kernels line's rows: the bf16 case of each shape, with K8's
     # launches on the bench tier's main path (the phase decoder's norms)
     rows = tuple(dict(cases[f"{name}_g{g}_bf16"], tier="bench",
@@ -3045,7 +3090,7 @@ def decoder_norm_shapes(line: str) -> int:
     (DECODER_NORM_SHAPES), bf16: the planner's path, one launch a call,
     against its plain version in fp32 (before its one rounding) and
     against the ATen composition the decoder runs without it (a block's
-    `instance_norm` and ReLU, an up stage's `in_relu_phase_plain`), and
+    `instance_norm` and ReLU, an up stage's `instance_norm_one_pass`), and
     the kernel's ms beside the composition's. Returns its launches."""
     name = "instance_norm_fused"
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -3062,7 +3107,7 @@ def decoder_norm_shapes(line: str) -> int:
 
         if groups == 4:
             def composition():
-                return upconv.in_relu_phase_plain(x)
+                return instance_norm_one_pass(x, groups=4, relu=True)
         else:
             def composition():
                 y = instance_norm(x)
@@ -3090,6 +3135,43 @@ def decoder_norm_shapes(line: str) -> int:
               f"{res['vs_composition_mean_abs']:.3e} kernel_ms="
               f"{res['ms']:.4f} composition_ms={res['composition_ms']:.4f}"
               f" | {line}", flush=True)
+        del x
+        torch.cuda.empty_cache()
+    return launches
+
+
+def trunk_norm_shapes(line: str) -> int:
+    """K8's two-pass form at the fp32 trunk norms of a 64-frame face chunk
+    (TRUNK_NORM_SHAPES), relu on: the cluster path, one launch a call,
+    against its plain version and against the composition the encoders
+    run without it (`instance_norm` or `instance_norm_phase`, then the
+    ReLU), on channels far from 0. A check; nothing is timed. Returns its
+    launches."""
+    name = "instance_norm_fused"
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    launches = 0
+    for key, (shape, groups) in TRUNK_NORM_SHAPES.items():
+        _, h, w, c = shape
+        x = torch.randn(shape, generator=gen, device="cuda") * 2 + 21
+        plan = nk.fused_plan(h * w, c, groups, 4, x.data_ptr() % 16 == 0)
+        check(plan.path == "cluster", f"{name} trunk {key}: {plan}")
+        out = one_launch(name, lambda: nk.instance_norm_fused(
+            x, relu=True, phase_groups=groups, two_pass=True))
+        launches += 1
+        res = compare(out, nk.instance_norm_two_pass_plain(
+            x, relu=True, phase_groups=groups), IN_TOL["f32"])
+        comp = torch.relu(instance_norm(x) if groups == 1
+                          else instance_norm_phase(x, groups=groups))
+        gap = compare(out, comp, IN_TOL["f32"])
+        del out, comp
+        check(res["worst_err_over_tol"] <= 1.0
+              and gap["worst_err_over_tol"] <= 1.0,
+              f"{name} trunk {key} {shape} two-pass disagrees: {res} "
+              f"(composition: {gap})")
+        print(f"[kernel] {name} trunk {key} (K8 two-pass, {shape}, "
+              f"g={groups}, cluster of {plan.cluster}): max_abs_err="
+              f"{res['max_abs_err']:.3e} vs composition max "
+              f"{gap['max_abs_err']:.3e} | {line}", flush=True)
         del x
         torch.cuda.empty_cache()
     return launches
@@ -3216,7 +3298,7 @@ def parallel_one_rank(line: str, store: str) -> dict:
                   f"frames: {json.dumps(res)} | {line}", flush=True)
             check(res["bit_equal"], f"{PARALLEL}: (1, 1) {tier} clip differs")
             check(launches == with_k8({warp: 1, "instance_norm_mean": 1},
-                                      tcfg, 1),
+                                      tcfg, 1, 1),
                   f"{PARALLEL}: (1, 1) {tier} clip launched {launches}")
             report[f"clip_{tier}"] = res
             del mods, want, got
@@ -3349,13 +3431,20 @@ def parallel_two_ranks(line: str, store: str) -> dict:
               (all(r["train"]["launches"] == TRAIN_KERNEL_LAUNCHES
                    for r in ranks),
                f"(2, 1) step launches {report['train']}")]
+    # K8: the decoder's up stages; with "high" encoders (not the bench
+    # tier's `fast_trunk`) also each encoder's stem and stride-2 convs
+    # and the image encoder's blocks, which are not split over `model`
+    # there
+    stems = 2 * (1 + cfg.n_downsampling)
     fused = {"transform_warp_pairs_mean": 1, "instance_norm_mean": 1,
              "fuse_pair_conv2": 1, "conv3x3_in": 2 * cfg.dec_n_blocks,
              "instance_norm_fused": cfg.n_downsampling}
     expect = {"tp_sp_plain": {},
               "tp_kernels": {"transform_warp_pairs_nf": 1,
                              "instance_norm_mean": 1},
-              FUSED_TIER: fused, TAIL_FUSED: fused}
+              FUSED_TIER: fused,
+              TAIL_FUSED: dict(fused, instance_norm_fused=cfg.n_downsampling
+                               + stems + 2 * cfg.enc_n_blocks)}
     for name in cases:
         diff = (torch.from_numpy(got[name]["frames"]) - want[name]).abs()
         res = {"max_abs": diff.max().item(), "mean_abs": diff.mean().item(),
@@ -3443,11 +3532,13 @@ def sweep_phase(line: str) -> dict:
         print(f"[{SWEEP}] {text} | {line}", flush=True)
     check(len(lines) == 8 and all(x["value"] > 0 for x in lines),
           f"{SWEEP}: {len(lines)} lines")
-    # the sweep's tier: "high" with fast_tail, the face decoder's depth
-    sweep_cfg = dataclasses.replace(face_config(), fast_tail=True)
+    # the sweep's tier: "high" with fast_tail, the face decoder's depth;
+    # each clip call encodes its sources once
+    sweep_cfg = dataclasses.replace(face_config(), precision="high",
+                                    fast_tail=True)
     check(launches == with_k8({"transform_warp_pairs_mean": SWEEP_CALLS,
                                "instance_norm_mean": SWEEP_CALLS},
-                              sweep_cfg, SWEEP_CALLS),
+                              sweep_cfg, SWEEP_CALLS, SWEEP_CALLS),
           f"{SWEEP}: launched {launches} in {SWEEP_CALLS} clip calls")
     g = torch.Generator().manual_seed(11)
     kernels = check_cases({f"transform_warp_pairs_mean_s{s}_f{f}":
@@ -3612,8 +3703,9 @@ def decoder_forms(line: str, tier: str) -> dict:
         diff = (phase.float() - plain.float()).abs()
         res["phase_vs_plain_max_abs"] = diff.max().item()
         res["phase_vs_plain_mean_abs"] = diff.mean().item()
-        want = with_k8({"conv3x3_in": 2 * cfg.dec_n_blocks} if fused
-                       else {}, cfg, 1, fused_blocks=fused)
+        want = {"conv3x3_in": 2 * cfg.dec_n_blocks} if fused else {}
+        if decoder_k8(cfg, fused):
+            want["instance_norm_fused"] = decoder_k8(cfg, fused)
         check(launches == want, f"{REWRITES} {tier}: the phase decoder "
               f"launched {launches}, expected {want}")
         res["phase_decoder_launches"] = launches

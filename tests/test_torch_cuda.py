@@ -38,7 +38,10 @@ by chunk at full width, bit for bit; `cli.profile_stages` reading each
 clip span once a call at the toy config; the face config's bf16 decoder
 with its eleven norms through K8 against the composition, 11 launches a
 call, under grad none, and a `ClipInference` job with and without that
-route;
+route; K8's two-pass form at the clip's trunk shapes against its plain
+version, its one-pass form at FuseNet's pair norm, the one-pass entry's
+bits as they were before the two-pass form, and `decode_with_sources`
+with and without kernels in both clip tiers;
 chip_smoke.py checks the main paths' shapes.
 """
 
@@ -65,7 +68,8 @@ from wacv23_tsnet_tpu_torch.ops.fuse_kernels import (fuse_pair_conv2,
                                                      fuse_pair_conv2_plain)
 from wacv23_tsnet_tpu_torch.ops.norm_kernels import (
     fused_launcher, fused_plan, instance_norm_fused, instance_norm_fused_plain,
-    instance_norm_mean, instance_norm_mean_plain, mean_tiles)
+    instance_norm_mean, instance_norm_mean_plain, instance_norm_two_pass_plain,
+    mean_tiles)
 from wacv23_tsnet_tpu_torch.ops.norm_kernels import launcher as norm_launcher
 from wacv23_tsnet_tpu_torch.ops.norms import l2_normalize
 from wacv23_tsnet_tpu_torch.ops.similarity import transformation_warp
@@ -708,9 +712,28 @@ ROUTE_MAX_OVER_DRIFT = 2.0
 
 
 def _decoder_norms(cfg) -> int:
-    """K8's launches in one call of `cfg`'s bf16 phase decoder at
-    inference: one a norm, two a ResNet block and one an up stage."""
+    """K8's launches in one call of `cfg`'s phase decoder at inference:
+    one a norm, two a ResNet block and one an up stage."""
     return 2 * cfg.dec_n_blocks + cfg.n_downsampling
+
+
+def _clip_norms(cfg, chunks: int, encodes: int = 1, pair: bool = True,
+                blocks: bool = True) -> int:
+    """K8's launches in a clip call at inference: each encode of the
+    sources one a norm of the image encoder (stem, stride-2 convs, two a
+    block); each chunk the label encoder's (stem, stride-2 convs),
+    FuseNet's pair norm (none where K6 takes the pair block, `pair`) and
+    the decoder's (its blocks' none where K7 takes them, `blocks`). A
+    subnet's norms take K8 where it is bf16 or its fp32 convs run at
+    "high": the encoders of "high" tiers without `fast_trunk`, the tail
+    under `fast_tail` or at "high"."""
+    trunk = not cfg.fast_trunk and cfg.precision == "high"
+    tail = cfg.fast_tail or cfg.precision == "high"
+    image = (1 + cfg.n_downsampling + 2 * cfg.enc_n_blocks) * trunk
+    chunk = ((1 + cfg.n_downsampling) * trunk
+             + (int(pair) + cfg.n_downsampling
+                + (2 * cfg.dec_n_blocks if blocks else 0)) * tail)
+    return encodes * image + chunks * chunk
 
 
 def _route_gaps(got, want, drift) -> dict:
@@ -795,16 +818,61 @@ def test_decoder_under_grad_keeps_the_composition(dev):
         assert p.grad is not None and bool(torch.isfinite(p.grad).all())
 
 
-def test_face_clip_job_with_and_without_the_norm_route(dev, monkeypatch):
-    """A 64-frame `ClipInference` job of `face_config()` in the benchmark's
-    clip tier: its frames with the decoder's norms through K8 against the
-    same engine with the route closed, within the route's gaps (the drift:
+def _close_route(monkeypatch, norms=None) -> None:
+    """The norm route closed for the sites counted in `norms` (one of the
+    `utils.profiling` counters; every site with None): they keep the
+    composition."""
+    from wacv23_tsnet_tpu_torch.ops import norm_kernels
+    real = norm_kernels.fuses_norm
+
+    def fuses(x, use_kernels=True, counter=None, *args, **kwargs):
+        if norms is None or counter is norms:
+            return real(x, False, counter, *args, **kwargs)
+        return real(x, use_kernels, counter, *args, **kwargs)
+
+    monkeypatch.setattr(norm_kernels, "fuses_norm", fuses)
+
+
+def test_face_clip_high_job_with_and_without_the_trunk_route(dev,
+                                                             monkeypatch):
+    """A 64-frame `ClipInference` job of `face_config()` in
+    `face.clip-high`'s tier ("high" encoders, `fast_tail`): its frames with
+    the encoders' and FuseNet's norms through K8 against the same engine
+    with that route closed (the decoder's open on both sides). bf16x3
+    encoders are as accurate as fp32, so K8's two-pass sums, in another
+    order than ATen's, move the label features by fp32 rounding only; the
+    frames stay within the route's gaps of the closed route (the drift:
     the closed route at chunk 32)."""
     from wacv23_tsnet_tpu_torch.configs import face_config
     from wacv23_tsnet_tpu_torch.infer import ClipInference
     from wacv23_tsnet_tpu_torch.models import TSNetModules
-    from wacv23_tsnet_tpu_torch.nn import decoder as decoder_mod
-    from wacv23_tsnet_tpu_torch.ops import upconv
+    from wacv23_tsnet_tpu_torch.utils.profiling import TRUNK_NORMS
+
+    cfg = dataclasses.replace(face_config(), precision="high",
+                              fast_tail=True)
+    mods = TSNetModules(cfg, device="cuda", seed=0)
+    job = _face_clip_job(cfg, 64, 7)
+    got = ClipInference(cfg, mods, chunk=64, device="cuda").run(*job)
+    _close_route(monkeypatch, TRUNK_NORMS)
+    before = dict(TRUNK_NORMS)
+    want = ClipInference(cfg, mods, chunk=64, device="cuda").run(*job)
+    assert TRUNK_NORMS["fused"] == before["fused"]
+    drift = ClipInference(cfg, mods, chunk=32, device="cuda").run(*job)
+    assert np.isfinite(got).all()
+    res = _route_gaps(got, want, drift)
+    assert res["mean"] <= ROUTE_MEAN_GAP
+    assert res["max"] <= ROUTE_MAX_OVER_DRIFT * res["drift_max"]
+
+
+def test_face_clip_job_with_and_without_the_norm_route(dev, monkeypatch):
+    """A 64-frame `ClipInference` job of `face_config()` in the benchmark's
+    clip tier: its frames with the norms through K8 (FuseNet's pair norm
+    and the decoder's; the `fast_trunk` encoders keep the composition)
+    against the same engine with the route closed, within the route's
+    gaps (the drift: the closed route at chunk 32)."""
+    from wacv23_tsnet_tpu_torch.configs import face_config
+    from wacv23_tsnet_tpu_torch.infer import ClipInference
+    from wacv23_tsnet_tpu_torch.models import TSNetModules
 
     cfg = dataclasses.replace(face_config(), precision="high",
                               fast_trunk=True, fast_tail=True)
@@ -813,9 +881,8 @@ def test_face_clip_job_with_and_without_the_norm_route(dev, monkeypatch):
     job = _face_clip_job(cfg, 64, 7)
     cuda_build.reset_launches()
     got = engine.run(*job)
-    assert cuda_build.LAUNCHES["instance_norm_fused"] == _decoder_norms(cfg)
-    for mod in (decoder_mod, upconv):
-        monkeypatch.setattr(mod, "fuses_decoder_norm", lambda *a: False)
+    assert cuda_build.LAUNCHES["instance_norm_fused"] == _clip_norms(cfg, 1)
+    _close_route(monkeypatch)
     want = engine.run(*job)
     drift = ClipInference(cfg, mods, chunk=32, device="cuda").run(*job)
     assert np.isfinite(got).all()
@@ -1148,7 +1215,8 @@ def test_fused_kernels_refuse_what_they_do_not_take(dev):
 def test_fused_tail_toy_clip_kernel_path_matches_plain_path(dev,
                                                              monkeypatch):
     """The bench tier with both opt-ins at the toy config: one K6, K2 and
-    K1, two K7 per block and one K8 per up stage in a decode call; the
+    K1, two K7 per block, one K8 per up stage in a decode call and one a
+    norm of the encoders; the
     kernel path within the fast tiers' 0.01 mean-L1 budget of the plain
     path."""
     from wacv23_tsnet_tpu_torch.models import TSNetModules, tsnet_forward_clip
@@ -1171,7 +1239,8 @@ def test_fused_tail_toy_clip_kernel_path_matches_plain_path(dev,
     assert launches["instance_norm_mean"] == 1
     assert launches["transform_warp_pairs_mean"] == 1
     assert launches["conv3x3_in"] == 2 * cfg.dec_n_blocks
-    assert launches["instance_norm_fused"] == cfg.n_downsampling
+    assert launches["instance_norm_fused"] == _clip_norms(
+        cfg, 1, pair=False, blocks=False)
     want = tsnet_forward_clip(mods, *inputs, fused_blocks=True,
                               use_kernels=False)
     assert bool(torch.isfinite(got).all())
@@ -1376,6 +1445,150 @@ def test_instance_norm_fused_refuses_a_tensor_that_requires_grad(dev):
         _assert_close(instance_norm_fused(x), instance_norm_fused_plain(x))
 
 
+# the clip's fp32 trunk norms at a 64-frame chunk (B, H, W, C, phase
+# groups): the label encoder's 7x7 stem, its folded stem under "high"
+# (4x4 phases), its three stride-2 convs, and the image encoder's block
+# norm (3 sources)
+TRUNK_SHAPES = [(64, 256, 256, 64, 1), (64, 64, 64, 1024, 16),
+                (64, 128, 128, 128, 1), (64, 64, 64, 256, 1),
+                (64, 32, 32, 512, 1), (3, 32, 32, 512, 1)]
+TRUNK_IDS = ["stem", "folded_stem", "down0", "down1", "down2",
+             "image_block"]
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["norm", "relu"])
+@pytest.mark.parametrize("shape", TRUNK_SHAPES, ids=TRUNK_IDS)
+def test_instance_norm_fused_two_pass_at_the_trunk_shapes(dev, shape, relu):
+    """K8's two-pass form, one launch on the cluster path, against its
+    plain version (the port's fp32 `instance_norm` statistics) within
+    fp32 summation order, on activations whose channels sit far from 0
+    (a mean 10x their spread), where the one-pass form loses digits."""
+    *dims, groups = shape
+    x = _norm_input(dims, torch.float32, dev, seed=18) + 20.0
+    assert fused_plan(dims[1] * dims[2], dims[3], groups, 4).path == "cluster"
+    want = instance_norm_two_pass_plain(x, relu=relu, phase_groups=groups)
+    cuda_build.reset_launches()
+    got = instance_norm_fused(x, relu=relu, phase_groups=groups,
+                              two_pass=True)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["instance_norm_fused"] == 1
+    _assert_close(got, want)
+    again = instance_norm_fused(x, relu=relu, phase_groups=groups,
+                                two_pass=True)
+    assert torch.equal(got, again)
+
+
+def test_instance_norm_fused_pair_norm_at_fusenet_shape(dev):
+    """FuseNet's per-pair norm of a 64-frame chunk, (S·F, 32, 32, 1024)
+    bf16 with S = 3: K8's one-pass form against its plain version."""
+    x = _norm_input((192, 32, 32, 1024), torch.bfloat16, dev, seed=19)
+    _assert_close(instance_norm_fused(x, relu=True),
+                  instance_norm_fused_plain(x, relu=True,
+                                            out_dtype=torch.float32))
+
+
+def test_instance_norm_fused_two_pass_refuses_the_three_launch_path(dev):
+    """The three-launch path has no two-pass form: a shape no cluster
+    covers, or the path forced, is refused before any launch."""
+    x = torch.randn(1, 512, 512, 64, device=dev)
+    cuda_build.reset_launches()
+    with pytest.raises(ValueError, match="cluster path only"):
+        instance_norm_fused(x, two_pass=True)
+    with pytest.raises(ValueError, match="cluster path only"):
+        fused_launcher(x[:, :8].contiguous(), two_pass=True,
+                       path="three_launch")
+    assert cuda_build.LAUNCHES["instance_norm_fused"] == 0
+
+
+def _integer_input(shape, dtype, dev):
+    """Values made by integer arithmetic, the same on any PyTorch."""
+    i = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=dev)
+    v = ((i * 2654435761 + 12345) % 65521).float() / 65521.0
+    return (v * 6.0 - 2.5).reshape(shape).to(dtype)
+
+
+# K8's one-pass entry before its two-pass form was added: sha256 of the
+# output's bytes, (shape, groups, dtype, relu) -> digest, on an H100
+ONE_PASS_DIGESTS = {
+    ((64, 32, 32, 512), 1, torch.bfloat16, True):
+        "6a654d415d0844a304334d0d1a221cdcdd45692a710d5303bdc8fb5bbc793b3f",
+    ((64, 32, 32, 1024), 4, torch.bfloat16, True):
+        "dea34ac0799edc2dfde27745bf7b72eaa7ed9364854b0bee2cd75e4e7706bc03",
+    ((8, 64, 64, 256), 1, torch.float32, False):
+        "026d404bf742fef2da73f7361168b40ce74339f26c4523a746adf6273b56bade",
+    ((4, 64, 64, 1024), 16, torch.float32, True):
+        "69767135c1460ff3c4b9c6864e66ad498f8b774be48aafa02ed221e40bbd7e6f",
+    ((2, 40, 24, 96), 4, torch.bfloat16, False):
+        "f59b35b7b6d49d05219f7009a3848c5360a96caa690e3057a57448c2427cd399",
+    ((2, 40, 24, 12), 1, torch.bfloat16, True):
+        "db14e6bd1d9d81b7dd351343a4c89a5c08dfa4dba0bb547392fc35dbffad9c57",
+}
+
+
+@pytest.mark.parametrize("case", list(ONE_PASS_DIGESTS),
+                         ids=lambda c: f"{c[0][3]}c_g{c[1]}_{str(c[2])[6:]}")
+def test_instance_norm_fused_one_pass_keeps_its_bits(dev, case):
+    """The one-pass entry (the TPU kernel's formula) gives the bits it
+    gave before the two-pass form came in, on both paths."""
+    shape, groups, dtype, relu = case
+    y = instance_norm_fused(_integer_input(shape, dtype, dev), relu=relu,
+                            phase_groups=groups)
+    raw = y.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    digest = hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
+    assert digest == ONE_PASS_DIGESTS[case]
+
+
+# `decode_with_sources` with kernels against `use_kernels=False` at full
+# width in each clip cell's tier: the mean |gap| of the frames within the
+# 0.01 mean-L1 budget of the fast tiers' kernel paths against their plain
+# paths (QUIRKS.md "Numerics decisions"; chip_smoke.py holds the bench
+# tier's clip to it too)
+DECODE_TIERS = {"clip": dict(precision="high", fast_trunk=True,
+                             fast_tail=True),
+                "clip-high": dict(precision="high", fast_tail=True)}
+DECODE_MEAN_GAP = 0.01
+
+
+@pytest.mark.parametrize("tier", list(DECODE_TIERS))
+def test_decode_with_sources_with_and_without_kernels(dev, tier):
+    """A 64-frame chunk of `face_config()` in each clip tier: every norm
+    of the generator that the tier sends to K8 (and K1, K2) against the
+    all-plain path, which launches nothing; the frames within the fast
+    tiers' budget."""
+    from wacv23_tsnet_tpu_torch.configs import face_config
+    from wacv23_tsnet_tpu_torch.models import TSNetModules
+    from wacv23_tsnet_tpu_torch.models.tsnet import (decode_with_sources,
+                                                     encode_sources)
+    from wacv23_tsnet_tpu_torch.utils.profiling import TRUNK_NORMS
+    cfg = dataclasses.replace(face_config(), **DECODE_TIERS[tier])
+    mods = TSNetModules(cfg, device="cuda", seed=4)
+    img, lbl, box, tlbl, tbox = _face_clip_job(cfg, 64, 8)
+    onehot = lambda a: F.one_hot(torch.as_tensor(a, device=dev).long(),
+                                 cfg.label_nc).float()
+    src = (torch.as_tensor(img, device=dev).permute(0, 2, 3, 1) / 255.0,
+           onehot(lbl), torch.as_tensor(box, device=dev))
+    tar = (onehot(tlbl), torch.as_tensor(tbox, device=dev))
+    frames = {}
+    for use_kernels in (True, False):
+        before = dict(TRUNK_NORMS)
+        cuda_build.reset_launches()
+        pack = encode_sources(mods, *src, use_kernels=use_kernels)
+        frames[use_kernels] = decode_with_sources(
+            mods, pack, *tar, use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        fused = TRUNK_NORMS["fused"] - before["fused"]
+        if use_kernels:
+            assert launched["instance_norm_fused"] == _clip_norms(cfg, 1)
+            assert fused == _clip_norms(cfg, 1) - _decoder_norms(cfg)
+        else:
+            assert launched == {} and fused == 0
+    gap = (frames[True] - frames[False]).abs()
+    print(f"[decode] {tier}: mean {gap.mean():.3e} max {gap.max():.3e}")
+    assert bool(torch.isfinite(frames[True]).all())
+    assert gap.mean().item() <= DECODE_MEAN_GAP
+
+
 def _write_face_pair(root, frames, hw=96, seed=3):
     """A toy subject/driving pair: ramp-plus-noise PNG frames and
     68-landmark files, the two faces of different sizes."""
@@ -1405,8 +1618,8 @@ def _write_face_pair(root, frames, hw=96, seed=3):
 def test_demo_face_toy_on_the_card(dev, tmp_path, tier):
     """`cli.demo_face.main` at the toy config on the card: 40 frames in
     two 32-frame chunks launch one warp kernel (K3-nf, or K1 with
-    --fast-tail) and one K2 a chunk, and with --fast-tail one K8 a decoder
-    norm, as chip_smoke.py's [demo] does; the
+    --fast-tail) and one K2 a chunk, and one K8 a norm of the generator
+    (the sources encoded once), as chip_smoke.py's [demo] does; the
     reconstruction within the 0.01 mean-L1 budget of the same run on the
     CPU, and the GIF byte for byte what the writer makes of its montage
     PNGs."""
@@ -1428,9 +1641,10 @@ def test_demo_face_toy_on_the_card(dev, tmp_path, tier):
                          base_config=toy_config())
     torch.cuda.synchronize()
     launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
-    want = {warp: 2, "instance_norm_mean": 2}
-    if tier == "fast-tail":
-        want["instance_norm_fused"] = 2 * _decoder_norms(toy_config())
+    tier_cfg = dataclasses.replace(toy_config(), precision="high",
+                                   fast_tail=tier == "fast-tail")
+    want = {warp: 2, "instance_norm_mean": 2,
+            "instance_norm_fused": _clip_norms(tier_cfg, 2)}
     assert launches == want
     cpu = demo_face.main(args + ["--out-dir", str(tmp_path / "cpu")],
                          base_config=toy_config(), device="cpu")
@@ -1559,8 +1773,9 @@ def test_rasterize_pose_clip_on_the_card(dev):
 def test_pose_push_keypoints_kernels_match_plain(dev, fast_tail):
     """Pose `push_keypoints` at the toy pose config (25 classes) on the
     card: 40 frames in chunks of 32 launch one warp kernel (K3-nf, or K1
-    with fast_tail) and one K2 a chunk, and with fast_tail one K8 a
-    decoder norm, and the frames agree with the
+    with fast_tail) and one K2 a chunk, and with fast_tail one K8 a norm
+    of the bf16 tail (FuseNet's pair norm, the decoder's), and the frames
+    agree with the
     plain path's (1e-3 max abs in model space; 0.01 mean L1 with the
     bf16 tail)."""
     from wacv23_tsnet_tpu_torch.configs import toy_pose_config
@@ -1585,10 +1800,9 @@ def test_pose_push_keypoints_kernels_match_plain(dev, fast_tail):
         launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
         warp = ("transform_warp_pairs_mean" if fast_tail
                 else "transform_warp_pairs_nf")
-        want = {warp: 2, "instance_norm_mean": 2} if use_kernels else {}
-        if use_kernels and fast_tail:
-            want["instance_norm_fused"] = 2 * _decoder_norms(cfg)
-        assert launches == want
+        want = ({warp: 2, "instance_norm_mean": 2, "instance_norm_fused":
+                 _clip_norms(cfg, 2, encodes=0)} if use_kernels else {})
+        assert launches == {k: v for k, v in want.items() if v}
     err = np.abs(frames[True] - frames[False])
     assert frames[True].shape == (40, hw, hw, 3)
     if fast_tail:
@@ -1611,7 +1825,8 @@ def _toy_clip_inputs(cfg, frames=8, seed=5):
 def test_parallel_clip_one_rank_nccl_is_the_clip(dev, tmp_path, fast_tail):
     """A (1, 1) mesh over NCCL: `make_parallel_clip_infer` on the kernel
     path gives `tsnet_forward_clip`'s bits, one warp kernel and one K2,
-    and with `fast_tail` one K8 for each of the decoder's norms."""
+    and with `fast_tail` one K8 for each norm of the bf16 tail (FuseNet's
+    pair norm, the decoder's)."""
     import torch.distributed as dist
 
     from wacv23_tsnet_tpu_torch.models import TSNetModules, tsnet_forward_clip
@@ -1635,10 +1850,9 @@ def test_parallel_clip_one_rank_nccl_is_the_clip(dev, tmp_path, fast_tail):
     assert torch.equal(got, want)
     warp = ("transform_warp_pairs_mean" if fast_tail
             else "transform_warp_pairs_nf")
-    want = {warp: 1, "instance_norm_mean": 1}
-    if fast_tail:
-        want["instance_norm_fused"] = 2 * cfg.dec_n_blocks + cfg.n_downsampling
-    assert launched == want, launched
+    want = {warp: 1, "instance_norm_mean": 1,
+            "instance_norm_fused": _clip_norms(cfg, 1)}
+    assert launched == {k: v for k, v in want.items() if v}, launched
     assert calls == {("all_gather", "data", "nccl", "cuda"): 1}, calls
 
 
@@ -1722,8 +1936,8 @@ def test_zoo_on_the_card_matches_the_cpu(dev):
 
 def test_bench_sweep_toy_on_the_card(dev, capsys):
     """`bench_sweep` at the toy config on the card: the card line, eight
-    JSON lines, and one K1, one K2 and one K8 a decoder norm a clip call
-    (one warm-up and five timed calls a config)."""
+    JSON lines, and one K1, one K2 and one K8 a generator norm a clip
+    call (one warm-up and five timed calls a config)."""
     from wacv23_tsnet_tpu_torch.cli import bench_sweep
 
     cuda_build.reset_launches()
@@ -1735,5 +1949,6 @@ def test_bench_sweep_toy_on_the_card(dev, capsys):
     assert len(lines) == 8 and all(line["value"] > 0 for line in lines)
     assert launched == {"transform_warp_pairs_mean": 48,
                         "instance_norm_mean": 48,
-                        "instance_norm_fused": 48 * _decoder_norms(
-                            toy_config())}, launched
+                        "instance_norm_fused": 48 * _clip_norms(
+                            dataclasses.replace(toy_config(), precision="high",
+                                                fast_tail=True), 1)}, launched

@@ -2,7 +2,7 @@
 
 `nn.decoder.decoder_apply_fast` and `ops.upconv.upconv_in_relu` send each
 instance norm through K8 (`ops.norm_kernels.instance_norm_fused`) where
-`ops.norm_kernels.fuses_decoder_norm` says so: bf16 on CUDA, no gradient,
+`ops.norm_kernels.fuses_norm` says so: a CUDA tensor, no gradient,
 `use_kernels`. Here: the decision by device, dtype, grad state and
 `use_kernels`, and its counts in `utils.profiling.DECODER_NORMS`; on the
 CPU the decoder and the up stage give the bits of the composition they
@@ -10,7 +10,8 @@ ran before the route, in bf16 and fp32, with `use_kernels` either way;
 and, with the route's device check made to read CUDA, the decoder's
 eleven norms (two a block, one an up stage) through K8's plain version,
 within bf16 rounding of the composition, and none of them where a
-gradient flows, in fp32, or for a tensor-parallel block.
+gradient flows, with `use_kernels=False`, or for a tensor-parallel block.
+The other sites of the route: tests/test_torch_trunk_norm_route.py.
 """
 
 import types
@@ -18,10 +19,11 @@ import types
 import pytest
 import torch
 
-from wacv23_tsnet_tpu_torch.nn import decoder as decoder_mod
+from wacv23_tsnet_tpu_torch.nn.blocks import reflect_conv
 from wacv23_tsnet_tpu_torch.nn.decoder import Decoder, decoder_apply_fast
 from wacv23_tsnet_tpu_torch.ops import norm_kernels, upconv
 from wacv23_tsnet_tpu_torch.ops.dpconv import conv2d
+from wacv23_tsnet_tpu_torch.ops.norms import instance_norm
 from wacv23_tsnet_tpu_torch.ops.upconv import conv7x7_phase, depth_to_space
 from wacv23_tsnet_tpu_torch.utils.profiling import DECODER_NORMS
 
@@ -46,15 +48,15 @@ def on_card(monkeypatch):
     """The route's device check reads CUDA for every tensor; the rest of
     the decision (dtype, grad, `use_kernels`) and the count are the
     route's own. K8 then runs its plain version, as CPU tensors do."""
-    real = norm_kernels.fuses_decoder_norm
+    real = norm_kernels.fuses_norm
 
-    def fuses(x, use_kernels=True):
+    def fuses(x, *args, **kwargs):
         return real(types.SimpleNamespace(
-            device=torch.device("cuda"), dtype=x.dtype,
-            requires_grad=x.requires_grad), use_kernels)
+            device=torch.device("cuda"), dtype=x.dtype, shape=x.shape,
+            requires_grad=x.requires_grad, element_size=x.element_size,
+            data_ptr=x.data_ptr), *args, **kwargs)
 
-    for mod in (decoder_mod, upconv):
-        monkeypatch.setattr(mod, "fuses_decoder_norm", fuses)
+    monkeypatch.setattr(norm_kernels, "fuses_norm", fuses)
 
 
 def _stand_in(device, dtype, requires_grad):
@@ -67,7 +69,7 @@ ROUTES = {
     "card_bf16_grad_off": ("cuda", BF16, True, False, True, True),
     "card_bf16_no_kernels": ("cuda", BF16, False, True, False, False),
     "card_bf16_needs_grad": ("cuda", BF16, True, True, True, False),
-    "card_f32": ("cuda", F32, False, True, True, False),
+    "card_f32": ("cuda", F32, False, True, True, True),
     "card_f32_needs_grad": ("cuda", F32, True, True, True, False),
     "cpu_bf16": ("cpu", BF16, False, True, True, False),
     "cpu_f32": ("cpu", F32, False, False, True, False),
@@ -79,8 +81,8 @@ ROUTES = {
 def test_route_by_device_dtype_and_grad(case, counts):
     device, dtype, requires_grad, grad_on, use_kernels, want = ROUTES[case]
     with torch.set_grad_enabled(grad_on):
-        got = norm_kernels.fuses_decoder_norm(
-            _stand_in(device, dtype, requires_grad), use_kernels)
+        got = norm_kernels.fuses_norm(
+            _stand_in(device, dtype, requires_grad), use_kernels, counts)
     assert got is want
     assert counts == {"fused": int(want), "plain": int(not want)}
 
@@ -115,16 +117,26 @@ def _composition_upconv(x, kernel, precision, phase_out, bwd_precision):
     return y if phase_out else depth_to_space(y)
 
 
+def _composition_block(blk, x):
+    """`ResnetBlock.forward` as it ran before the route."""
+    def conv(t, c):
+        return reflect_conv(t, c.weight, c.bias, 1, c.precision, c.dtype,
+                            c.bwd_precision, blk.ring_pad)
+
+    h = torch.relu(instance_norm(conv(x, blk.conv1)))
+    return x + instance_norm(conv(h, blk.conv2))
+
+
 def _composition_decoder(dec, prop, syn):
     """`decoder_apply_fast` as it ran before the route: the blocks as
-    modules (`ResnetBlock.forward`), the up stages' inline norms."""
+    `ResnetBlock.forward` ran them, the up stages' inline norms."""
     dt, prec, bwd = dec.dtype, dec.precision, dec.bwd_precision
     x = torch.cat([prop, syn], dim=-1).to(dt)
     mc = dec.map_conv
     x = conv2d(x, mc.weight, mc.bias, precision=prec, dtype=dt,
                bwd_precision=bwd)
     for j in range(dec.n_blocks):
-        x = getattr(dec, f"block{j}")(x)
+        x = _composition_block(getattr(dec, f"block{j}"), x)
     for i in range(dec.n_downsampling):
         x = _composition_upconv(x, getattr(dec, f"up{i}").weight.to(dt),
                                 prec, i == dec.n_downsampling - 1, bwd)
@@ -186,8 +198,10 @@ def test_decoder_routed_through_k8_on_bf16_inference(on_card, counts):
 def test_decoder_keeps_the_composition_off_bf16_inference(on_card, counts,
                                                           case):
     """With the device check reading CUDA: under grad (the fast train
-    tier's bf16 decoder, which backpropagates), in fp32 and with
-    `use_kernels=False` every norm keeps the composition's bits."""
+    tier's bf16 decoder, which backpropagates), in fp32 at "highest" (the
+    bit-parity tier; fp32 at "high" takes K8:
+    tests/test_torch_trunk_norm_route.py) and with `use_kernels=False`
+    every norm keeps the composition's bits."""
     dec, prop, syn = _decoder(F32 if case == "f32" else BF16)
     grad = case == "needs_grad"
     with torch.set_grad_enabled(grad):

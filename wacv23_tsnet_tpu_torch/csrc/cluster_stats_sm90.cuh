@@ -44,6 +44,16 @@ __device__ __forceinline__ float normed(float v, float2 st, bool relu) {
   return relu ? fmaxf(r, 0.f) : r;
 }
 
+// The sum of part[i] over every block of the cluster, in rank order.
+__device__ __forceinline__ float cluster_total(float* part, int i) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned blocks = cluster.num_blocks();
+  float sum = 0.f;
+  for (unsigned r = 0; r < blocks; ++r)
+    sum += cluster.map_shared_rank(part, r)[i];
+  return sum;
+}
+
 // {mean, rstd} of channel ch over `count` values, from the partials at
 // part (sums) and part + nch (sums of squares) in every block of the
 // cluster.

@@ -9,6 +9,11 @@
 //   copies of a channel pool, over N*G values;
 //   mean = sum / n, var = max(sq / n - mean^2, 0), rstd = rsqrt(var + eps)
 //   out = (x - mean) * rstd, relu if asked, one rounding to x's type.
+// The cluster path also has the two-pass form of the port's fp32
+// instance_norm (ops/norms.py): mean = sum / n, then
+// var = sum_p (x - mean)^2 / n from the values already on chip, the same
+// normalise. One pass or two is the launcher's choice; the one-pass form
+// is the TPU kernel's and keeps its bits.
 //
 // What bounds it: memory. The function reads x once and writes out once,
 // a few flops per element: at (32, 128, 128, 256) and at (32, 256, 256,
@@ -38,6 +43,9 @@
 //    no atomics, no partials in device memory;
 // 3. each thread normalises its chunks (cstats::normed, relu in fp32, one
 //    rounding) and stores them with a streaming hint.
+// The two-pass form sums x alone in 1, finishes the mean over the cluster
+// as in 2, then sums (x - mean)^2 over the chunks it holds and finishes
+// that over the cluster too (a second DSMEM round, no second read of x).
 // The units of one sample are neighbours in the grid, so the slabs of a
 // pixel's row are read at about the same time. 16 blocks of 208 KiB of
 // shared memory: 7 such clusters run at once on the H100 (112 SMs).
@@ -376,7 +384,7 @@ __device__ __forceinline__ void each_stage(F&& f) {
 // t / S, p0 + P, ... (P = THREADS / S); it keeps chunks 0 .. REG - 1 in
 // registers and chunk i >= REG at held[(i - REG) * THREADS + t], so that
 // it reads back only what it copied in.
-template <typename T, bool RELU>
+template <typename T, bool RELU, bool TWO_PASS>
 __global__ void __launch_bounds__(THREADS) in_fused_cluster_kernel(
     const T* __restrict__ x, T* __restrict__ out, int N, int C, int G,
     int slab, int rows, float eps) {
@@ -429,7 +437,7 @@ __global__ void __launch_bounds__(THREADS) in_fused_cluster_kernel(
 #pragma unroll
     for (int c = 0; c < V; ++c) {
       sum[c] += v[c];
-      sq[c] = fmaf(v[c], v[c], sq[c]);
+      if constexpr (!TWO_PASS) sq[c] = fmaf(v[c], v[c], sq[c]);
     }
   };
 #pragma unroll
@@ -443,37 +451,86 @@ __global__ void __launch_bounds__(THREADS) in_fused_cluster_kernel(
   // 2. the lanes with the same chunk of the slab (lane % hs; hs is 1, 2
   // or 4, and pools the groups) add up, then the warps in order, then the
   // cluster's blocks in rank order
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) {
-    if (o < hs) break;
-#pragma unroll
-    for (int c = 0; c < V; ++c) {
-      sum[c] += __shfl_xor_sync(0xffffffffu, sum[c], o);
-      sq[c] += __shfl_xor_sync(0xffffffffu, sq[c], o);
-    }
-  }
   const int lane = t % 32, warp = t / 32;
-  if (lane < hs) {
+  const float count = (float)N * (float)G;
+  if constexpr (!TWO_PASS) {
 #pragma unroll
-    for (int c = 0; c < V; ++c) {
-      wred[warp][0][lane * V + c] = sum[c];
-      wred[warp][1][lane * V + c] = sq[c];
-    }
-  }
-  __syncthreads();
-  if (t < slab) {
-    float a = 0.f, q = 0.f;
+    for (int o = 16; o >= 1; o >>= 1) {
+      if (o < hs) break;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      a += wred[w][0][t];
-      q += wred[w][1][t];
+      for (int c = 0; c < V; ++c) {
+        sum[c] += __shfl_xor_sync(0xffffffffu, sum[c], o);
+        sq[c] += __shfl_xor_sync(0xffffffffu, sq[c], o);
+      }
     }
-    part[t] = a;
-    part[slab + t] = q;
+    if (lane < hs) {
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        wred[warp][0][lane * V + c] = sum[c];
+        wred[warp][1][lane * V + c] = sq[c];
+      }
+    }
+    __syncthreads();
+    if (t < slab) {
+      float a = 0.f, q = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        a += wred[w][0][t];
+        q += wred[w][1][t];
+      }
+      part[t] = a;
+      part[slab + t] = q;
+    }
+    cstats::cluster_sync();
+    if (t < slab) st[t] = cstats::cluster_stats(part, slab, t, count, eps);
+  } else {
+    // v summed over the lanes, then the warps, into the block's partial
+    // `out` (t < slab), then over the cluster's blocks
+    auto total = [&](float (&v)[V], float* out) {
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1) {
+        if (o < hs) break;
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          v[c] += __shfl_xor_sync(0xffffffffu, v[c], o);
+      }
+      if (lane < hs) {
+#pragma unroll
+        for (int c = 0; c < V; ++c) wred[warp][0][lane * V + c] = v[c];
+      }
+      __syncthreads();
+      if (t < slab) {
+        float a = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) a += wred[w][0][t];
+        out[t] = a;
+      }
+      cstats::cluster_sync();
+      return t < slab ? cstats::cluster_total(out, t) : 0.f;
+    };
+    // the mean, then (x - mean)^2 summed over the chunks held on chip
+    const float mean_t = total(sum, part) / count;
+    if (t < slab) st[t].x = mean_t;
+    __syncthreads();
+    float mean[V];
+#pragma unroll
+    for (int c = 0; c < V; ++c) mean[c] = st[h * V + c].x;
+    auto dev = [&](const uint4& q) {
+      float v[V];
+      Chunk<T>::unpack(q, v);
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        const float d = v[c] - mean[c];
+        sq[c] = fmaf(d, d, sq[c]);
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < REG; ++i)
+      if (i < m) dev(reg[i]);
+    for (int i = REG; i < m; ++i) dev(held[(i - REG) * THREADS + t]);
+    const float var_t = total(sq, part + slab) / count;
+    if (t < slab) st[t].y = rsqrtf(var_t + eps);
   }
-  cstats::cluster_sync();
-  if (t < slab)
-    st[t] = cstats::cluster_stats(part, slab, t, (float)N * (float)G, eps);
   cluster_arrive();
   __syncthreads();
 
@@ -496,17 +553,20 @@ __global__ void __launch_bounds__(THREADS) in_fused_cluster_kernel(
 }
 
 template <typename T>
-auto cluster_kernel(bool relu) {
-  return relu ? in_fused_cluster_kernel<T, true>
-              : in_fused_cluster_kernel<T, false>;
+auto cluster_kernel(bool relu, bool two_pass) {
+  if (two_pass)
+    return relu ? in_fused_cluster_kernel<T, true, true>
+                : in_fused_cluster_kernel<T, false, true>;
+  return relu ? in_fused_cluster_kernel<T, true, false>
+              : in_fused_cluster_kernel<T, false, false>;
 }
 
 // The launch configuration of the cluster path, its attributes set.
 template <typename T>
 cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                            int units, int cluster, int smem, bool relu,
-                           cudaStream_t st) {
-  auto kernel = cluster_kernel<T>(relu);
+                           bool two_pass, cudaStream_t st) {
+  auto kernel = cluster_kernel<T>(relu, two_pass);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess && cluster > 8)
@@ -547,15 +607,16 @@ bool cluster_plan_ok(int B, int N, int C, int G, int slab, int cluster,
 template <typename T>
 cudaError_t launch_cluster(const void* x, void* out, int B, int N, int C,
                            int G, int slab, int cluster, int rows, int smem,
-                           bool relu, float eps, cudaStream_t st) {
+                           bool relu, bool two_pass, float eps,
+                           cudaStream_t st) {
   if (!cluster_plan_ok(B, N, C, G, slab, cluster, rows, smem, Chunk<T>::V))
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t e = cluster_config<T>(&cfg, attr, B * (C / G / slab), cluster,
-                                    smem, relu, st);
+                                    smem, relu, two_pass, st);
   if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, cluster_kernel<T>(relu),
+  e = cudaLaunchKernelEx(&cfg, cluster_kernel<T>(relu, two_pass),
                          static_cast<const T*>(x), static_cast<T*>(out), N, C,
                          G, slab, rows, eps);
   if (e != cudaSuccess) return e;
@@ -566,10 +627,11 @@ template <typename T>
 cudaError_t max_clusters(int cluster, int smem, int* clusters) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = cluster_config<T>(&cfg, attr, 1, cluster, smem, false, 0);
+  cudaError_t e =
+      cluster_config<T>(&cfg, attr, 1, cluster, smem, false, false, 0);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveClusters(clusters, cluster_kernel<T>(false),
-                                       &cfg);
+    e = cudaOccupancyMaxActiveClusters(clusters,
+                                       cluster_kernel<T>(false, false), &cfg);
   if (e != cudaSuccess) cudaGetLastError();
   return e;
 }
@@ -582,17 +644,19 @@ extern "C" {
 // contiguous, on 16-byte boundaries; C a multiple of G and C/G of `slab`
 // (16 or 32 bytes of channels). A cluster of `cluster` blocks takes each
 // (sample, slab) unit, each block `rows` pixels of it, held in `smem`
-// bytes of dynamic shared memory. One launch.
+// bytes of dynamic shared memory. One launch; two_pass selects the
+// two-pass statistics.
 int tsnet_in_fused_cluster(const void* x, void* out, int B, int N, int C,
                            int G, int slab, int cluster, int rows, int smem,
-                           int in_bf16, int relu, float eps, void* stream) {
+                           int in_bf16, int relu, int two_pass, float eps,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_bf16)
     return (int)launch_cluster<__nv_bfloat16>(x, out, B, N, C, G, slab,
-                                              cluster, rows, smem, relu, eps,
-                                              st);
+                                              cluster, rows, smem, relu,
+                                              two_pass, eps, st);
   return (int)launch_cluster<float>(x, out, B, N, C, G, slab, cluster, rows,
-                                    smem, relu, eps, st);
+                                    smem, relu, two_pass, eps, st);
 }
 
 // How many clusters of the cluster path (cluster blocks, smem bytes of

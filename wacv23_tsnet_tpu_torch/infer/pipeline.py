@@ -112,7 +112,8 @@ class ClipInference:
             else:
                 frames = _PlainFrames()
             with torch.inference_mode():
-                pack = encode_sources(self.mods, *src)     # once a job
+                pack = encode_sources(self.mods, *src,     # once a job
+                                      use_kernels=self.use_kernels)
                 for lo in range(0, f, self.chunk):
                     idx = torch.arange(lo, lo + self.chunk,
                                        device=dev) % f   # pad by wrapping

@@ -55,7 +55,8 @@ class RetargetSession:
         self._mean = torch.as_tensor(mods.cfg.img_mean_array(), device=dev)
         self.src_pack = encode_sources(
             mods, *(torch.as_tensor(x, device=dev)
-                    for x in (src_img, src_lbl, src_bbox)))
+                    for x in (src_img, src_lbl, src_bbox)),
+            use_kernels=use_kernels)
 
     def _finish(self, rec: torch.Tensor) -> torch.Tensor:
         if self.output == "display":

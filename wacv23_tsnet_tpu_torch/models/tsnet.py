@@ -247,10 +247,12 @@ def tsnet_forward(mods: TSNetModules, src_img, src_lbl, src_bbox, tar_lbl,
     b, s, hh, ww, _ = src_img.shape
     enc_in = torch.cat([src_img, src_lbl], dim=-1).to(dt)
     src_img_fea = mods.run(mods.img_enc,
-                           enc_in.reshape((b * s,) + enc_in.shape[2:]))
+                           enc_in.reshape((b * s,) + enc_in.shape[2:]),
+                           use_kernels)
     h, w, c = src_img_fea.shape[1:]
     src_img_fea = src_img_fea.reshape(b, s, h, w, c)
-    tar_lbl_fea = mods.run(mods.lbl_enc, tar_lbl.to(dt))     # (B, h, w, C)
+    tar_lbl_fea = mods.run(mods.lbl_enc, tar_lbl.to(dt),
+                           use_kernels)                      # (B, h, w, C)
 
     tar_fea_n = l2_normalize(tar_lbl_fea.float())
     tar_mask = resize_nearest(tar_bbox[..., None].float(), (h, w))[..., 0]
@@ -295,13 +297,15 @@ def tsnet_forward(mods: TSNetModules, src_img, src_lbl, src_bbox, tar_lbl,
 
 
 def encode_sources(mods: TSNetModules, src_img: torch.Tensor,
-                   src_lbl: torch.Tensor, src_bbox: torch.Tensor) -> dict:
+                   src_lbl: torch.Tensor, src_bbox: torch.Tensor,
+                   use_kernels: bool = True) -> dict:
     """Encode the S reference frames once: the source pack reused by
     every chunk of driving frames. src_img (S, H, W, 3), src_lbl
-    (S, H, W, L), src_bbox (S, H, W), on the modules' device."""
+    (S, H, W, L), src_bbox (S, H, W), on the modules' device.
+    `use_kernels=False` keeps the encoder's norms on the composition."""
     with torch.inference_mode(), span("tsnet.encode_sources", mods.device):
         enc_in = torch.cat([src_img, src_lbl], dim=-1).to(mods.dtype)
-        src_fea = mods.img_enc(enc_in)
+        src_fea = mods.img_enc(enc_in, use_kernels)
         hw = src_fea.shape[1:3]
         return {
             "fea": src_fea,
@@ -311,12 +315,12 @@ def encode_sources(mods: TSNetModules, src_img: torch.Tensor,
 
 
 def label_features(mods: TSNetModules, tar_lbl: torch.Tensor,
-                   tar_bbox: torch.Tensor):
+                   tar_bbox: torch.Tensor, use_kernels: bool = True):
     """The label encoder's stage of `decode_with_sources`: the driving
     frames' label features (F, h, w, C) in the encoders' dtype, their
     f32 L2-normalised form, and the bbox masks at (h, w)."""
     with span("tsnet.lbl_enc", mods.device):
-        tar_fea = mods.lbl_enc(tar_lbl.to(mods.dtype))
+        tar_fea = mods.lbl_enc(tar_lbl.to(mods.dtype), use_kernels)
         h, w = tar_fea.shape[1:3]
         return (tar_fea, l2_normalize(tar_fea.float()),
                 resize_nearest(tar_bbox[..., None].float(), (h, w))[..., 0])
@@ -376,8 +380,8 @@ def decode_with_sources(mods: TSNetModules, src_pack: dict,
     `tsnet.encode_sources`.
     """
     with torch.inference_mode():
-        tar_fea, tar_fea_n, tar_mask = label_features(mods, tar_lbl,
-                                                      tar_bbox)
+        tar_fea, tar_fea_n, tar_mask = label_features(
+            mods, tar_lbl, tar_bbox, use_kernels)
         prop_fea = propagate(mods, src_pack, tar_fea_n, tar_mask,
                              use_kernels=use_kernels)
         with span("tsnet.fuse", mods.device):
@@ -408,7 +412,7 @@ def tsnet_forward_clip(mods: TSNetModules, src_img, src_lbl, src_bbox,
         raise ValueError(f"modules live on {mods.device}, inputs go to {dev}")
     args = [torch.as_tensor(x, device=dev)
             for x in (src_img, src_lbl, src_bbox, tar_lbl, tar_bbox)]
-    src_pack = encode_sources(mods, *args[:3])
+    src_pack = encode_sources(mods, *args[:3], use_kernels=use_kernels)
     return decode_with_sources(mods, src_pack, *args[3:],
                                use_kernels=use_kernels,
                                fused_blocks=fused_blocks)

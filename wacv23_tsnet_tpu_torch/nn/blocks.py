@@ -21,6 +21,9 @@ grad-input and grad-weight under the tier's own setting, the forward's
 or `bwd_precision`'s where a module sets one.
 
 Tensors stay NHWC; a convolution sees them as channels_last NCHW views.
+
+`norms_on_k8` says which of these tiers let their instance norms take
+K8 at inference (the norm route of `ops.norm_kernels.instance_norm_routed`).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.dpconv import conv2d
+from ..ops.norm_kernels import instance_norm_routed
 from ..ops.norms import instance_norm
 from ..ops.reflectconv import conv2d_reflect_dp
 
@@ -123,6 +127,20 @@ class Conv2d(nn.Module):
                       self.precision, self.dtype, self.bwd_precision)
 
 
+def norms_on_k8(dtype, precision: str) -> bool:
+    """Whether the instance norms after convs of this dtype and precision
+    may take K8 at inference: bf16 always, fp32 only at "high" (bf16x3).
+
+    K8 sums in another order than ATen's composition. At "highest" (the
+    bit-parity tier, held within 1e-3 of its plain path) that moves the
+    frames past 1e-3; at "default" (`fast_trunk`: the next conv takes one
+    bf16 pass) it flips bf16 roundings of the encoders' features ahead of
+    the temp-100 attention (0.13 mean L1 in the face clip's frames on an
+    H100, random weights, against the fast tiers' 0.01 budget). Both keep
+    the composition."""
+    return dtype == torch.bfloat16 or precision == "high"
+
+
 class ResnetBlock(nn.Module):
     """reflect-pad 3x3 conv + IN + ReLU, reflect-pad 3x3 conv + IN, +skip.
 
@@ -136,6 +154,12 @@ class ResnetBlock(nn.Module):
 
     `ring_pad` (`TSNetConfig.ring_pad`) runs each reflect-pad conv
     without the padded tensor (`ops.reflectconv`), on one rank or split.
+
+    On one rank both norms take the generator's norm route
+    (`ops.norm_kernels.instance_norm_routed`) with `use_kernels` in a
+    tier that `norms_on_k8` admits, counted in the `norms` given to
+    `forward` (a `utils.profiling` counter, or None). The tensor-parallel
+    branch keeps the composition, counted as such.
     """
 
     def __init__(self, dim: int, dtype=torch.float32,
@@ -149,14 +173,21 @@ class ResnetBlock(nn.Module):
         self.ring_pad = ring_pad
         self.tensor_parallel = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernels: bool = False,
+                norms: dict | None = None) -> torch.Tensor:
         def conv(t, c):
             return reflect_conv(t, c.weight, c.bias, 1, c.precision, c.dtype,
                                 c.bwd_precision, self.ring_pad)
 
         if self.tensor_parallel is None:
-            h = torch.relu(instance_norm(conv(x, self.conv1)))
-            return x + instance_norm(conv(h, self.conv2))
+            c1 = self.conv1
+            k8 = use_kernels and norms_on_k8(c1.dtype, c1.precision)
+            h = instance_norm_routed(conv(x, c1), norms, relu=True,
+                                     use_kernels=k8)
+            return x + instance_norm_routed(conv(h, self.conv2), norms,
+                                            use_kernels=k8)
+        if norms is not None:
+            norms["plain"] += 2
         mesh, axis = self.tensor_parallel
         h = torch.relu(instance_norm(conv(mesh.copy_to(x, axis), self.conv1)))
         c2 = self.conv2

@@ -18,15 +18,14 @@ JAX package does; the tests hold both forms against the JAX package's
 
 `decoder_apply_fast` runs its eleven instance norms (at the face
 config: two in each of 4 ResNet blocks, one in each of 3 up stages)
-through K8 (`ops.norm_kernels.instance_norm_fused`, one launch each,
-ReLU folded in) where the decoder runs bf16 inference on the card, and
-as the ATen composition of `ops.norms.instance_norm` and
-`ops.upconv.upconv_in_relu` everywhere else: on the CPU, in fp32, while
-a gradient flows (training), with `use_kernels=False`. The route follows
-from each norm's input (`ops.norm_kernels.fuses_decoder_norm`, which
-counts it in `utils.profiling.DECODER_NORMS`). A tensor-parallel block
-runs as its module, with the composition; the plain `Decoder.forward`
-always runs the composition.
+through the generator's norm route (`ops.norm_kernels.instance_norm_routed`,
+counted in `utils.profiling.DECODER_NORMS`): K8, one launch each, ReLU
+folded in, where the decoder runs inference on the card in a tier that
+`nn.blocks.norms_on_k8` admits (bf16, or fp32 at "high"), and the ATen
+composition everywhere else: on the CPU, while a gradient flows
+(training), with `use_kernels=False`, in fp32 at another precision (at
+"highest", the bit-parity tier). A tensor-parallel block keeps the
+composition; the plain `Decoder.forward` always runs the composition.
 
 `fused_blocks=True` on a bf16 decoder is the counterpart of the JAX
 package's `use_pallas_blocks=True`: each ResNet block runs as two K7
@@ -42,13 +41,12 @@ import torch
 import torch.nn as nn
 
 from ..ops.conv_kernels import resblock_fused
-from ..ops.norm_kernels import fuses_decoder_norm, instance_norm_fused
 from ..ops.norms import instance_norm
 from ..ops.dpconv import conv2d
 from ..ops.resize import upsample_bilinear_2x
 from ..ops.upconv import conv7x7_phase, depth_to_space, upconv_in_relu
 from ..utils.profiling import DECODER_NORMS
-from .blocks import Conv2d, ResnetBlock, reflect_conv, reflect_pad
+from .blocks import Conv2d, ResnetBlock, norms_on_k8, reflect_pad
 
 
 class Decoder(nn.Module):
@@ -111,32 +109,6 @@ class Decoder(nn.Module):
         return x
 
 
-def _norm(x: torch.Tensor, relu: bool, use_kernels: bool) -> torch.Tensor:
-    """A ResNet block's instance norm (+ relu): K8 where
-    `fuses_decoder_norm` routes it, else `ResnetBlock.forward`'s ops."""
-    if fuses_decoder_norm(x, use_kernels):
-        return instance_norm_fused(x.contiguous(), relu=relu)
-    y = instance_norm(x)
-    return torch.relu(y) if relu else y
-
-
-def _block(blk: ResnetBlock, x: torch.Tensor,
-           use_kernels: bool) -> torch.Tensor:
-    """`blk(x)` with its two norms routed by `_norm`. A tensor-parallel
-    block runs as its module, whose two norms take the composition and
-    are counted so."""
-    if blk.tensor_parallel is not None:
-        DECODER_NORMS["plain"] += 2
-        return blk(x)
-
-    def conv(t, c):
-        return reflect_conv(t, c.weight, c.bias, 1, c.precision, c.dtype,
-                            c.bwd_precision, blk.ring_pad)
-
-    h = _norm(conv(x, blk.conv1), True, use_kernels)
-    return x + _norm(conv(h, blk.conv2), False, use_kernels)
-
-
 def decoder_apply_fast(dec: Decoder, prop_fea: torch.Tensor,
                        syn_fea: torch.Tensor, return_fea: bool = True,
                        fused_blocks: bool = False, use_kernels: bool = True):
@@ -161,17 +133,18 @@ def decoder_apply_fast(dec: Decoder, prop_fea: torch.Tensor,
     mc = dec.map_conv
     x = conv2d(x, mc.weight, mc.bias, precision=prec, dtype=dt,
                bwd_precision=bwd)
+    k8 = use_kernels and norms_on_k8(dt, prec)
     if fused_blocks and dt == torch.bfloat16:
         x = dec.run_fused_blocks(x, use_kernels)
     else:
         for j in range(dec.n_blocks):
-            x = _block(getattr(dec, f"block{j}"), x, use_kernels)
+            x = getattr(dec, f"block{j}")(x, k8, DECODER_NORMS)
     # the up stages' conv biases cancel in their instance norms
     for i in range(dec.n_downsampling):
         x = upconv_in_relu(x, getattr(dec, f"up{i}").weight.to(dt),
                            precision=prec,
                            phase_out=i == dec.n_downsampling - 1,
-                           bwd_precision=bwd, use_kernels=use_kernels)
+                           bwd_precision=bwd, use_kernels=k8)
     co = dec.conv_out
     out = conv7x7_phase(x, co.weight.to(dt), co.bias.to(dt), precision=prec)
     rgb = torch.tanh(depth_to_space(out))

@@ -20,6 +20,15 @@ folded stem pads its few input channels either way).
 JAX package's function of that name; its TPU measured it slower end to
 end).
 
+Every instance norm (+ ReLU) of the stem, the stride-2 convs and the
+blocks takes the generator's norm route
+(`ops.norm_kernels.instance_norm_routed`, counted in
+`utils.profiling.TRUNK_NORMS`): K8, one launch each, at inference on the
+card in a tier that `nn.blocks.norms_on_k8` admits (fp32 encoders at
+"high", in K8's two-pass form, the port's fp32 statistics); the ATen
+composition on the CPU, while a gradient flows, with `use_kernels=False`
+and in the other tiers ("highest", `fast_trunk`).
+
 Used twice in TS-Net: the image encoder (3 + label_nc input channels,
 9 blocks) and the label encoder (label_nc input channels, no blocks).
 """
@@ -30,8 +39,9 @@ import torch
 import torch.nn as nn
 
 from ..ops.coords import coord_channels
-from ..ops.norms import instance_norm, instance_norm_phase
-from .blocks import Conv2d, ResnetBlock, reflect_conv
+from ..ops.norm_kernels import instance_norm_routed
+from ..utils.profiling import TRUNK_NORMS
+from .blocks import Conv2d, ResnetBlock, norms_on_k8, reflect_conv
 
 
 class Encoder(nn.Module):
@@ -56,26 +66,34 @@ class Encoder(nn.Module):
                             ResnetBlock(ngf * 2 ** n_downsampling,
                                         ring_pad=ring_pad, **kw))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, in_ch) -> (B, H / 2^n, W / 2^n, ngf * 2^n)."""
+    def forward(self, x: torch.Tensor,
+                use_kernels: bool = True) -> torch.Tensor:
+        """(B, H, W, in_ch) -> (B, H / 2^n, W / 2^n, ngf * 2^n).
+        `use_kernels=False` keeps every norm on the composition."""
         if self.addcoords:
             x = coord_channels(x)
         c = self.conv_in
         if (folds_stem(c.precision, c.dtype, x.device.type)
                 and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0):
-            x = folded_stem(c, x)
+            x = folded_stem(c, x, use_kernels=use_kernels)
         else:
             x = reflect_conv(x, c.weight, c.bias, 3, c.precision, c.dtype,
                              c.bwd_precision, self.ring_pad)
-            x = torch.relu(instance_norm(x))
-        return self.trunk(x)
+            x = instance_norm_routed(
+                x, TRUNK_NORMS, relu=True,
+                use_kernels=use_kernels and norms_on_k8(c.dtype, c.precision))
+        return self.trunk(x, use_kernels)
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor,
+              use_kernels: bool = True) -> torch.Tensor:
         """The layers after the stem: the stride-2 convs, then the blocks."""
         for i in range(self.n_downsampling):
-            x = torch.relu(instance_norm(getattr(self, f"down{i}")(x)))
+            down = getattr(self, f"down{i}")
+            k8 = use_kernels and norms_on_k8(down.dtype, down.precision)
+            x = instance_norm_routed(down(x), TRUNK_NORMS, relu=True,
+                                     use_kernels=k8)
         for j in range(self.n_blocks):
-            x = getattr(self, f"block{j}")(x)
+            x = getattr(self, f"block{j}")(x, use_kernels, TRUNK_NORMS)
         return x
 
 
@@ -88,17 +106,21 @@ def folds_stem(precision: str, dtype, device_type: str) -> bool:
             and device_type == "cuda")
 
 
-def folded_stem(c: Conv2d, x: torch.Tensor, fold: int = 4) -> torch.Tensor:
+def folded_stem(c: Conv2d, x: torch.Tensor, fold: int = 4,
+                use_kernels: bool = True) -> torch.Tensor:
     """relu(instance_norm(stem conv `c` of reflect_pad(x, 3))), the stem
     conv in `fold`x`fold`-folded space (`ops.stemconv.stem_conv7_fold4`,
     at the conv's precision, backward at its `bwd_precision`), the norm
-    in phase layout, then interleaved. H and W divisible by `fold`."""
+    and ReLU in phase layout (routed, `phase_groups=fold²`), then
+    interleaved. H and W divisible by `fold`."""
     from ..ops.stemconv import depth_to_space, stem_conv7_fold4
     yf = stem_conv7_fold4(x.to(c.dtype), c.weight.to(c.dtype),
                           c.bias.to(c.dtype), c.precision, fold,
                           c.bwd_precision)
-    y = instance_norm_phase(yf, groups=fold * fold)
-    return depth_to_space(torch.relu(y), fold)
+    y = instance_norm_routed(
+        yf, TRUNK_NORMS, relu=True, phase_groups=fold * fold,
+        use_kernels=use_kernels and norms_on_k8(c.dtype, c.precision))
+    return depth_to_space(y, fold)
 
 
 def encoder_apply_fast(enc: Encoder, x: torch.Tensor) -> torch.Tensor:

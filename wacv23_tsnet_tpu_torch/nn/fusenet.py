@@ -41,10 +41,12 @@ import torch
 import torch.nn as nn
 
 from ..ops.fuse_kernels import fuse_pair_conv2, fuse_pair_conv2_plain
-from ..ops.norm_kernels import instance_norm_mean, instance_norm_mean_plain
+from ..ops.norm_kernels import (instance_norm_mean, instance_norm_mean_plain,
+                                instance_norm_routed)
 from ..ops.norms import instance_norm
+from ..utils.profiling import TRUNK_NORMS
 from .blocks import (Conv2d, ResnetBlock, conv2d, conv2d_split_in,
-                     reflect_conv)
+                     norms_on_k8, reflect_conv)
 
 
 class FuseNet(nn.Module):
@@ -77,11 +79,15 @@ def fuse_clip(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
     """mean_s FuseNet(src_fea[s], tar_fea[f]) for all frames, split form.
 
     src_fea (S, h, w, C); tar_fea (F, h, w, C); `fuse_net.n_blocks == 1`.
-    Returns (F, h, w, C) in the FuseNet's dtype. `use_kernels=False` runs
-    the plain version of each kernel (K2, and K6 where it is on) on any
-    device. Unlike the JAX package's `use_pallas=False`, which leaves the
-    K6 branch for the unfused composition, it keeps the branch the
-    environment picks and swaps only the kernels for their plain versions.
+    Returns (F, h, w, C) in the FuseNet's dtype. The per-pair norm takes
+    the generator's norm route (`ops.norm_kernels.instance_norm_routed`,
+    counted in `utils.profiling.TRUNK_NORMS`): one K8 launch at inference
+    on the card in a tier that `nn.blocks.norms_on_k8` admits.
+    `use_kernels=False` runs the plain version of each kernel (K2, and K6
+    where it is on) and the pair norm's composition on any device. Unlike
+    the JAX package's `use_pallas=False`, which leaves the K6 branch for
+    the unfused composition, it keeps the branch the environment picks
+    and swaps only the kernels for their plain versions.
     """
     if fuse_net.n_blocks != 1:
         raise ValueError("fuse_clip needs a one-block FuseNet")
@@ -117,7 +123,9 @@ def fuse_clip(fuse_net: FuseNet, src_fea: torch.Tensor, tar_fea: torch.Tensor,
         h2 = pair_conv(c1a.contiguous(), c1t.contiguous(), w2)  # bias dropped
     else:
         hp = (c1a[:, None] + c1t[None]).reshape((s * f,) + c1a.shape[1:])
-        hp = torch.relu(instance_norm(hp))
+        hp = instance_norm_routed(
+            hp, TRUNK_NORMS, relu=True,
+            use_kernels=use_kernels and norms_on_k8(dt, prec))
         if tp is None:
             h2 = rconv(hp, w2)                              # bias dropped
         else:

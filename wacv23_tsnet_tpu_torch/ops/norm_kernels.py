@@ -12,11 +12,19 @@ Counterparts of the JAX package's `ops/pallas_norms.py`:
   `csrc/in_fused.cu`. One launch that reads x once where a thread-block
   cluster holds a (sample, channel slab) unit (`fused_plan`), else three
   (statistics, finalize, normalise). Inference only, as in the JAX
-  package. The phase decoder's instance norms (two a plain ResNet block,
-  one an up stage) run through it wherever `fuses_decoder_norm` says so:
-  a bf16 tensor on CUDA through which no gradient flows, with
-  `use_kernels` set. Every other input keeps the decoder's ATen
-  composition.
+  package. `two_pass=True` takes the two-pass statistics of the port's
+  fp32 `ops.norms.instance_norm` instead, on the cluster path only.
+
+`instance_norm_routed` is the one route of the generator's instance norms
+(+ ReLU): the encoders' stems and stride-2 convs, the ResNet blocks,
+FuseNet's per-pair norm in `fuse_clip`, and the phase decoder's up
+stages. Where `fuses_norm` says so (a CUDA tensor through which no
+gradient flows, with `use_kernels` set) it is one K8 launch, in the
+statistics form the composition has for x's dtype; everywhere else the
+ATen composition runs, bit for bit: on the CPU, while a gradient flows
+(training) and with `use_kernels=False`. Which tiers let their norms
+take K8 is the caller's choice, made through `use_kernels`
+(`nn.blocks.norms_on_k8`).
 
 Each runs its CUDA source on CUDA tensors (see its header for the design
 and what bounds it) and its plain version on CPU tensors. A CUDA tensor
@@ -33,7 +41,9 @@ TPU kernel's; its plain version is the JAX package's composition
 `_in_mean_ref`: the fp32 two-pass `instance_norm` of each plane, then the
 mean. The two agree to float rounding. K8's plain version follows the TPU
 kernels' numerics instead (one-pass fp32 sums for both dtypes), since the
-JAX entry has no composition of its own beside them.
+JAX entry has no composition of its own beside them; its two-pass form's
+plain version (`instance_norm_two_pass_plain`) is `ops.norms`'s fp32
+two-pass composition, ReLU in fp32 and one rounding.
 """
 
 from __future__ import annotations
@@ -44,9 +54,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.profiling import DECODER_NORMS
 from . import cuda_build
-from .norms import instance_norm
+from .norms import instance_norm, instance_norm_one_pass, instance_norm_phase
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -202,38 +211,97 @@ def instance_norm_fused_plain(x: torch.Tensor, eps: float = 1e-5,
     return y.reshape(b, h, w, c).to(out_dtype)
 
 
+def instance_norm_two_pass_plain(x: torch.Tensor, eps: float = 1e-5,
+                                relu: bool = False, phase_groups: int = 1,
+                                out_dtype=None) -> torch.Tensor:
+    """K8's two-pass form: `ops.norms.instance_norm_phase`'s fp32
+    two-pass statistics (mean, then E[(x - mean)²]) over space and the
+    `phase_groups` groups, whatever x's dtype; relu in fp32, one cast to
+    `out_dtype` (x's dtype by default)."""
+    b, h, w, c = x.shape
+    g = phase_groups
+    xf = x.float().reshape(b, h, w, g, c // g)
+    dims = (1, 2, 3)
+    mean = xf.mean(dim=dims, keepdim=True)
+    d = xf - mean
+    var = (d * d).mean(dim=dims, keepdim=True)
+    y = d * torch.rsqrt(var + eps)
+    if relu:
+        y = torch.relu(y)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    return y.reshape(b, h, w, c).to(out_dtype)
+
+
 def instance_norm_fused(x: torch.Tensor, eps: float = 1e-5,
-                        relu: bool = False,
-                        phase_groups: int = 1) -> torch.Tensor:
+                        relu: bool = False, phase_groups: int = 1,
+                        two_pass: bool = False) -> torch.Tensor:
     """K8: instance_norm (+ relu) of an NHWC tensor, f32 or bf16.
 
     x (B, H, W, C) -> the same shape and dtype. With `phase_groups=g > 1`
     the channel axis is (g, C // g) and the statistics reduce over the g
-    groups as well. Any H, W and C (C a multiple of g). Inference only: a
-    CUDA-bound tensor that requires grad while grad mode is on is refused.
+    groups as well. Any H, W and C (C a multiple of g). `two_pass=True`:
+    the two-pass statistics (`instance_norm_two_pass_plain`), which only
+    the cluster path has; a shape no cluster covers is refused. Inference
+    only: a CUDA-bound tensor that requires grad while grad mode is on is
+    refused.
     """
     if x.device.type == "cpu":
-        return instance_norm_fused_plain(x, eps, relu, phase_groups)
+        plain = (instance_norm_two_pass_plain if two_pass
+                 else instance_norm_fused_plain)
+        return plain(x, eps, relu, phase_groups)
     if torch.is_grad_enabled() and x.requires_grad:
         raise ValueError("instance_norm_fused kernel: inference only (no "
                          "gradient, as in the JAX package); x requires grad")
-    launch, out = fused_launcher(x, eps, relu, phase_groups)
+    launch, out = fused_launcher(x, eps, relu, phase_groups,
+                                 two_pass=two_pass)
     launch()
     cuda_build.LAUNCHES["instance_norm_fused"] += 1
     return out
 
 
-def fuses_decoder_norm(x: torch.Tensor, use_kernels: bool = True) -> bool:
-    """Whether the phase decoder's instance norm of x runs through K8: x is
-    bf16 on CUDA, `use_kernels` is set and no gradient flows through x
-    (K8 is inference only). Otherwise the decoder's ATen composition runs,
-    bit for bit as without K8: on the CPU, in fp32 and in training. Counts
-    the norm in `utils.profiling.DECODER_NORMS` by the route it takes."""
+def fuses_norm(x: torch.Tensor, use_kernels: bool = True,
+               norms: dict | None = None, phase_groups: int = 1,
+               two_pass: bool = False) -> bool:
+    """Whether the instance norm of x runs through K8: x is on CUDA,
+    `use_kernels` is set, no gradient flows through x (K8 is inference
+    only) and, for the `two_pass` form, a cluster covers x (`fused_plan`;
+    the three-launch path has no two-pass form). Counts the norm in
+    `norms` (a `utils.profiling` counter, or None) by the route it
+    takes."""
     fused = (use_kernels and x.device.type == "cuda"
-             and x.dtype == torch.bfloat16
              and not (torch.is_grad_enabled() and x.requires_grad))
-    DECODER_NORMS["fused" if fused else "plain"] += 1
+    if fused and two_pass:
+        b, h, w, c = x.shape
+        fused = fused_plan(h * w, c, phase_groups, x.element_size(),
+                           x.data_ptr() % 16 == 0).path == "cluster"
+    if norms is not None:
+        norms["fused" if fused else "plain"] += 1
     return fused
+
+
+def instance_norm_routed(x: torch.Tensor, norms: dict | None,
+                         relu: bool = False, phase_groups: int = 1,
+                         use_kernels: bool = True, one_pass: bool = False,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """instance_norm (+ relu) of an NHWC x by its route (`fuses_norm`),
+    counted in `norms`.
+
+    The composition is `ops.norms.instance_norm` (`instance_norm_phase`
+    with `phase_groups` > 1), two-pass statistics for fp32 and one-pass
+    for bf16, then the ReLU; with `one_pass` it is
+    `ops.norms.instance_norm_one_pass` (one-pass for both dtypes, the
+    phase decoder's up stages). Through K8 the statistics keep that form:
+    `two_pass` for fp32 unless `one_pass`."""
+    two_pass = x.dtype == torch.float32 and not one_pass
+    xc = x.contiguous()
+    if fuses_norm(xc, use_kernels, norms, phase_groups, two_pass):
+        return instance_norm_fused(xc, eps, relu, phase_groups,
+                                   two_pass=two_pass)
+    if one_pass:
+        return instance_norm_one_pass(x, eps, phase_groups, relu)
+    y = (instance_norm(x, eps) if phase_groups == 1
+         else instance_norm_phase(x, eps, phase_groups))
+    return torch.relu(y) if relu else y
 
 
 # K8's cluster path takes a unit of work, (sample, slab of SEGMENT bytes of
@@ -326,10 +394,11 @@ def _fused_check(x: torch.Tensor, phase_groups: int) -> None:
 
 
 def fused_launcher(x: torch.Tensor, eps: float = 1e-5, relu: bool = False,
-                   phase_groups: int = 1, path=None):
+                   phase_groups: int = 1, path=None, two_pass: bool = False):
     """K8's checks, plan, output and scratch for this CUDA input, without a
     launch: returns (launch, out). The path follows from the shape
-    (`fused_plan`); `path` forces one of FUSED_PATHS.
+    (`fused_plan`); `path` forces one of FUSED_PATHS. `two_pass` takes
+    the two-pass statistics, on the cluster path only.
     launch(phases) runs the three-launch path's launches whose bits
     `phases` sets (bit i: FUSED_PHASES[i]; all by default), and the
     cluster path's one launch for any bits; it counts nothing."""
@@ -345,6 +414,11 @@ def fused_launcher(x: torch.Tensor, eps: float = 1e-5, relu: bool = False,
         raise ValueError(f"instance_norm_fused kernel: no cluster covers "
                          f"{tuple(x.shape)} {x.dtype} with phase_groups="
                          f"{phase_groups}")
+    if two_pass and (path == "three_launch" or plan.path != "cluster"):
+        raise ValueError("instance_norm_fused kernel: the two-pass form runs "
+                         f"on the cluster path only; {tuple(x.shape)} "
+                         f"{x.dtype} with phase_groups={phase_groups} takes "
+                         "the three-launch path")
     out = torch.empty_like(x)
     lib = _fused_library()
     p = cuda_build.ptr
@@ -355,7 +429,8 @@ def fused_launcher(x: torch.Tensor, eps: float = 1e-5, relu: bool = False,
                 err = lib.tsnet_in_fused_cluster(
                     p(x), p(out), b, n, c, phase_groups, plan.slab,
                     plan.cluster, plan.rows_per_block, plan.smem_bytes, bf16,
-                    int(relu), float(eps), cuda_build.stream_of(x))
+                    int(relu), int(two_pass), float(eps),
+                    cuda_build.stream_of(x))
             cuda_build.check_launch(lib, err, "instance_norm_fused")
 
         return launch, out
@@ -409,7 +484,7 @@ def _fused_library() -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         cl = lib.tsnet_in_fused_cluster
-        cl.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
+        cl.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_void_p])
         cl.restype = ctypes.c_int
         occ = lib.tsnet_in_fused_max_clusters

@@ -11,6 +11,10 @@ the JAX package's two numerics forms (its `ops/norms.py:16-42`):
 `instance_norm_phase` is the same norm for a tensor in a phase layout:
 the 2x2 of `ops/warp.py:space_to_depth` or the 4x4 of the folded stem.
 
+`instance_norm_one_pass` is the phase decoder's up-stage form (the JAX
+package's `upconv_in_relu`): one-pass fp32 statistics for both dtypes,
+the ReLU in fp32, one rounding.
+
 `l2_normalize` is `F.normalize(p=2)`: x / max(||x||, eps).
 """
 
@@ -61,6 +65,26 @@ def instance_norm_phase(x: torch.Tensor, eps: float = 1e-5,
         var = (d * d).mean(dim=dims, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return y.reshape(b, h, w, cg).to(x.dtype)
+
+
+def instance_norm_one_pass(x: torch.Tensor, eps: float = 1e-5,
+                           groups: int = 1, relu: bool = False
+                           ) -> torch.Tensor:
+    """Instance norm (+ relu) of x (B, H, W, groups·C) in phase layout
+    with one-pass fp32 statistics whatever x's dtype: sum and sum of
+    squares over space and the `groups` phase copies of each channel,
+    the variance clamped at 0, relu in fp32, one rounding to x's dtype."""
+    b, h, w, cg = x.shape
+    xf = x.float().reshape(b, h, w, groups, cg // groups)
+    n = h * w * groups
+    dims = (1, 2, 3)
+    mean = xf.sum(dim=dims, keepdim=True) / n
+    var = torch.clamp(xf.square().sum(dim=dims, keepdim=True) / n
+                      - mean * mean, min=0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype).reshape(b, h, w, cg)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

@@ -22,10 +22,10 @@ the first and last two input rows and columns, so closed-form kernels
 (`_derived`) compute it exactly from them, and slice writes place it
 over the bulk conv's ring: the op is exact everywhere, borders included.
 
-`upconv_in_relu` runs the stage's instance norm and ReLU through K8
-(`ops.norm_kernels.instance_norm_fused`, `phase_groups=4`) where the
-decoder runs bf16 inference on the card, and as an ATen composition
-everywhere else (`ops.norm_kernels.fuses_decoder_norm`).
+`upconv_in_relu` runs the stage's instance norm and ReLU through the
+generator's norm route (`ops.norm_kernels.instance_norm_routed`,
+`phase_groups=4`, one-pass statistics): one K8 launch at inference on the
+card with `use_kernels`, an ATen composition everywhere else.
 
 `conv7x7_phase` is the decoder's last [reflect-pad 3 -> 7x7 conv] of a
 phase-layout input: a 5x5 conv over 4 Ci channels at half resolution
@@ -47,8 +47,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import DECODER_NORMS
 from .dpconv import conv2d
-from .norm_kernels import fuses_decoder_norm, instance_norm_fused
+from .norm_kernels import instance_norm_routed
 from .precision import tf32
 
 # _W1D[p, k, d]: coefficient of x[i + d - 1] in upsample tap u[2i + p + k - 1]
@@ -193,34 +194,16 @@ def upconv_in_relu(x: torch.Tensor, kernel: torch.Tensor,
     `bwd_precision`; the thin ring convs stay at the forward's. Arguments
     and result as `upsample2x_reflect_conv3`.
 
-    Where `norm_kernels.fuses_decoder_norm` routes it (bf16 on CUDA, no
-    gradient, `use_kernels`), the norm and relu of the phase-layout conv
-    output are one K8 launch with `phase_groups=4`: the same formula, its
-    fp32 sums in another order. Everywhere else the ATen composition
-    below runs."""
+    The norm and relu of the phase-layout conv output take the
+    generator's norm route (`norm_kernels.instance_norm_routed`, counted
+    in `utils.profiling.DECODER_NORMS`): at inference on the card with
+    `use_kernels` one K8 launch with `phase_groups=4`, the same formula
+    with its fp32 sums in another order; everywhere else
+    `ops.norms.instance_norm_one_pass`."""
     y = _ring_and_bulk(x, kernel, precision, bwd_precision)
-    if fuses_decoder_norm(y, use_kernels):
-        y = instance_norm_fused(y.contiguous(), eps, relu=True,
-                                phase_groups=4)
-    else:
-        y = in_relu_phase_plain(y, eps)
+    y = instance_norm_routed(y, DECODER_NORMS, relu=True, phase_groups=4,
+                             use_kernels=use_kernels, one_pass=True, eps=eps)
     return y if phase_out else depth_to_space(y)
-
-
-def in_relu_phase_plain(y: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """`upconv_in_relu`'s instance norm and ReLU of a phase-layout tensor
-    y (B, H, W, 4C) as an ATen composition: fp32 one-pass statistics over
-    space and the four phase copies of each channel, the variance clamped
-    at 0, the ReLU in fp32, one rounding to y's dtype."""
-    b, h, w, c4 = y.shape
-    yf = y.float().reshape(b, h, w, 4, c4 // 4)
-    n = h * w * 4
-    dims = (1, 2, 3)
-    mean = yf.sum(dim=dims, keepdim=True) / n
-    var = torch.clamp(yf.square().sum(dim=dims, keepdim=True) / n
-                      - mean * mean, min=0.0)
-    out = torch.relu((yf - mean) * torch.rsqrt(var + eps)).to(y.dtype)
-    return out.reshape(b, h, w, c4)
 
 
 @functools.cache

@@ -30,9 +30,14 @@ job's first), and `reused`, the job's pack encoded for an earlier chunk.
 
 `DECODER_NORMS` counts, always, the instance norms of the phase decoder
 (`nn.decoder.decoder_apply_fast`, `ops.upconv.upconv_in_relu`) by the
-route each took (`ops.norm_kernels.fuses_decoder_norm`): `fused`, through
-K8, and `plain`, the ATen composition. K7's norms, inside its conv, are
-not counted.
+route each took (`ops.norm_kernels.instance_norm_routed`): `fused`,
+through K8, and `plain`, the ATen composition. K7's norms, inside its
+conv, are not counted.
+
+`TRUNK_NORMS` counts, always, the same way the instance norms of the
+encoders (`nn.encoder.Encoder`: stem, stride-2 convs, ResNet blocks) and
+FuseNet's per-pair norm in `nn.fusenet.fuse_clip`; `fuse_train` and
+`FuseNet.forward` keep the composition and are not counted.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ SETUP_S: dict[str, float] = {}
 CLIP_COPIES: dict[str, int] = {"staged": 0, "plain": 0}
 CLIP_PACKS: dict[str, int] = {"encoded": 0, "reused": 0}
 DECODER_NORMS: dict[str, int] = {"fused": 0, "plain": 0}
+TRUNK_NORMS: dict[str, int] = {"fused": 0, "plain": 0}
 
 _RECORDS: list = []
 _UNITS = itertools.count()
